@@ -1,0 +1,385 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (laff_tpu_torch) on one NVIDIA card.
+
+  python3 chip_smoke.py          # from the repository root; needs one GPU
+
+Phases, each asserting; any failure exits non-zero before the last line:
+
+1. Device and build: the card's name and power limit (nvidia-smi), the
+   CUDA kernels compiled from laff_tpu_torch/csrc (one nvcc per source).
+2. Kernels against their plain PyTorch versions on the card, at the main
+   path's shapes: sim_rank_wide at the MV-test3k shape (59,800 captions x
+   2,990 videos x 4,096), sim_rank_tiled at a gallery above the wide budget
+   (8,192 x 16,384), gate_attention at the eval batch (1024, 4, 8, 512) with
+   with_ave off / on and mul on. Times are CUDA-event medians.
+3. The prediction slice at full width (configs/rehearsal.py, seeded random
+   weights) through ``laff_tpu_torch.engine.predictor.main``: a synthetic
+   2,990-video x 20-caption world with rank_path 'kernel' and 'flat', then
+   an 8,600-video world (above the wide budget) with rank_path 'kernel'.
+   Launch counts are zeroed just before and read just after each kernel
+   run. The same inputs are embedded again: the kernel run's ranks are held
+   against the plain rank version on those bf16 operands, the flat run's
+   against their f32 scores, and the towers against the CPU.
+
+Prints the kernels JSON line, then ``{"ok": true, "device": ...}`` last.
+Everything it writes goes under build/ in the repository.
+"""
+
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(ROOT, "build", "chip_smoke")
+SEED = 0
+
+# H100 SXM published peaks (NVIDIA data sheet; dense, 700 W)
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_OPS_S = 989e12
+PEAK_F32_OPS_S = 67e12
+
+# kernel vs plain: scores are f32 accumulations of the same bf16 products in
+# other orders (about 1e-6 apart at HD = 4096); a rank may move only across
+# columns scoring within this distance of the ground truth
+SCORE_TIE_TOL = 1e-4
+GATE_TOL = 1e-5  # f32 unit vectors, reductions in another order
+# GPU towers (bf16 linears on cuBLAS, the gate kernel) vs the same model on
+# the CPU (plain versions): a few bf16 ulps on unit-scale activations
+TOWER_TOL = 4e-2
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def time_ms(torch, fn, reps=5):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes, ops, peak_ops):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def unit_heads(torch, gen, n, heads=8, dh=512):
+    x = torch.randn(n, heads, dh, generator=gen, device="cuda")
+    return x / x.norm(dim=-1, keepdim=True)
+
+
+def rank_moves_explained(torch, ranks_a, ranks_b, tn, vn, gt, tol):
+    """Every row whose ranks differ has at least that many columns scoring
+    within ``tol`` of its ground truth (scores in f64 from the bf16 rows)."""
+    diff = (ranks_a.long() - ranks_b.long()).abs()
+    rows = torch.nonzero(diff).flatten()
+    vd = vn.double()
+    for chunk in rows.split(512):
+        s = tn[chunk].double() @ vd.T
+        g = s.gather(1, gt[chunk].long()[:, None])
+        near = ((s - g).abs() <= tol).sum(dim=1) - 1
+        if bool((diff[chunk] > near).any()):
+            return False, int(diff.max())
+    return True, int(diff.max()) if diff.numel() else 0
+
+
+def sim_rank_phase(torch, K, name, t, v, captions_per_video, gen):
+    hd = 8 * 512
+    txt = unit_heads(torch, gen, t)
+    vis = unit_heads(torch, gen, v)
+    if captions_per_video:
+        gt = (torch.arange(t, device="cuda") // captions_per_video).int()
+    else:
+        gt = torch.randint(0, v, (t,), generator=gen, device="cuda").int()
+    wide = K.is_wide(v, hd)
+    check(wide == (name == "sim_rank_wide"), f"{name}: shape takes the other branch")
+    before = K.LAUNCHES[name]
+    ranks = K.fused_sim_rank(txt, vis, gt, prenormalized=True)
+    torch.cuda.synchronize()
+    check(K.LAUNCHES[name] == before + 1, f"{name}: the wrapper did not launch it")
+    plain = K.fused_sim_rank_plain(txt, vis, gt, prenormalized=True)
+    torch.cuda.synchronize()
+    tn = txt.reshape(t, -1).to(torch.bfloat16)
+    vn = vis.reshape(v, -1).to(torch.bfloat16)
+    ok, max_err = rank_moves_explained(torch, ranks, plain, tn, vn, gt, SCORE_TIE_TOL)
+    equal = float((ranks == plain).float().mean())
+    check(ok, f"{name}: ranks differ from the plain version beyond near ties")
+    check(bool(((ranks >= 1) & (ranks <= v)).all()), f"{name}: ranks out of range")
+    exact = K.fused_sim_rank(vis[gt[:1024].long()], vis, gt[:1024], prenormalized=True)
+    check(bool((exact == 1).all()), f"{name}: an exact match did not rank 1")
+
+    ms = time_ms(torch, lambda: K.fused_sim_rank(txt, vis, gt, prenormalized=True))
+    plain_ms = time_ms(torch, lambda: K.fused_sim_rank_plain(txt, vis, gt, prenormalized=True),
+                       reps=3)
+    from laff_tpu_torch.eval.metrics import ranks_from_scores
+
+    def library():  # cuBLAS bf16 product + torch counting: the yardstick
+        return ranks_from_scores((tn @ vn.T).float(), gt)
+
+    library_ms = time_ms(torch, library, reps=3)
+    b_ms, b_by = bound_ms((t + v) * hd * 2 + 2 * t * 4, 2.0 * t * v * hd, PEAK_BF16_OPS_S)
+    log(f"{name}: T={t} V={v} HD={hd}: rows equal to plain {equal:.6f}, "
+        f"max |rank diff| {max_err} (near ties within {SCORE_TIE_TOL}); "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, matmul+count {library_ms:.3f} ms, "
+        f"bound {b_ms:.3f} ms ({b_by})")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms}
+
+
+def gate_phase(torch, K, gen):
+    b, l, h, dh = 1024, 4, 8, 512
+    x = torch.randn(b, l, h, dh, generator=gen, device="cuda")
+    bound = 1.0 / dh ** 0.5
+    k = (torch.rand(h, dh, generator=gen, device="cuda") * 2 - 1) * bound
+    bias = (torch.rand(h, generator=gen, device="cuda") * 2 - 1) * bound
+    out = {}
+    for with_ave, mul in ((False, False), (True, False), (True, True)):
+        got = K.fused_gate_attention(x, k, bias, 0.8, with_ave=with_ave, mul=mul)
+        ref = K.fused_gate_attention_plain(x, k, bias, 0.8, with_ave=with_ave, mul=mul)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        check(err <= GATE_TOL, f"gate with_ave={with_ave} mul={mul}: max err {err}")
+        ms = time_ms(torch, lambda: K.fused_gate_attention(x, k, bias, 0.8, with_ave, mul), 20)
+        plain_ms = time_ms(torch, lambda: K.fused_gate_attention_plain(
+            x, k, bias, 0.8, with_ave, mul), 20)
+        n_bytes = (x.numel() + k.numel() + bias.numel() + b * h * dh) * 4
+        ops = x.numel() * (10 if mul else 8)  # mean, logits, weighted sum, norm
+        b_ms, b_by = bound_ms(n_bytes, ops, PEAK_F32_OPS_S)
+        log(f"gate_attention (B={b}, L={l}, H={h}, dh={dh}) with_ave={with_ave} mul={mul}: "
+            f"max abs err {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        out[(with_ave, mul)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    # the headline gate (with_ave off, mul off) is the main path's; the
+    # worst error over the three option sets is reported with it
+    row = dict(out[(False, False)])
+    row["max_abs_err"] = max(r["max_abs_err"] for r in out.values())
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the prediction slice
+# ---------------------------------------------------------------------------
+
+def run_predictor(torch, K, P, root, coll, ckpt, rank_path):
+    opt = P.PredictOptions(
+        testCollection=coll, model_path=ckpt, sim_name=f"smoke_{rank_path}", rootpath=root,
+        query_sets=f"{coll}.caption.txt", overwrite=1, device="cuda", rank_path=rank_path,
+        predict_result_file=os.path.join(root, "result_log", "smoke.txt"))
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = P.main(opt)[f"{coll}.caption.txt"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    secs = ", ".join(f"{k} {v:.2f}" for k, v in res["seconds"].items())
+    log(f"predictor {coll} rank_path={rank_path}: {wall:.1f} s wall ({secs}); "
+        f"launches {launches}")
+    log(f"  t2v r1 {res['t2v'][0]:.3f} r5 {res['t2v'][1]:.3f} r10 {res['t2v'][2]:.3f} "
+        f"medr {res['t2v'][3]:.0f} meanr {res['t2v'][4]:.2f} mir {res['t2v'][5]:.5f}; "
+        f"v2t r1 {res['v2t'][0]:.3f} r5 {res['v2t'][1]:.3f} r10 {res['v2t'][2]:.3f} "
+        f"medr {res['v2t'][3]:.0f} mir {res['v2t'][5]:.5f}")
+    for m in (res["t2v"], res["v2t"]):
+        check(all(float(x) == float(x) for x in m), "a metric is NaN")
+    return res, launches
+
+
+def reembed_and_check(torch, K, P, root, coll, ckpt, res_kernel, res_flat):
+    """Embed the same inputs again (same model, feeds and batches, so the
+    same embeddings) and hold both runs' ranks against them: kernel ranks
+    against the rank kernel's plain version on the same bf16 operands (near
+    ties within SCORE_TIE_TOL: f32 accumulation order), flat ranks against
+    the f32 scores (near ties within 1e-5)."""
+    from laff_tpu_torch.engine.checkpoint import load_checkpoint
+    from laff_tpu_torch.engine.evaluator import Embedder
+    from laff_tpu_torch.ops import flatten_heads
+
+    ck = load_checkpoint(ckpt)
+    model = P.rebuild_model(ck, torch.device("cuda"))
+    feats = P.rebuild_featurizers(ck, root)
+    opt = P.PredictOptions(coll, ckpt, "x", rootpath=root)
+    vis_feed, txt_feed, _, _ = P.build_test_feeds(opt, ck["config"], f"{coll}.caption.txt",
+                                                  feats)
+    emb = Embedder(model, torch.device("cuda"))
+    txt, txt_ids = emb.embed_txt(txt_feed)
+    vis, vis_ids = emb.embed_vis(vis_feed)
+    heads = txt.shape[1]
+    check(txt.shape == (len(txt_ids), heads, 512) and vis.shape == (len(vis_ids), heads, 512),
+          f"embedding shapes {tuple(txt.shape)} {tuple(vis.shape)}")
+    check(bool(torch.isfinite(txt).all() and torch.isfinite(vis).all()), "non-finite embeddings")
+    norms = torch.cat([txt.norm(dim=-1).flatten(), vis.norm(dim=-1).flatten()])
+    check(float((norms - 1).abs().max()) < 1e-4, "gate outputs are not unit per head")
+
+    vid_index = {v: i for i, v in enumerate(vis_ids)}
+    gt = torch.as_tensor([vid_index[t.split("#")[0]] for t in txt_ids], device="cuda")
+    tn, vn = flatten_heads(txt), flatten_heads(vis)
+    rk = torch.as_tensor(res_kernel["t2v_ranks"], device="cuda").long()
+    rf = torch.as_tensor(res_flat["t2v_ranks"], device="cuda").long()
+    t = len(txt_ids)
+
+    # the predictor's kernel call is fused_sim_rank(tn, vn, gt, prenormalized)
+    plain = K.fused_sim_rank_plain(tn, vn, gt, prenormalized=True).long()
+    ok, max_err = rank_moves_explained(torch, rk, plain, tn.to(torch.bfloat16),
+                                       vn.to(torch.bfloat16), gt, SCORE_TIE_TOL)
+    check(ok, "main-path kernel ranks differ from the plain version beyond near ties")
+    equal = int((rk == plain).sum())
+
+    td, vd = tn.double(), vn.double()
+    for rows in torch.arange(t, device="cuda").split(4096):
+        s = td[rows] @ vd.T / heads
+        g = s.gather(1, gt[rows][:, None])
+        exact = 1 + ((s > g) | ((s == g) & (torch.arange(s.shape[1], device="cuda")
+                                            > gt[rows][:, None]))).sum(dim=1)
+        near_f32 = ((s - g).abs() <= 1e-5).sum(dim=1) - 1
+        check(bool(((rf[rows] - exact).abs() <= near_f32).all()),
+              "flat ranks disagree with the re-embedded f32 scores")
+    moved = int((rk != rf).sum())
+    log(f"  slice check: {t} captions; main-path kernel ranks equal the plain version "
+        f"on the same bf16 operands for {equal} rows (others within {SCORE_TIE_TOL} "
+        f"near ties, at most {max_err} places); flat ranks match the re-embedded f32 "
+        f"scores; kernel (bf16) vs flat (f32) ranks differ on {moved} rows "
+        f"({moved / t:.4%}, at most {int((rk - rf).abs().max())} places)")
+    check(tuple(res_kernel["v2t"]) == tuple(res_flat["v2t"]),
+          "v2t metrics differ between two runs over the same score path")
+    return txt[:64].float(), vis[:64].float(), txt_feed, vis_feed, model
+
+
+def cpu_reference_check(torch, P, ckpt, txt_feed, vis_feed, gpu_txt, gpu_vis):
+    """The same model on the CPU (plain versions everywhere) on the first
+    batch's first 64 captions and videos agrees with the card's output."""
+    from laff_tpu_torch.engine.checkpoint import load_checkpoint
+    from laff_tpu_torch.engine.evaluator import to_device
+
+    model = P.rebuild_model(load_checkpoint(ckpt), torch.device("cpu"))
+    tb = next(iter(txt_feed))["data"]
+    vb = next(iter(vis_feed))["data"]
+    with torch.no_grad():
+        ct = model.encode_txt(to_device({k: v[:64] for k, v in tb.items()}, "cpu"))
+        cv = model.encode_vis(to_device({k: v[:64] for k, v in vb.items()}, "cpu"))
+    err = max(float((ct - gpu_txt.cpu()).abs().max()), float((cv - gpu_vis.cpu()).abs().max()))
+    check(err <= TOWER_TOL, f"card vs CPU towers: max abs err {err}")
+    log(f"  towers on the card vs the CPU (64 captions, 64 videos): max abs err {err:.3g}")
+
+
+def main():
+    import torch
+
+    if not os.path.isdir(os.path.join(ROOT, "laff_tpu_torch")):
+        print("chip_smoke: laff_tpu_torch/ is not beside chip_smoke.py", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60)
+        log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
+            f"nvidia-smi gave nothing: {smi.stderr.strip()}")
+        log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda "
+            f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}; "
+            f"tf32 off for matmul and cuDNN")
+
+        from laff_tpu_torch.data.synth import build_world
+        from laff_tpu_torch.engine import predictor as P
+        from laff_tpu_torch.engine.checkpoint import save_checkpoint
+        from laff_tpu_torch.engine.prepare import init_checkpoint
+        from laff_tpu_torch.ops import kernels as K
+
+        t0 = time.perf_counter()
+        logs = K.build_kernels()
+        log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'cached'}")
+        for name, text in logs.items():
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  {name}: {line.strip()}")
+
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        rows = {
+            "sim_rank_wide": sim_rank_phase(torch, K, "sim_rank_wide", 59_800, 2_990, 20, gen),
+            "sim_rank_tiled": sim_rank_phase(torch, K, "sim_rank_tiled", 8_192, 16_384, 0, gen),
+            "gate_attention": gate_phase(torch, K, gen),
+        }
+
+        shutil.rmtree(WORK, ignore_errors=True)
+        root = os.path.join(WORK, "world")
+        t0 = time.perf_counter()
+        log(f"world: {build_world(root, 'rtest', 2990, 20, 11286, SEED)} "
+            f"in {time.perf_counter() - t0:.1f} s")
+        ckpt = os.path.join(WORK, "rtest_model.pt")
+        save_checkpoint(init_checkpoint("rehearsal", root, "rtest", SEED), ckpt)
+
+        res_k, launches_k = run_predictor(torch, K, P, root, "rtest", ckpt, "kernel")
+        check(launches_k["sim_rank_wide"] >= 1, "the kernel run launched no sim_rank_wide")
+        check(launches_k["gate_attention"] >= 1, "the kernel run launched no gate_attention")
+        res_f, launches_f = run_predictor(torch, K, P, root, "rtest", ckpt, "flat")
+        check(launches_f["sim_rank_wide"] == 0, "the flat run launched the rank kernel")
+        gpu_txt, gpu_vis, txt_feed, vis_feed, _ = reembed_and_check(
+            torch, K, P, root, "rtest", ckpt, res_k, res_f)
+        cpu_reference_check(torch, P, ckpt, txt_feed, vis_feed, gpu_txt, gpu_vis)
+
+        t0 = time.perf_counter()
+        log(f"world: {build_world(root, 'rbig', 8600, 2, 11286, SEED + 1)} "
+            f"in {time.perf_counter() - t0:.1f} s")
+        big = os.path.join(WORK, "rbig_model.pt")
+        save_checkpoint(init_checkpoint("rehearsal", root, "rbig", SEED + 1), big)
+        _, launches_b = run_predictor(torch, K, P, root, "rbig", big, "kernel")
+        check(launches_b["sim_rank_tiled"] >= 1, "the large-gallery run launched no tiled kernel")
+        check(launches_b["sim_rank_wide"] == 0, "the large-gallery run took the wide kernel")
+
+        meta = {
+            "sim_rank_wide": ("laff_tpu_torch/csrc/sim_rank.cu",
+                              "laff_tpu/ops/pallas_kernels.py:116", launches_k),
+            "sim_rank_tiled": ("laff_tpu_torch/csrc/sim_rank.cu",
+                               "laff_tpu/ops/pallas_kernels.py:65", launches_b),
+            "gate_attention": ("laff_tpu_torch/csrc/gate.cu",
+                               "laff_tpu/ops/pallas_kernels.py:274", launches_k),
+        }
+        kernels = []
+        for name, (source, replaces, launches) in meta.items():
+            kernels.append({"name": name, "route": "cuda", "source": source,
+                            "replaces": replaces, "launches": launches[name], **rows[name]})
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        log(json.dumps({"kernels": kernels}))
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

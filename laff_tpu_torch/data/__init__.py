@@ -1,0 +1,13 @@
+from .feed import EvalFeed, Prefetcher, TextBatcher, VisBatcher
+from .sources import TextSource, VisionSource, read_video_set, vis_id_of
+
+__all__ = [
+    "EvalFeed",
+    "Prefetcher",
+    "TextBatcher",
+    "VisBatcher",
+    "TextSource",
+    "VisionSource",
+    "read_video_set",
+    "vis_id_of",
+]

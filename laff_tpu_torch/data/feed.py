@@ -1,0 +1,135 @@
+"""Fixed-shape batchers and a prefetching host feed for evaluation.
+
+* Text featurization (BoW counts, w2v mean-pool, GRU index padding) is
+  vectorized host work done in the feed, not inside the model forward.
+* Eval feeds pad the final batch to the batch size and report the valid
+  count, so every tower call sees one shape.
+* ``Prefetcher`` overlaps the host featurization of batch k+1 with the
+  card's work on batch k.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence
+
+import numpy as np
+
+from ..text.txt2vec import IndexVec, Txt2Vec
+from .sources import TextSource, VisionSource
+
+
+class TextBatcher:
+    """cap_ids -> model-ready dense text arrays.
+
+    featurizers:
+      'bow' / 'w2v': Txt2Vec instances -> (B, D)
+      'rnn': IndexVec -> 'rnn_ids' (B, max_txtlength) + 'rnn_len' (B,)
+      'clip' / 'bert': taken from TextSource.precomputed ('CLIP_encoding',
+      'bert_encoding' BigFiles) -> (B, D)
+    """
+
+    _PRECOMPUTED_KEYS = {"clip": "CLIP_encoding", "bert": "bert_encoding"}
+
+    def __init__(
+        self,
+        source: TextSource,
+        featurizers: Dict[str, Txt2Vec],
+        max_txtlength: int = 77,
+    ) -> None:
+        self.source = source
+        self.featurizers = featurizers
+        self.max_txtlength = max_txtlength
+
+    def __call__(self, cap_ids: Sequence[str]) -> Dict[str, np.ndarray]:
+        captions = self.source.captions_for(cap_ids)
+        batch: Dict[str, np.ndarray] = {}
+        precomputed = None
+        for name, t2v in self.featurizers.items():
+            if name == "rnn":
+                if not isinstance(t2v, IndexVec):
+                    raise TypeError(f"'rnn' featurizer must be IndexVec, got {type(t2v)}")
+                ids, lengths = t2v.encode_batch_padded(captions, self.max_txtlength)
+                batch["rnn_ids"] = ids
+                batch["rnn_len"] = lengths
+            elif name in self._PRECOMPUTED_KEYS:
+                if t2v is not None:
+                    raise NotImplementedError(
+                        f"live '{name}' text towers are not ported yet")
+                if precomputed is None:
+                    precomputed = self.source.gather_precomputed(cap_ids)
+                batch[name] = precomputed[self._PRECOMPUTED_KEYS[name]]
+            else:
+                batch[name] = t2v.encode_batch(captions)
+        return batch
+
+
+class VisBatcher:
+    """vis_ids -> model-ready video-level feature arrays."""
+
+    def __init__(self, source: VisionSource) -> None:
+        self.source = source
+
+    def __call__(self, vis_ids: Sequence[str]) -> Dict[str, np.ndarray]:
+        return self.source.gather(vis_ids)
+
+
+class EvalFeed:
+    """Deterministic feed over all items; final batch padded to the batch
+    size (repeating its last id) with 'valid' giving the real count."""
+
+    def __init__(
+        self,
+        ids: Sequence[str],
+        batcher: Callable[[Sequence[str]], Dict[str, np.ndarray]],
+        batch_size: int = 512,
+    ) -> None:
+        self.ids = list(ids)
+        self.batcher = batcher
+        self.batch_size = batch_size
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def __iter__(self) -> Iterator[Dict]:
+        for start in range(0, len(self.ids), self.batch_size):
+            chunk = self.ids[start : start + self.batch_size]
+            valid = len(chunk)
+            padded = chunk + [chunk[-1]] * (self.batch_size - valid)
+            yield {"data": self.batcher(padded), "ids": chunk, "valid": valid}
+
+
+class Prefetcher:
+    """Runs an iterator in a background thread, keeping ``depth`` items in
+    flight; an exception in the worker is raised in the consumer."""
+
+    _DONE = object()
+
+    def __init__(self, iterator: Iterable, depth: int = 2) -> None:
+        self._queue: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._err: Optional[BaseException] = None
+
+        def worker():
+            try:
+                for item in iterator:
+                    self._queue.put(item)
+            except BaseException as e:  # re-raised in the consumer thread
+                self._err = e
+            finally:
+                self._queue.put(self._DONE)
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._queue.get()
+        if item is self._DONE:
+            self._thread.join(timeout=10)
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item

@@ -1,0 +1,93 @@
+"""Synthetic benchmark collection at the LAFF-ml headline widths.
+
+Writes one collection in the reference layout, in the shape of
+``shell/make_rehearsal_world.py``:
+
+  <root>/<collection>/FeatureData/{clip_ft 512, timesformer 768,
+                                   x3d 2048, ircsn 2048}
+  <root>/<collection>/TextData/<collection>.caption.txt   ("vid#k caption")
+  <root>/<collection>/TextData/clip_synth                 (512-d CLIP rows)
+  <root>/<collection>/VideoSets/<collection>.txt
+  <root>/word2vec/synth500                                (500-d w2v)
+
+Each video draws 8 distinct words from the vocabulary (every word is used
+by some video, so the BoW vocabulary has ``n_vocab`` entries, 11,286 like
+the headline's); its features are a fixed projection of the summed word
+codes plus noise, and each caption names 6 of its 8 words, so retrieval is
+learnable. Every number comes from ``seed``.
+"""
+
+from __future__ import annotations
+
+import os
+import zlib
+
+import numpy as np
+
+from ..store import write_bigfile
+
+FEATS = {"clip_ft": 512, "timesformer": 768, "x3d": 2048, "ircsn": 2048}
+LATENT = 24
+CLIP_DIM = 512
+W2V_DIM = 500
+
+
+def _video_words(rng: np.random.Generator, n_videos: int, n_vocab: int) -> np.ndarray:
+    """(n_videos, 8) distinct word ids per row, covering the vocabulary
+    when there are enough slots."""
+    flat = rng.integers(0, n_vocab, n_videos * 8)
+    cover = min(n_vocab, flat.size)
+    flat[:cover] = rng.permutation(n_vocab)[:cover]
+    words = flat.reshape(n_videos, 8)
+    for row in words:
+        while len(set(row.tolist())) < 8:
+            _, first = np.unique(row, return_index=True)
+            dup = np.setdiff1d(np.arange(8), first)
+            row[dup] = rng.integers(0, n_vocab, dup.size)
+    return words
+
+
+def build_world(root: str, collection: str = "rtest", n_videos: int = 2990,
+                caps_per_video: int = 20, n_vocab: int = 11286, seed: int = 0) -> dict:
+    """Build the collection and its w2v table; returns a summary dict."""
+    rng = np.random.default_rng(seed)
+    vocab = [f"w{i:05d}" for i in range(n_vocab)]
+    word_codes = np.random.default_rng(99).standard_normal((n_vocab, LATENT)).astype(np.float32)
+    vids = [f"{collection}_v{i}" for i in range(n_videos)]
+    words = _video_words(rng, n_videos, n_vocab)
+    latent = word_codes[words].sum(axis=1)
+    cdir = os.path.join(root, collection)
+    for feat, dim in FEATS.items():
+        # crc32 keeps projections stable across processes (str hash is salted)
+        proj = np.random.default_rng(zlib.crc32(feat.encode()) % 1000).standard_normal(
+            (LATENT, dim)).astype(np.float32) * 0.3
+        mat = latent @ proj + 0.1 * rng.standard_normal((n_videos, dim)).astype(np.float32)
+        write_bigfile(os.path.join(cdir, "FeatureData", feat), vids, mat)
+
+    sel = np.argsort(rng.random((n_videos, caps_per_video, 8)), axis=2)[:, :, :6]
+    cap_words = np.take_along_axis(
+        np.broadcast_to(words[:, None, :], (n_videos, caps_per_video, 8)), sel, axis=2)
+    cap_ids, lines = [], []
+    for i, vid in enumerate(vids):
+        for c in range(caps_per_video):
+            cap_ids.append(f"{vid}#{c}")
+            lines.append(f"{vid}#{c} the " + " ".join(vocab[w] for w in cap_words[i, c]))
+    os.makedirs(os.path.join(cdir, "TextData"), exist_ok=True)
+    with open(os.path.join(cdir, "TextData", f"{collection}.caption.txt"), "w") as fh:
+        fh.write("\n".join(lines))
+    os.makedirs(os.path.join(cdir, "VideoSets"), exist_ok=True)
+    with open(os.path.join(cdir, "VideoSets", f"{collection}.txt"), "w") as fh:
+        fh.write("\n".join(vids))
+
+    # per-caption CLIP rows from the caption's own 6-word latent
+    proj = np.random.default_rng(zlib.crc32(b"clip_text") % 1000).standard_normal(
+        (LATENT, CLIP_DIM)).astype(np.float32) * 0.3
+    cap_latent = word_codes[cap_words.reshape(-1, 6)].sum(axis=1)
+    rows = cap_latent @ proj + 0.1 * rng.standard_normal(
+        (len(cap_ids), CLIP_DIM)).astype(np.float32)
+    write_bigfile(os.path.join(cdir, "TextData", "clip_synth"), cap_ids, rows)
+
+    w2v = np.random.default_rng(5).standard_normal((n_vocab + 2, W2V_DIM)).astype(np.float32)
+    write_bigfile(os.path.join(root, "word2vec", "synth500"), vocab + ["the", "a"], w2v)
+    return {"collection": collection, "videos": n_videos, "captions": len(cap_ids),
+            "vocab": n_vocab}

@@ -1,0 +1,95 @@
+"""The port's checkpoint format.
+
+One ``torch.save`` file holding only tensors and plain data, so it loads
+with ``weights_only=True`` and references no class of either package:
+
+  format       "laff_tpu_torch_ckpt_v1"
+  state_dict   the LAFFModel state dict (CPU tensors)
+  spec         the LAFFSpec as nested dicts/tuples (``spec_to_dict``)
+  config       the config's plain attributes (name -> str/number/list/dict)
+  vocab        featurizer vocabularies: {'bow': {...}, 'rnn': {...}}, each
+               {'encoding', 'words' (index order), 'class', 'norm'}
+  opt          how the checkpoint was made (config name, sweep string, ...)
+"""
+
+from __future__ import annotations
+
+import os
+import types
+from typing import Dict
+
+import torch
+
+from ..models.spec import LAFFSpec, spec_from_dict, spec_to_dict
+from ..text.textlib import Vocabulary
+
+FORMAT = "laff_tpu_torch_ckpt_v1"
+_PLAIN = (str, int, float, bool, type(None), list, tuple, dict)
+
+
+def _plain(value) -> bool:
+    if isinstance(value, (list, tuple)):
+        return all(_plain(v) for v in value)
+    if isinstance(value, dict):
+        return all(isinstance(k, str) and _plain(v) for k, v in value.items())
+    return isinstance(value, _PLAIN)
+
+
+def config_to_dict(config) -> Dict:
+    """Every public, non-callable attribute whose value is plain data."""
+    out = {}
+    for name in dir(config):
+        if name.startswith("_"):
+            continue
+        value = getattr(config, name)
+        if not callable(value) and _plain(value):
+            out[name] = value
+    return out
+
+
+def vocab_to_dict(featurizer) -> Dict:
+    vocab = featurizer.vocab
+    return {
+        "encoding": vocab.encoding,
+        "words": [vocab[i] for i in range(len(vocab))],
+        "class": type(featurizer).__name__,
+        "norm": int(getattr(featurizer, "norm", 0)),
+    }
+
+
+def vocab_from_dict(d: Dict) -> Vocabulary:
+    vocab = Vocabulary(d["encoding"])
+    for word in d["words"]:
+        vocab.add(word)
+    return vocab
+
+
+def checkpoint_payload(state_dict, spec: LAFFSpec, config, featurizers, opt) -> Dict:
+    return {
+        "format": FORMAT,
+        "state_dict": {k: v.detach().cpu() for k, v in state_dict.items()},
+        "spec": spec_to_dict(spec),
+        "config": config if isinstance(config, dict) else config_to_dict(config),
+        "vocab": {name: vocab_to_dict(f) for name, f in featurizers.items()
+                  if name in ("bow", "rnn") and f is not None},
+        "opt": dict(opt),
+    }
+
+
+def save_checkpoint(payload: Dict, path: str) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str) -> Dict:
+    """Load a port checkpoint; ``spec`` comes back as a LAFFSpec and
+    ``config`` as an attribute namespace."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(payload, dict) or payload.get("format") != FORMAT:
+        raise ValueError(f"{path}: not a laff_tpu_torch checkpoint")
+    payload = dict(payload)
+    payload["spec"] = spec_from_dict(payload["spec"])
+    payload["config"] = types.SimpleNamespace(**payload["config"])
+    return payload

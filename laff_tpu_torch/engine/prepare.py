@@ -1,0 +1,262 @@
+"""Config -> text featurizers, model spec, and a seeded model checkpoint.
+
+The parts of ``laff_tpu.engine.prepare`` that prediction needs:
+``load_config``, ``build_featurizers`` (BoW / w2v / GRU ids / precomputed
+CLIP, in the reference's encoder order) and ``build_spec``, plus
+``init_checkpoint``, which seeds a model for a collection the way the
+trainer's first step would (the trainer itself comes in a later slice).
+Vocabularies are built from the train captions when their pickle is
+missing, and saved in the reference layout.
+"""
+
+from __future__ import annotations
+
+import copy
+import importlib
+import os
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.laff import LAFFModel
+from ..models.spec import AttentionSpec, GruSpec, LAFFSpec, TowerSpec, TransformSpec
+from ..store import BigFile
+from ..text import build_vocab, get_txt2vec
+from ..text.txt2vec import IndexVec, load_vocab_pickle
+from ..text.vocab import save_vocab
+from ..utils import get_logger
+
+logger = get_logger(__name__)
+
+# reference encoder-module names -> feature keys
+_ENCODER_ALIASES = {
+    "rnn_encoder": "rnn",
+    "bert_encoder": "bert",
+    "bow_encoder": "bow",
+    "w2v_encoder": "w2v",
+    "CLIP_encoder": "clip",
+    "NetVLAD_encoder": "netvlad",
+}
+
+
+def load_config(config_name: str, parm_adjust_config: str = "None"):
+    """Instantiate ``laff_tpu_torch.configs.<name>.config`` and apply the
+    sweep string, as the trainer does."""
+    module = importlib.import_module(f"laff_tpu_torch.configs.{config_name}")
+    config = module.config()
+    # adjust_parm mutates dict attributes in place: give this instance its
+    # own copies so the class defaults stay as written
+    for name in dir(config):
+        value = getattr(config, name)
+        if not name.startswith("_") and isinstance(value, (dict, list)):
+            setattr(config, name, copy.deepcopy(value))
+    if parm_adjust_config != "None":
+        config.adjust_parm(parm_adjust_config)
+    return config
+
+
+def w2v_dir_for(rootpath: str, config) -> str:
+    """The word2vec dump: the reference's fixed vec500flickr30m layout, with
+    the config's ``w2v_dir`` as fallback."""
+    w2v_dir = os.path.join(rootpath, "word2vec", "flickr", "vec500flickr30m")
+    if not os.path.exists(w2v_dir):
+        alt = getattr(config, "w2v_dir", None)
+        if alt and os.path.exists(os.path.join(rootpath, alt)):
+            w2v_dir = os.path.join(rootpath, alt)
+    return w2v_dir
+
+
+def get_we(vocab, w2v_dir: str, rng: np.random.Generator) -> np.ndarray:
+    """GRU word-embedding init: U(-1, 1) overwritten with the w2v rows
+    where the word has one (reference ``model/model.py:30-48``)."""
+    w2v = BigFile(w2v_dir)
+    words = [vocab[i] for i in range(len(vocab))]
+    we = rng.uniform(low=-1.0, high=1.0, size=(len(vocab), w2v.ndims))
+    found, vecs = w2v.gather(words)
+    for name, vec in zip(found, vecs):
+        we[vocab.find(name)] = vec
+    return we.astype(np.float32)
+
+
+def _ensure_vocab(rootpath, collection, encoding, threshold, capfile):
+    path = os.path.join(rootpath, collection, "TextData", "vocab",
+                        f"{encoding}_{threshold}.pkl")
+    if os.path.exists(path):
+        return load_vocab_pickle(path)
+    logger.info("vocab %s missing; building from %s", path, capfile)
+    vocab, _ = build_vocab(capfile, encoding, threshold=threshold)
+    save_vocab(vocab, path)
+    return vocab
+
+
+def text_precomputed(config, capfile: str) -> Dict[str, BigFile]:
+    """Precomputed text-feature BigFiles next to the caption file
+    (reference ``data_provider.py:565-574``)."""
+    out = {}
+    tdir = os.path.dirname(capfile)
+    for enc_name, enc in config.text_encoding.items():
+        if enc["name"].startswith(("no", "No")):
+            continue
+        if enc_name in ("CLIP_encoding", "bert_encoding") and "dir_name" in enc:
+            path = os.path.join(tdir, enc["dir_name"])
+            if os.path.exists(path):
+                out[enc_name] = BigFile(path)
+    return out
+
+
+def build_featurizers(config, rootpath: str, vocab_collection: str, train_capfile: str):
+    """Text featurizer bank for the feed and the text-tower feature dims.
+    Returns (featurizers, txt_dims, gru_spec, gru_vocab, w2v_dir)."""
+    txt_dims: Dict[str, int] = {}
+    featurizers: Dict[str, object] = {}
+    gru_spec = gru_vocab = None
+    te = config.text_encoding
+    rnn_encoding, pooling = te["rnn_encoding"]["name"].split("_", 1)
+    w2v_dir = w2v_dir_for(rootpath, config)
+
+    # order matters: rnn, bert, bow, w2v, clip (reference insertion order)
+    if rnn_encoding in ("gru", "bigru"):
+        gru_vocab = _ensure_vocab(rootpath, vocab_collection, "gru",
+                                  config.threshold, train_capfile)
+        featurizers["rnn"] = IndexVec(gru_vocab)
+        txt_dims["rnn"] = config.rnn_size * (2 if rnn_encoding == "bigru" else 1)
+        gru_spec = GruSpec(
+            vocab_size=len(gru_vocab), we_dim=config.we_dim,
+            rnn_size=config.rnn_size, rnn_layer=config.rnn_layer,
+            pooling=pooling, bidirectional=(rnn_encoding == "bigru"),
+        )
+    if "no" not in te["bert_encoding"]["name"]:
+        txt_dims["bert"] = config.bert_size
+        featurizers["bert"] = None  # precomputed via TextSource
+    bow_encoding = te["bow_encoding"]["name"]
+    if "no" not in bow_encoding:
+        bow_vocab = _ensure_vocab(rootpath, vocab_collection, bow_encoding,
+                                  config.threshold, train_capfile)
+        bow = get_txt2vec(bow_encoding)(bow_vocab, norm=config.bow_norm)
+        featurizers["bow"] = bow
+        txt_dims["bow"] = bow.ndims
+    w2v_encoding = te["w2v_encoding"]["name"]
+    if "no" not in w2v_encoding:
+        w2v = get_txt2vec(w2v_encoding)(w2v_dir)
+        featurizers["w2v"] = w2v
+        txt_dims["w2v"] = w2v.ndims
+    if "no" not in te["CLIP_encoding"]["name"]:
+        txt_dims["clip"] = config.clip_opt["size"]
+        featurizers["clip"] = None  # precomputed via TextSource
+    if "no" not in te["NetVLAD_encoding"]["name"]:
+        raise NotImplementedError("NetVLAD text encoding is not ported yet")
+    return featurizers, txt_dims, gru_spec, gru_vocab, w2v_dir
+
+
+def _attn_spec(config, kind: str) -> AttentionSpec:
+    aph = config.attention_param_each_head
+    mha = config.multi_head_attention
+    return AttentionSpec(
+        kind=kind, heads=mha["heads"], with_ave=aph["with_ave"], mul=aph["mul"],
+        split_head=aph["split_head"], l2norm_each_head=config.attention_l2norm,
+        dropout=mha["dropout"], output_type=config.my_self_attention_output_type,
+        agg=config.muti_head_attention_official["agg"],
+        embed_dim_qkv=mha["embed_dim_qkv"],
+    )
+
+
+def _no_transform_keys(names) -> Tuple[str, ...]:
+    return tuple(_ENCODER_ALIASES.get(n, n) for n in names)
+
+
+def build_spec(config, vis_dims: Dict[str, int], txt_dims: Dict[str, int],
+               gru_spec: Optional[GruSpec]) -> LAFFSpec:
+    """config + discovered feature dims -> frozen LAFFSpec (the
+    video-level subset of ``laff_tpu.engine.prepare.build_spec``)."""
+    if getattr(config, "txt_fc_same_with_vis_fc", False):
+        raise NotImplementedError("txt_fc_same_with_vis_fc is not ported yet")
+    if getattr(config, "frame_feat_input", False):
+        raise NotImplementedError("frame features (FrameLAFF) are not ported yet")
+    if isinstance(config.txt_fc_layers, str):
+        txt_common = int(config.txt_fc_layers.split("-")[1])
+    else:
+        txt_common = int(config.txt_fc_layers[1])
+    vis_common = int(config.vis_fc_layers[1])
+
+    overrides = []
+    txt_nt = _no_transform_keys(config.txt_no_transform)
+    if "bert" in txt_dims:
+        overrides.append(("bert", TransformSpec(
+            dim_in=txt_dims["bert"], dim_out=txt_common, fc=True,
+            activation=config.bert_transform_activation,
+            dropout=config.bert_transform_dropout,
+            batch_norm=config.bert_transform_batch_norm)))
+    if "clip" in txt_dims:
+        co = config.clip_opt
+        fc = "clip" not in txt_nt
+        overrides.append(("clip", TransformSpec(
+            dim_in=txt_dims["clip"], dim_out=txt_common, fc=fc,
+            activation=co["transform_activation"] if fc else None,
+            dropout=co["transform_dropout"],
+            batch_norm=co["transform_batch_norm"])))
+
+    compute_dtype = "bfloat16" if getattr(config, "float16", False) else "float32"
+    txt = TowerSpec(
+        features=tuple(txt_dims.items()), common_dim=txt_common,
+        attention=_attn_spec(config, config.txt_attention), no_transform=txt_nt,
+        transform_overrides=tuple(overrides),
+        expert_embedding=config.txt_expert_embedding["expert"],
+        expert_l2norm=config.txt_expert_embedding["l2norm"],
+        dropout=config.dropout, batch_norm=config.batch_norm,
+        activation=config.activation, gru=gru_spec, compute_dtype=compute_dtype,
+    )
+    vis = TowerSpec(
+        features=tuple(vis_dims.items()), common_dim=vis_common,
+        attention=_attn_spec(config, config.vis_attention),
+        no_transform=_no_transform_keys(config.vis_no_transform),
+        expert_embedding=config.vis_expert_embedding["expert"],
+        expert_l2norm=config.vis_expert_embedding["l2norm"],
+        dropout=config.dropout, batch_norm=config.batch_norm,
+        activation=config.activation, frame_add_fc=config.vis_frame_addFC,
+        frame_feat_with_video_feat=config.frame_feat_with_video_feat,
+        feat_add_concat=config.vis_feat_add_concat, compute_dtype=compute_dtype,
+    )
+    return LAFFSpec(
+        txt=txt, vis=vis, multi_space=config.multi_space, measure=config.measure,
+        margin=config.margin, direction=config.direction,
+        max_violation=config.max_violation, cost_style=config.cost_style,
+        loss=config.loss,
+    )
+
+
+def vis_feature_dims(rootpath: str, collection: str, config) -> Dict[str, int]:
+    return {
+        name: BigFile(os.path.join(rootpath, collection, "FeatureData", name)).ndims
+        for name in config.vid_feats
+    }
+
+
+def init_checkpoint(config_name: str, rootpath: str, collection: str, seed: int,
+                    parm_adjust_config: str = "None") -> Dict:
+    """A checkpoint payload for a seeded, untrained model over
+    ``collection``'s features and caption vocabulary: the state the trainer
+    starts from (xavier transforms, torch-default gates and GRU, w2v rows
+    in the GRU embedding when ``we_dim`` is 500, BatchNorm at its identity
+    running stats)."""
+    from .checkpoint import checkpoint_payload
+
+    config = load_config(config_name, parm_adjust_config)
+    capfile = os.path.join(rootpath, collection, "TextData", f"{collection}.caption.txt")
+    featurizers, txt_dims, gru_spec, gru_vocab, w2v_dir = build_featurizers(
+        config, rootpath, collection, capfile)
+    spec = build_spec(config, vis_feature_dims(rootpath, collection, config),
+                      txt_dims, gru_spec)
+    model = LAFFModel(spec)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    w2v_init = getattr(config, "w2v_init_rnn", None)
+    if w2v_init is None:
+        w2v_init = config.we_dim == 500
+    if (gru_vocab is not None and w2v_init and os.path.exists(w2v_dir)
+            and BigFile(w2v_dir).ndims == config.we_dim):
+        we = get_we(gru_vocab, w2v_dir, np.random.default_rng(seed))
+        with torch.no_grad():
+            model.txt_net.gru.we.weight.copy_(torch.from_numpy(we))
+    opt = {"config_name": config_name, "parm_adjust_config": parm_adjust_config,
+           "trainCollection": collection, "random_seed": seed}
+    return checkpoint_payload(model.state_dict(), spec, config, featurizers, opt)

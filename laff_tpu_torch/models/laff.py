@@ -1,0 +1,159 @@
+"""The LAFF dual encoder: two symmetric fusion towers.
+
+``FusionTower`` takes a feature dict to a (B, H, d) multi-space embedding:
+each feature is projected into the common space by a ``TransformNet``
+(BN-only and tiled for no-transform features such as precomputed CLIP
+rows), the L projections are stacked and fused by the multi-head gate.
+The GRU feature ('rnn') is encoded from token ids inside the tower; a bow
+feature shipped as sparse (ids, counts) pairs is densified on the device.
+
+Module and parameter names follow the ``laff_tpu`` flax tree
+(``txt_net.transform_bow.fc1``, ``txt_net.gru``, ``vis_net.attention``),
+so ``laff_tpu_torch.engine.weights.from_jax_variables`` is a rename.
+
+Ported in this slice: the eval forward of the video-level LAFF towers.
+FrameLAFF pooling, 'concat' fusion, cross-tower tied transforms, live
+BERT/NetVLAD features, the task2 concept heads and the training-time
+zero-feature noise come with later slices and raise here.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ..ops.norms import l2norm
+from .attention import get_attention_layer
+from .gru import GruEncoder
+from .initializers import normal_
+from .layers import TransformNet
+from .spec import LAFFSpec, TowerSpec, TransformSpec
+
+
+def _dtype_of(spec: TowerSpec):
+    return torch.bfloat16 if spec.compute_dtype == "bfloat16" else None
+
+
+def safe_name(name: str) -> str:
+    return name.replace(".", "_").replace(",", "_").replace("/", "_").replace("+", "_")
+
+
+def densify_bow(inputs: Dict[str, torch.Tensor], dim: int) -> Dict[str, torch.Tensor]:
+    """Scatter sparse (ids, counts) bow pairs back to the dense (B, vocab)
+    row; padding ids hit the sink column ``dim``, which is dropped."""
+    inputs = dict(inputs)
+    ids = inputs.pop("bow_ids").long()
+    cnt = inputs.pop("bow_cnt")
+    dense = torch.zeros((ids.shape[0], dim + 1), dtype=cnt.dtype, device=cnt.device)
+    dense.scatter_add_(1, ids, cnt)
+    inputs["bow"] = dense[:, :dim]
+    return inputs
+
+
+def transform_spec_for(spec: TowerSpec, name: str, dim_in: int) -> TransformSpec:
+    overrides = dict(spec.transform_overrides)
+    if name in overrides:
+        return overrides[name]
+    if name in spec.no_transform:
+        # BN-only passthrough (reference fc=False, activation=False path)
+        return TransformSpec(dim_in=dim_in, dim_out=spec.common_dim, fc=False,
+                             activation=None, dropout=0.0, batch_norm=True)
+    return TransformSpec(dim_in=dim_in, dim_out=spec.common_dim, fc=True,
+                         activation=spec.activation, dropout=spec.dropout,
+                         batch_norm=spec.batch_norm)
+
+
+class FusionTower(nn.Module):
+    """feature dict -> (B, H, d) multi-space embedding."""
+
+    def __init__(self, spec: TowerSpec) -> None:
+        super().__init__()
+        if spec.frame_features:
+            raise NotImplementedError("FrameLAFF towers are not ported yet")
+        if spec.attention.kind == "concat":
+            raise NotImplementedError("'concat' fusion is not ported yet")
+        self.spec = spec
+        self.features = list(spec.features)
+        for name, dim in self.features:
+            if name in ("bert", "netvlad"):
+                raise NotImplementedError(f"text feature {name!r} is not ported yet")
+            tspec = transform_spec_for(spec, name, dim)
+            self.add_module(f"transform_{safe_name(name)}", TransformNet(
+                dim if tspec.fc else spec.common_dim, tspec.dim_out, fc=tspec.fc,
+                activation=tspec.activation, dropout=tspec.dropout,
+                batch_norm=tspec.batch_norm, compute_dtype=_dtype_of(spec)))
+        if spec.feat_add_concat:
+            self.transform_feat_add_concat = TransformNet(
+                sum(d for _, d in self.features), spec.common_dim,
+                activation=spec.activation, dropout=spec.dropout,
+                batch_norm=spec.batch_norm, compute_dtype=_dtype_of(spec))
+        self.gru = GruEncoder(spec.gru) if "rnn" in dict(self.features) else None
+        n_locals = len(self.features) + int(spec.feat_add_concat)
+        self.expert_embedding = (
+            nn.Parameter(torch.empty(n_locals, spec.common_dim))
+            if spec.expert_embedding else None)
+        self.attention = get_attention_layer(spec.attention.kind, spec.common_dim,
+                                             spec.attention)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for module in self.children():
+            module.reset_parameters(generator)
+        if self.expert_embedding is not None:
+            normal_(self.expert_embedding, generator)
+
+    def _raw_feature(self, name: str, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if name == "rnn":
+            return self.gru(inputs["rnn_ids"], inputs["rnn_len"])
+        return inputs[name]
+
+    def forward(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        spec = self.spec
+        if "bow_ids" in inputs:
+            inputs = densify_bow(inputs, dict(self.features)["bow"])
+        locals_ = []
+        for name, dim in self.features:
+            feat = self._raw_feature(name, inputs)
+            transform = getattr(self, f"transform_{safe_name(name)}")
+            if name in spec.no_transform and transform.fc1 is None:
+                feat = feat.repeat(1, spec.common_dim // feat.shape[-1])
+            locals_.append(transform(feat))
+        if spec.feat_add_concat:
+            cat = torch.cat([self._raw_feature(n, inputs) for n, _ in self.features], dim=1)
+            locals_.append(self.transform_feat_add_concat(cat))
+        local_embs = torch.stack(locals_, dim=1)  # (B, L, common)
+        if self.expert_embedding is not None:
+            local_embs = local_embs + self.expert_embedding[None]
+        if spec.expert_l2norm:
+            local_embs = l2norm(local_embs, dim=2)
+        return self.attention(local_embs)
+
+
+class LAFFModel(nn.Module):
+    """Dual encoder: ``encode_txt`` / ``encode_vis`` give common-space
+    embeddings; similarity and ranking live in ``laff_tpu_torch.ops``."""
+
+    def __init__(self, spec: LAFFSpec) -> None:
+        super().__init__()
+        if spec.tied_transforms:
+            raise NotImplementedError("tied cross-tower transforms are not ported yet")
+        if spec.task2 is not None:
+            raise NotImplementedError("task2 concept heads are not ported yet")
+        self.spec = spec
+        self.txt_net = FusionTower(spec.txt)
+        self.vis_net = FusionTower(spec.vis)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Seeded init with the JAX package's distributions."""
+        self.txt_net.reset_parameters(generator)
+        self.vis_net.reset_parameters(generator)
+
+    def encode_txt(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return self.txt_net(inputs)
+
+    def encode_vis(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return self.vis_net(inputs)
+
+    def forward(self, txt_inputs, vis_inputs):
+        return self.encode_txt(txt_inputs), self.encode_vis(vis_inputs)

@@ -1,0 +1,65 @@
+"""Projection heads: the TransformNet family.
+
+Linear (xavier-uniform, zero bias) -> activation (tanh default) -> dropout
+-> BatchNorm1d. ``fc=False`` / ``activation=None`` give the BN-only
+passthrough used for pre-aligned CLIP features. BatchNorm has eps 1e-5 and
+torch momentum 0.1 (flax momentum 0.9); in eval it uses the running stats.
+
+With a ``compute_dtype`` (bf16 for the headline) the input, the linear map
+and the activation run in that type, BatchNorm normalizes in f32 and rounds
+back, and the output is cast to f32, as ``laff_tpu.models.layers`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .initializers import xavier_uniform_
+
+_ACTIVATIONS = {"tanh": torch.tanh, "relu": torch.relu, "sigmoid": torch.sigmoid}
+
+
+class TransformNet(nn.Module):
+    def __init__(
+        self,
+        dim_in: int,
+        dim_out: int,
+        fc: bool = True,
+        activation: Optional[str] = "tanh",
+        dropout: float = 0.2,
+        batch_norm: bool = False,
+        compute_dtype: Optional[torch.dtype] = None,
+    ) -> None:
+        super().__init__()
+        self.fc1 = nn.Linear(dim_in, dim_out) if fc else None
+        self.activation = activation if activation in _ACTIVATIONS else None
+        self.drop = nn.Dropout(dropout) if dropout and dropout > 1e-3 else None
+        self.bn1 = (nn.BatchNorm1d(dim_out, eps=1e-5, momentum=0.1)
+                    if batch_norm else None)
+        self.compute_dtype = compute_dtype
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        if self.fc1 is not None:
+            xavier_uniform_(self.fc1.weight, generator)
+            nn.init.zeros_(self.fc1.bias)
+        if self.bn1 is not None:
+            self.bn1.reset_parameters()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype
+        if dtype is not None:
+            x = x.to(dtype)
+        if self.fc1 is not None:
+            w, b = self.fc1.weight, self.fc1.bias
+            x = F.linear(x, w.to(x.dtype), b.to(x.dtype))
+        if self.activation is not None:
+            x = _ACTIVATIONS[self.activation](x)
+        if self.drop is not None:
+            x = self.drop(x)
+        if self.bn1 is not None:
+            x = self.bn1(x.float()).to(x.dtype)
+        return x.float() if dtype is not None else x

@@ -1,0 +1,308 @@
+"""Hand-written CUDA kernels of the retrieval path, their plain PyTorch
+versions, and the build that compiles them at first use.
+
+Kernels (sources in ``laff_tpu_torch/csrc``):
+
+  sim_rank_wide   fused similarity + ground-truth rank, whole gallery per
+                  block (csrc/sim_rank.cu); the gallery fits the wide budget
+  sim_rank_tiled  the same ranks for larger galleries, 2-D grid with
+                  integer atomics (csrc/sim_rank.cu)
+  gate_attention  the fused LAFF multi-head gate (csrc/gate.cu)
+
+Each wrapper serves a CPU tensor with its plain version and a CUDA tensor
+with its kernel; any other device raises. There is no fallback from the
+kernel to the plain version. ``LAUNCHES`` counts kernel launches by name.
+
+The kernels are compiled by ``nvcc`` for ``sm_90a`` into shared libraries
+with a plain C interface (one ``nvcc`` per source, all started together)
+and bound with ctypes. The libraries go under ``build/laff_tpu_torch/`` of
+the source checkout, or, for an installed package, under
+``$XDG_CACHE_HOME/laff_tpu_torch`` (``~/.cache/laff_tpu_torch`` by default).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+from .similarity import flatten_heads
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+
+
+def _build_dir() -> Path:
+    root = Path(__file__).resolve().parents[2]
+    if (root / "pyproject.toml").is_file():  # a source checkout
+        return root / "build" / "laff_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(Path.home(), ".cache")
+    return Path(cache) / "laff_tpu_torch"
+
+
+BUILD_DIR = _build_dir()
+_SOURCES = {"sim_rank": "sim_rank.cu", "gate": "gate.cu"}
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# galleries whose padded bf16 block is at most this many bytes take the
+# wide branch (the JAX package's VMEM budget, kept so both packages pick the
+# same branch and tie rule for the same inputs); tests lower it
+WIDE_BUDGET = 64 * 1024 * 1024
+
+LAUNCHES: Dict[str, int] = {"sim_rank_wide": 0, "sim_rank_tiled": 0,
+                            "gate_attention": 0}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# build and binding
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        path = os.path.join(cand, "bin", "nvcc") if cand else ""
+        if path and os.path.exists(path):
+            return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha1((_CSRC / _SOURCES[name]).read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_kernels() -> Dict[str, str]:
+    """Compile every kernel source that has no up-to-date library yet, one
+    ``nvcc`` process per source, all running at once. Returns the compiler
+    output (``-Xptxas -v``: registers, shared memory, spills) by source."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, src in _SOURCES.items():
+        so = _lib_path(name)
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, so)
+    logs = {}
+    for name, (proc, tmp, so) in jobs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {_SOURCES[name]}:\n{out}")
+        os.replace(tmp, so)
+        so.with_suffix(".log").write_text(out)
+    return logs
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    if not _lib_path(name).exists():
+        build_kernels()
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "sim_rank":
+        lib.laff_sim_rank_wide.argtypes = [p, p, p, i, i, i, p, p]
+        lib.laff_sim_rank_wide.restype = i
+        lib.laff_sim_rank_tiled.argtypes = [p, p, p, p, i, i, i, p, p]
+        lib.laff_sim_rank_tiled.restype = i
+    else:
+        lib.laff_gate_attention.argtypes = [p, p, p, f, i, i, i, i, i, i, p, p]
+        lib.laff_gate_attention.restype = i
+    _LIBS[name] = lib
+    return lib
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_launch(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _device_kind(*tensors: torch.Tensor) -> str:
+    kinds = {t.device.type for t in tensors}
+    _require(len(kinds) == 1, f"tensors on mixed devices: {sorted(kinds)}")
+    kind = kinds.pop()
+    if kind not in ("cpu", "cuda"):
+        raise RuntimeError(f"no kernel or plain version for device {kind!r}")
+    return kind
+
+
+# ---------------------------------------------------------------------------
+# fused similarity + rank (replaces pallas_kernels.fused_sim_rank)
+# ---------------------------------------------------------------------------
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def is_wide(v: int, hd: int) -> bool:
+    """The JAX branch rule: the padded bf16 gallery fits ``WIDE_BUDGET``."""
+    return _round_up(v, 256) * hd * 2 <= WIDE_BUDGET
+
+
+def _flat_bf16(embs: torch.Tensor, prenormalized: bool) -> torch.Tensor:
+    flat = embs.reshape(embs.shape[0], -1) if prenormalized else flatten_heads(embs)
+    return flat.to(torch.bfloat16).contiguous()
+
+
+def gt_scores_f32(tn: torch.Tensor, vn: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Ground-truth scores of the tiled branch: an f32 elementwise
+    reduction of the bf16 rows, outside the kernel (as in the JAX package)."""
+    return torch.sum(tn.float() * vn[gt.long()].float(), dim=1)
+
+
+def _sim_rank_plain_flat(tn, vn, gt, wide: bool, block: int = 4096):
+    gt = gt.long()
+    v = vn.shape[0]
+    cols = torch.arange(v, device=tn.device)
+    vf = vn.float()
+    gts = None if wide else gt_scores_f32(tn, vn, gt)
+    out = torch.empty(tn.shape[0], dtype=torch.int32, device=tn.device)
+    for start in range(0, tn.shape[0], block):
+        stop = min(start + block, tn.shape[0])
+        s = tn[start:stop].float() @ vf.T
+        g_col = gt[start:stop, None]
+        if wide:
+            g = torch.gather(s, 1, g_col)
+            greater = s > g
+        else:
+            g = gts[start:stop, None]
+            greater = (s > g) & (cols[None, :] != g_col)
+        beats = greater | ((s == g) & (cols[None, :] > g_col))
+        out[start:stop] = (1 + beats.sum(dim=1)).to(torch.int32)
+    return out
+
+
+def fused_sim_rank_plain(txt, vis, gt_cols, prenormalized: bool = False):
+    """Plain PyTorch version of :func:`fused_sim_rank`, on any device: the
+    same bf16 operands, f32 scores, branch rule and tie rules."""
+    tn = _flat_bf16(txt, prenormalized)
+    vn = _flat_bf16(vis, prenormalized)
+    gt = gt_cols.to(device=tn.device, dtype=torch.int32)
+    return _sim_rank_plain_flat(tn, vn, gt, is_wide(vn.shape[0], tn.shape[1]))
+
+
+def fused_sim_rank(txt, vis, gt_cols, prenormalized: bool = False):
+    """1-based ranks of ``gt_cols`` for multi-head (T, H, d) or flat (T, D)
+    embeddings against the gallery, with larger-index-first tie breaking.
+    The (T, V) score matrix is never materialized on the card.
+
+    ``prenormalized=True`` skips the per-head l2norm (LAFF attention outputs
+    are unit-norm per head already). Galleries within ``WIDE_BUDGET`` take
+    the wide kernel, where the ground-truth score comes from the same tile
+    accumulation as the counted scores; larger ones take the tiled kernel,
+    where it comes from a separate f32 reduction and the ground-truth column
+    is excluded from the greater-count."""
+    tn = _flat_bf16(txt, prenormalized)
+    vn = _flat_bf16(vis, prenormalized)
+    gt = gt_cols.to(device=tn.device, dtype=torch.int32).contiguous()
+    wide = is_wide(vn.shape[0], tn.shape[1])
+    if _device_kind(tn, vn) == "cpu":
+        return _sim_rank_plain_flat(tn, vn, gt, wide)
+
+    t, hd = tn.shape
+    v = vn.shape[0]
+    _require(vn.shape[1] == hd, f"feature widths differ: {hd} vs {vn.shape[1]}")
+    _require(hd % 64 == 0, f"flat width {hd} must be a multiple of 64")
+    _require(gt.shape == (t,), f"gt_cols shape {tuple(gt.shape)} != ({t},)")
+    _require(0 < t < 2**31 and 0 < v < 2**31, "row counts out of range")
+    out = torch.empty(t, dtype=torch.int32, device=tn.device)
+    lib = _lib("sim_rank")
+    stream = _stream(tn.device)
+    if wide:
+        err = lib.laff_sim_rank_wide(tn.data_ptr(), vn.data_ptr(), gt.data_ptr(),
+                                     t, v, hd, out.data_ptr(), stream)
+        _check_launch(err, "sim_rank_wide")
+    else:
+        gts = gt_scores_f32(tn, vn, gt).contiguous()
+        err = lib.laff_sim_rank_tiled(tn.data_ptr(), vn.data_ptr(), gt.data_ptr(),
+                                      gts.data_ptr(), t, v, hd, out.data_ptr(),
+                                      stream)
+        _check_launch(err, "sim_rank_tiled")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fused LAFF gate (replaces pallas_kernels.fused_gate_attention)
+# ---------------------------------------------------------------------------
+
+_GATE_MAX_L = 16
+_GATE_SMEM_LIMIT = 227 * 1024
+
+
+def fused_gate_attention_plain(x, gate_kernel, gate_bias, global_weight=1.0,
+                               with_ave: bool = True, mul: bool = False):
+    """Plain PyTorch version of :func:`fused_gate_attention`."""
+    x = x.float()
+    length = x.shape[1]
+    mean = x.mean(dim=1)  # (B, H, dh)
+    common = x * mean[:, None] if mul else x
+    logits = torch.einsum("blhd,hd->blh", common, gate_kernel.float()) + gate_bias.float()
+    weights = torch.softmax(logits, dim=1)
+    out = torch.einsum("blh,blhd->bhd", weights, x)
+    if with_ave:
+        out = out + global_weight * mean * float(length)
+    return out / (torch.sqrt(torch.sum(out * out, dim=-1, keepdim=True)) + 1e-14)
+
+
+def fused_gate_attention(x, gate_kernel, gate_bias, global_weight=1.0,
+                         with_ave: bool = True, mul: bool = False):
+    """Fused multi-head LAFF gate, forward only: x (B, L, H, dh) f32 ->
+    (B, H, dh) per-head unit vectors (mean over L, gate logits, softmax over
+    L, weighted sum, ``with_ave`` residual g*L*mean, per-head l2norm with
+    +1e-14). Raises when an input requires grad: there is no backward."""
+    if any(t.requires_grad for t in (x, gate_kernel, gate_bias)):
+        raise RuntimeError("fused_gate_attention is forward-only; an input requires grad")
+    if _device_kind(x, gate_kernel, gate_bias) == "cpu":
+        return fused_gate_attention_plain(x, gate_kernel, gate_bias, global_weight,
+                                          with_ave, mul)
+
+    _require(x.ndim == 4, f"x must be (B, L, H, dh), got {tuple(x.shape)}")
+    b, length, heads, dh = x.shape
+    for name, t in (("x", x), ("gate_kernel", gate_kernel), ("gate_bias", gate_bias)):
+        _require(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
+        _require(t.is_contiguous(), f"{name} must be contiguous")
+    _require(tuple(gate_kernel.shape) == (heads, dh),
+             f"gate_kernel {tuple(gate_kernel.shape)} != ({heads}, {dh})")
+    _require(tuple(gate_bias.shape) == (heads,),
+             f"gate_bias {tuple(gate_bias.shape)} != ({heads},)")
+    _require(1 <= length <= _GATE_MAX_L, f"L={length} outside 1..{_GATE_MAX_L}")
+    _require(4 * ((length + 2) * dh + 4) <= _GATE_SMEM_LIMIT,
+             f"L={length} x dh={dh} exceeds the kernel's shared memory")
+    _require(0 < b * heads < 2**31, "batch x heads out of range")
+    out = torch.empty((b, heads, dh), dtype=torch.float32, device=x.device)
+    err = _lib("gate").laff_gate_attention(
+        x.data_ptr(), gate_kernel.data_ptr(), gate_bias.data_ptr(),
+        float(global_weight), b, length, heads, dh, int(with_ave), int(mul),
+        out.data_ptr(), _stream(x.device))
+    _check_launch(err, "gate_attention")
+    return out

@@ -1,0 +1,27 @@
+from .textlib import TextTool, Vocabulary
+from .txt2vec import (
+    NAME_TO_T2V,
+    BowVec,
+    BowVecNSW,
+    IndexVec,
+    Txt2Vec,
+    W2Vec,
+    W2VecNSW,
+    get_txt2vec,
+)
+from .vocab import build_vocab, read_captions
+
+__all__ = [
+    "TextTool",
+    "Vocabulary",
+    "NAME_TO_T2V",
+    "BowVec",
+    "BowVecNSW",
+    "IndexVec",
+    "Txt2Vec",
+    "W2Vec",
+    "W2VecNSW",
+    "get_txt2vec",
+    "build_vocab",
+    "read_captions",
+]

@@ -1,0 +1,3 @@
+from .misc import ROOT_PATH, check_to_skip, get_logger, makedirs, makedirs_for_file
+
+__all__ = ["ROOT_PATH", "check_to_skip", "get_logger", "makedirs", "makedirs_for_file"]

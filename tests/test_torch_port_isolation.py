@@ -1,0 +1,54 @@
+"""The port stands alone: importing every laff_tpu_torch module (and
+chip_smoke.py) loads neither JAX nor the JAX package, and chip_smoke.py
+refuses to run without a card or without the package beside it."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.path.insert(0, {root!r})
+import laff_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(laff_tpu_torch.__path__, "laff_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "jaxlib", "flax", "laff_tpu")
+             or k.startswith(("jax.", "jaxlib.", "flax.", "laff_tpu.")))
+print(len(names), "modules;", "forbidden:", bad)
+"""
+
+
+def _run(args, cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""  # no card, on any host
+    return subprocess.run(args, cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=240)
+
+
+def test_port_imports_no_jax_and_no_laff_tpu():
+    proc = _run([sys.executable, "-c", _IMPORT_ALL.format(root=ROOT)], ROOT)
+    assert proc.returncode == 0, proc.stderr
+    count, _, rest = proc.stdout.strip().partition(" modules;")
+    assert int(count) >= 25  # every subpackage was walked
+    assert rest.strip() == "forbidden: []", proc.stdout
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_card_or_package(tmp_path, alone):
+    cwd = ROOT
+    if alone:
+        shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+        cwd = str(tmp_path)
+    proc = _run([sys.executable, "chip_smoke.py"], cwd)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    reason = "not beside chip_smoke.py" if alone else "is_available() is false"
+    assert reason in proc.stderr
