@@ -9,9 +9,17 @@ Phases, each asserting; any failure exits non-zero before the last line:
    CUDA kernels compiled from laff_tpu_torch/csrc (one nvcc per source).
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes: sim_rank_wide at the MV-test3k shape (59,800 captions x
-   2,990 videos x 4,096), sim_rank_tiled at a gallery above the wide budget
-   (8,192 x 16,384), gate_attention at the eval batch (1024, 4, 8, 512) with
-   with_ave off / on and mul on. Times are CUDA-event medians.
+   2,990 videos x 4,096) with captions grouped by video (the main path's
+   layout) and again with ground truths scattered over the gallery,
+   sim_rank_tiled at a gallery above the wide budget (8,192 x 16,384),
+   gate_attention at the eval batch (1024, 4, 8, 512) with with_ave off /
+   on and mul on. Times are CUDA-event medians. Then the rank kernels'
+   edge cases on both branches (the tiled one forced by a lowered
+   WIDE_BUDGET): one text row against a gallery narrower than a tile,
+   ragged T and V, HD 512 and 2048, a gallery of duplicated rows with
+   exact ties, and ground truths outside the gallery (rank 0). The rank
+   times are taken on the main path's flat f32 embeddings, the bf16 cast
+   included, and again on operands already cast.
 3. The prediction slice at full width (configs/rehearsal.py, seeded random
    weights) through ``laff_tpu_torch.engine.predictor.main``: a synthetic
    2,990-video x 20-caption world with rank_path 'kernel' and 'flat', then
@@ -80,6 +88,25 @@ def time_ms(torch, fn, reps=5):
     return statistics.median(times)
 
 
+def device_ms(torch, fn, reps=5):
+    """Device time per call of each CUDA kernel that ``fn`` launches, by
+    name (torch.profiler); empty when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+        if us:
+            out[e.key] = us / 1e3 / reps
+    return out
+
+
 def bound_ms(n_bytes, ops, peak_ops):
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -109,6 +136,24 @@ def rank_moves_explained(torch, ranks_a, ranks_b, tn, vn, gt, tol):
     return True, int(diff.max()) if diff.numel() else 0
 
 
+def held_against_plain(torch, K, name, txt, vis, gt):
+    """The kernel's ranks against the plain version's on the same inputs:
+    equal except at near ties. Returns (max |rank diff|, share of rows equal)."""
+    t, v = txt.shape[0], vis.shape[0]
+    before = K.LAUNCHES[name]
+    ranks = K.fused_sim_rank(txt, vis, gt, prenormalized=True)
+    torch.cuda.synchronize()
+    check(K.LAUNCHES[name] == before + 1, f"{name}: the wrapper did not launch it")
+    plain = K.fused_sim_rank_plain(txt, vis, gt, prenormalized=True)
+    torch.cuda.synchronize()
+    tn = txt.reshape(t, -1).to(torch.bfloat16)
+    vn = vis.reshape(v, -1).to(torch.bfloat16)
+    ok, max_err = rank_moves_explained(torch, ranks, plain, tn, vn, gt, SCORE_TIE_TOL)
+    check(ok, f"{name} (T={t}, V={v}): ranks differ from the plain version beyond near ties")
+    check(bool(((ranks >= 1) & (ranks <= v)).all()), f"{name}: ranks out of range")
+    return max_err, float((ranks == plain).float().mean())
+
+
 def sim_rank_phase(torch, K, name, t, v, captions_per_video, gen):
     hd = 8 * 512
     txt = unit_heads(torch, gen, t)
@@ -119,37 +164,98 @@ def sim_rank_phase(torch, K, name, t, v, captions_per_video, gen):
         gt = torch.randint(0, v, (t,), generator=gen, device="cuda").int()
     wide = K.is_wide(v, hd)
     check(wide == (name == "sim_rank_wide"), f"{name}: shape takes the other branch")
-    before = K.LAUNCHES[name]
-    ranks = K.fused_sim_rank(txt, vis, gt, prenormalized=True)
-    torch.cuda.synchronize()
-    check(K.LAUNCHES[name] == before + 1, f"{name}: the wrapper did not launch it")
-    plain = K.fused_sim_rank_plain(txt, vis, gt, prenormalized=True)
-    torch.cuda.synchronize()
-    tn = txt.reshape(t, -1).to(torch.bfloat16)
-    vn = vis.reshape(v, -1).to(torch.bfloat16)
-    ok, max_err = rank_moves_explained(torch, ranks, plain, tn, vn, gt, SCORE_TIE_TOL)
-    equal = float((ranks == plain).float().mean())
-    check(ok, f"{name}: ranks differ from the plain version beyond near ties")
-    check(bool(((ranks >= 1) & (ranks <= v)).all()), f"{name}: ranks out of range")
+    max_err, equal = held_against_plain(torch, K, name, txt, vis, gt)
     exact = K.fused_sim_rank(vis[gt[:1024].long()], vis, gt[:1024], prenormalized=True)
     check(bool((exact == 1).all()), f"{name}: an exact match did not rank 1")
 
-    ms = time_ms(torch, lambda: K.fused_sim_rank(txt, vis, gt, prenormalized=True))
-    plain_ms = time_ms(torch, lambda: K.fused_sim_rank_plain(txt, vis, gt, prenormalized=True),
-                       reps=3)
+    # ms, plain_ms and library_ms take what the main path passes
+    # (evaluator.t2v_ranks): flat f32 embeddings, the bf16 cast included;
+    # bf16_ms and library_bf16_ms take the operands already cast
+    tf, vf = txt.reshape(t, -1), vis.reshape(v, -1)
+    tn, vn = tf.to(torch.bfloat16), vf.to(torch.bfloat16)
     from laff_tpu_torch.eval.metrics import ranks_from_scores
 
-    def library():  # cuBLAS bf16 product + torch counting: the yardstick
-        return ranks_from_scores((tn @ vn.T).float(), gt)
+    def library(a, b):  # cuBLAS bf16 product + torch counting: the yardstick
+        return ranks_from_scores((a.to(torch.bfloat16) @ b.to(torch.bfloat16).T).float(), gt)
 
-    library_ms = time_ms(torch, library, reps=3)
-    b_ms, b_by = bound_ms((t + v) * hd * 2 + 2 * t * 4, 2.0 * t * v * hd, PEAK_BF16_OPS_S)
-    log(f"{name}: T={t} V={v} HD={hd}: rows equal to plain {equal:.6f}, "
-        f"max |rank diff| {max_err} (near ties within {SCORE_TIE_TOL}); "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, matmul+count {library_ms:.3f} ms, "
+    ms = time_ms(torch, lambda: K.fused_sim_rank(tf, vf, gt, prenormalized=True))
+    bf16_ms = time_ms(torch, lambda: K.fused_sim_rank(tn, vn, gt, prenormalized=True))
+    device = device_ms(torch, lambda: K.fused_sim_rank(tf, vf, gt, prenormalized=True))
+    launch_ms = sum(v_ms for k, v_ms in device.items() if "sim_rank_kernel" in k)
+    plain_ms = time_ms(torch, lambda: K.fused_sim_rank_plain(tf, vf, gt, prenormalized=True),
+                       reps=3)
+    library_ms = time_ms(torch, lambda: library(tf, vf), reps=3)
+    library_bf16_ms = time_ms(torch, lambda: library(tn, vn), reps=3)
+    b_ms, b_by = bound_ms((t + v) * hd * 4 + 2 * t * 4, 2.0 * t * v * hd, PEAK_BF16_OPS_S)
+    layout = f"{captions_per_video} captions per video" if captions_per_video else "scattered gt"
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
+    log(f"{name}: T={t} V={v} HD={hd}, {layout}: rows equal to plain {equal:.6f}, "
+        f"max |rank diff| {max_err} (near ties within {SCORE_TIE_TOL}); from f32 embeddings "
+        f"(cast included): kernel {ms:.3f} ms (sim_rank_kernel launches {launch_ms:.3f} ms "
+        f"on the device), plain {plain_ms:.3f} ms, matmul+count {library_ms:.3f} ms; from "
+        f"bf16 operands: kernel {bf16_ms:.3f} ms, matmul+count {library_bf16_ms:.3f} ms; "
         f"bound {b_ms:.3f} ms ({b_by})")
+    log("  device ms per call: " + "; ".join(f"{k[:60]} {v_ms:.3f}" for k, v_ms in top))
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms}
+            "bound_by": b_by, "library_ms": library_ms, "bf16_ms": bf16_ms,
+            "library_bf16_ms": library_bf16_ms}
+
+
+def sim_rank_edge_phase(torch, K, gen):
+    """Both rank branches at the edges of the tiling, each held against the
+    plain version; the tiled branch is forced by lowering WIDE_BUDGET."""
+    budget = K.WIDE_BUDGET
+    try:
+        for name, branch_budget in (("sim_rank_wide", budget), ("sim_rank_tiled", 1)):
+            K.WIDE_BUDGET = branch_budget
+            for t, v, hd in ((1, 100, 4096), (300, 200, 4096), (777, 1000, 512),
+                             (1000, 700, 2048)):
+                txt = unit_heads(torch, gen, t, hd // 512 if hd > 512 else 1, min(hd, 512))
+                vis = unit_heads(torch, gen, v, hd // 512 if hd > 512 else 1, min(hd, 512))
+                gt = torch.randint(0, v, (t,), generator=gen, device="cuda").int()
+                held_against_plain(torch, K, name, txt, vis, gt)
+                exact = K.fused_sim_rank(vis[gt.long()], vis, gt, prenormalized=True)
+                check(bool((exact == 1).all()),
+                      f"{name} (T={t}, V={v}, HD={hd}): an exact match did not rank 1")
+            # duplicated gallery rows with entries in {-1, 0, 1} / 64: every
+            # score is exact in f32 whatever the summation order, so copies
+            # tie exactly and the larger index must win, as in the plain version
+            base = torch.randint(-1, 2, (300, 512), generator=gen, device="cuda").float() / 64
+            vis = torch.cat([base, base])
+            pick = torch.randint(0, 300, (512,), generator=gen, device="cuda")
+            gt = (pick + 300 * torch.randint(0, 2, (512,), generator=gen, device="cuda")).int()
+            ranks = K.fused_sim_rank(base[pick], vis, gt, prenormalized=True)
+            plain = K.fused_sim_rank_plain(base[pick], vis, gt, prenormalized=True)
+            s = base[pick].double() @ vis.double().T
+            g = s.gather(1, gt.long()[:, None])
+            cols = torch.arange(600, device="cuda")
+            expect = 1 + ((s > g) | ((s == g) & (cols > gt.long()[:, None]))).sum(dim=1)
+            check(bool((plain == expect).all()), f"{name}: plain version breaks exact ties wrongly")
+            check(bool((ranks == expect).all()), f"{name}: kernel breaks exact ties wrongly "
+                  f"({int((ranks != expect).sum())} of 512 rows)")
+            # ground truths outside [0, V) get rank 0; the other rows keep theirs
+            txt, vis = unit_heads(torch, gen, 300), unit_heads(torch, gen, 200)
+            gt = torch.randint(0, 200, (300,), generator=gen, device="cuda").int()
+            bad = torch.tensor([0, 77, 299], device="cuda")
+            gt[bad] = torch.tensor([-1, 200, 2**31 - 1], dtype=torch.int32, device="cuda")
+            ranks = K.fused_sim_rank(txt, vis, gt, prenormalized=True)
+            plain = K.fused_sim_rank_plain(txt, vis, gt, prenormalized=True)
+            check(bool((ranks[bad] == 0).all() and (plain[bad] == 0).all()),
+                  f"{name}: a ground truth outside the gallery did not give rank 0")
+            keep = torch.ones(300, dtype=torch.bool, device="cuda")
+            keep[bad] = False
+            ok, _ = rank_moves_explained(torch, ranks[keep], plain[keep],
+                                         txt.reshape(300, -1)[keep].to(torch.bfloat16),
+                                         vis.reshape(200, -1).to(torch.bfloat16), gt[keep],
+                                         SCORE_TIE_TOL)
+            check(ok and bool((ranks[keep] >= 1).all()),
+                  f"{name}: out-of-range ground truths moved the other rows' ranks")
+    finally:
+        K.WIDE_BUDGET = budget
+    log("sim_rank edge cases (T=1 with V < a tile, ragged T and V, HD 512 / 2048 / 4096, "
+        "duplicated gallery rows, ground truths outside the gallery), both branches: held "
+        "against the plain version; exact matches rank 1; exact ties break "
+        "larger-index-first; out-of-range ground truths rank 0")
 
 
 def gate_phase(torch, K, gen):
@@ -331,6 +437,9 @@ def main():
             "sim_rank_tiled": sim_rank_phase(torch, K, "sim_rank_tiled", 8_192, 16_384, 0, gen),
             "gate_attention": gate_phase(torch, K, gen),
         }
+        # the gt pass's cost with ground truths on every gallery tile
+        sim_rank_phase(torch, K, "sim_rank_wide", 59_800, 2_990, 0, gen)
+        sim_rank_edge_phase(torch, K, gen)
 
         shutil.rmtree(WORK, ignore_errors=True)
         root = os.path.join(WORK, "world")

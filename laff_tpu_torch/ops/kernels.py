@@ -3,10 +3,11 @@ versions, and the build that compiles them at first use.
 
 Kernels (sources in ``laff_tpu_torch/csrc``):
 
-  sim_rank_wide   fused similarity + ground-truth rank, whole gallery per
-                  block (csrc/sim_rank.cu); the gallery fits the wide budget
-  sim_rank_tiled  the same ranks for larger galleries, 2-D grid with
-                  integer atomics (csrc/sim_rank.cu)
+  sim_rank_wide   fused similarity + ground-truth rank (csrc/sim_rank.cu):
+                  a gt pass over the tiles holding ground truths, then the
+                  count pass; the gallery fits the wide budget
+  sim_rank_tiled  the same ranks for larger galleries, ground-truth scores
+                  from a separate f32 reduction (csrc/sim_rank.cu)
   gate_attention  the fused LAFF multi-head gate (csrc/gate.cu)
 
 Each wrapper serves a CPU tensor with its plain version and a CUDA tensor
@@ -50,6 +51,11 @@ _SOURCES = {"sim_rank": "sim_rank.cu", "gate": "gate.cu"}
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# work item of the rank kernels, text rows x gallery rows: BM and BN of
+# csrc/sim_rank.cu, which size the wide branch's scratch
+SIM_RANK_ITEM_ROWS = 128
+SIM_RANK_ITEM_COLS = 256
+
 # galleries whose padded bf16 block is at most this many bytes take the
 # wide branch (the JAX package's VMEM budget, kept so both packages pick the
 # same branch and tie rule for the same inputs); tests lower it
@@ -82,8 +88,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((_CSRC / _SOURCES[name]).read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of a source, named by a digest of the source, the headers
+    beside it and the compiler flags, so an edit never loads a stale one."""
+    h = hashlib.sha1((_CSRC / _SOURCES[name]).read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_kernels() -> Dict[str, str]:
@@ -116,12 +127,13 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    if not _lib_path(name).exists():
+    path = _lib_path(name)
+    if not path.exists():
         build_kernels()
-    lib = ctypes.CDLL(str(_lib_path(name)))
+    lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "sim_rank":
-        lib.laff_sim_rank_wide.argtypes = [p, p, p, i, i, i, p, p]
+        lib.laff_sim_rank_wide.argtypes = [p, p, p, p, p, i, i, i, p, p]
         lib.laff_sim_rank_wide.restype = i
         lib.laff_sim_rank_tiled.argtypes = [p, p, p, p, i, i, i, p, p]
         lib.laff_sim_rank_tiled.restype = i
@@ -136,9 +148,14 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+_LAUNCH_ERRORS = {-1: "libcuda has no cuTensorMapEncodeTiled",
+                  -2: "cuTensorMapEncodeTiled refused the operand layout"}
+
+
 def _check_launch(err: int, name: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+        why = _LAUNCH_ERRORS.get(err, f"CUDA error {err}")
+        raise RuntimeError(f"{name}: kernel launch failed: {why}")
     LAUNCHES[name] += 1
 
 
@@ -175,14 +192,16 @@ def _flat_bf16(embs: torch.Tensor, prenormalized: bool) -> torch.Tensor:
 
 
 def gt_scores_f32(tn: torch.Tensor, vn: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
-    """Ground-truth scores of the tiled branch: an f32 elementwise
-    reduction of the bf16 rows, outside the kernel (as in the JAX package)."""
+    """Ground-truth scores of the tiled branch's plain version: an f32
+    elementwise reduction of the bf16 rows, apart from the count (as in the
+    JAX package; the kernel's counterpart is ``gt_dot`` in csrc/sim_rank.cu)."""
     return torch.sum(tn.float() * vn[gt.long()].float(), dim=1)
 
 
 def _sim_rank_plain_flat(tn, vn, gt, wide: bool, block: int = 4096):
-    gt = gt.long()
     v = vn.shape[0]
+    valid = (gt >= 0) & (gt < v)  # other rows get rank 0
+    gt = torch.where(valid, gt, 0).long()
     cols = torch.arange(v, device=tn.device)
     vf = vn.float()
     gts = None if wide else gt_scores_f32(tn, vn, gt)
@@ -199,7 +218,7 @@ def _sim_rank_plain_flat(tn, vn, gt, wide: bool, block: int = 4096):
             greater = (s > g) & (cols[None, :] != g_col)
         beats = greater | ((s == g) & (cols[None, :] > g_col))
         out[start:stop] = (1 + beats.sum(dim=1)).to(torch.int32)
-    return out
+    return torch.where(valid, out, 0)
 
 
 def fused_sim_rank_plain(txt, vis, gt_cols, prenormalized: bool = False):
@@ -221,7 +240,8 @@ def fused_sim_rank(txt, vis, gt_cols, prenormalized: bool = False):
     the wide kernel, where the ground-truth score comes from the same tile
     accumulation as the counted scores; larger ones take the tiled kernel,
     where it comes from a separate f32 reduction and the ground-truth column
-    is excluded from the greater-count."""
+    is excluded from the greater-count. A row whose ground truth lies outside
+    [0, V) gets rank 0, which no valid row has."""
     tn = _flat_bf16(txt, prenormalized)
     vn = _flat_bf16(vis, prenormalized)
     gt = gt_cols.to(device=tn.device, dtype=torch.int32).contiguous()
@@ -235,15 +255,21 @@ def fused_sim_rank(txt, vis, gt_cols, prenormalized: bool = False):
     _require(hd % 64 == 0, f"flat width {hd} must be a multiple of 64")
     _require(gt.shape == (t,), f"gt_cols shape {tuple(gt.shape)} != ({t},)")
     _require(0 < t < 2**31 and 0 < v < 2**31, "row counts out of range")
+    n_items = -(-t // SIM_RANK_ITEM_ROWS) * -(-v // SIM_RANK_ITEM_COLS)
+    _require(n_items < 2**30, "too many work items")
+    _require(tn.data_ptr() % 16 == 0 and vn.data_ptr() % 16 == 0,
+             "operands must be 16-byte aligned")
     out = torch.empty(t, dtype=torch.int32, device=tn.device)
+    gts = torch.empty(t, dtype=torch.float32, device=tn.device)  # ground-truth scores
     lib = _lib("sim_rank")
     stream = _stream(tn.device)
     if wide:
+        work = torch.empty(2 * n_items, dtype=torch.int32, device=tn.device)
         err = lib.laff_sim_rank_wide(tn.data_ptr(), vn.data_ptr(), gt.data_ptr(),
-                                     t, v, hd, out.data_ptr(), stream)
+                                     work.data_ptr(), gts.data_ptr(), t, v, hd,
+                                     out.data_ptr(), stream)
         _check_launch(err, "sim_rank_wide")
     else:
-        gts = gt_scores_f32(tn, vn, gt).contiguous()
         err = lib.laff_sim_rank_tiled(tn.data_ptr(), vn.data_ptr(), gt.data_ptr(),
                                       gts.data_ptr(), t, v, hd, out.data_ptr(),
                                       stream)

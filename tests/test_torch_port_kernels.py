@@ -170,3 +170,46 @@ def test_kernel_sources_declare_their_tpu_counterparts():
         assert "laff_tpu/ops/pallas_kernels.py" in text
         for name in names:
             assert name in text
+
+
+def test_library_name_follows_the_sources(tmp_path, monkeypatch):
+    """A library is named by a digest of its source and the headers beside
+    it, so an edit to either names another library (never a stale one)."""
+    for src in K._CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(K, "_CSRC", tmp_path)
+    names = [(K._lib_path("sim_rank"), K._lib_path("gate"))]
+    with open(tmp_path / "wgmma.cuh", "a") as f:
+        f.write("\n")
+    names.append((K._lib_path("sim_rank"), K._lib_path("gate")))
+    with open(tmp_path / "sim_rank.cu", "a") as f:
+        f.write("\n")
+    names.append((K._lib_path("sim_rank"), K._lib_path("gate")))
+    assert len({n[0] for n in names}) == 3
+    assert names[1][1] != names[0][1] and names[2][1] == names[1][1]
+
+
+def test_work_item_tile_matches_the_kernel_source():
+    """The wrapper sizes the wide branch's scratch from the kernel's work item."""
+    text = (K._CSRC / "sim_rank.cu").read_text()
+    assert f"constexpr int BM = {K.SIM_RANK_ITEM_ROWS};" in text
+    assert f"constexpr int BN = {K.SIM_RANK_ITEM_COLS};" in text
+
+
+@pytest.mark.parametrize("wide", [True, False])
+def test_sim_rank_out_of_range_gt_has_rank_zero(rng, monkeypatch, wide):
+    """A row whose ground truth lies outside [0, V) gets rank 0 (the kernel
+    does the same on the card); the other rows keep their ranks."""
+    if not wide:
+        monkeypatch.setattr(K, "WIDE_BUDGET", 1)
+    txt, vis, gt = _inputs(rng, 40, 90, 2, 16)
+    args = (torch.from_numpy(txt), torch.from_numpy(vis))
+    ref = K.fused_sim_rank(*args, torch.from_numpy(gt)).numpy()
+    bad = gt.copy()
+    bad[[3, 17, 30]] = [-1, 90, 2**31 - 1]
+    ours = K.fused_sim_rank(*args, torch.from_numpy(bad)).numpy()
+    np.testing.assert_array_equal(ours[[3, 17, 30]], 0)
+    keep = np.ones(40, bool)
+    keep[[3, 17, 30]] = False
+    np.testing.assert_array_equal(ours[keep], ref[keep])
+    assert (ref >= 1).all()
