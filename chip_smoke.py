@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (laff_tpu_torch) on one NVIDIA card.
 
   python3 chip_smoke.py          # from the repository root; needs one GPU
+  python3 chip_smoke.py --gate-timing DIR [DIR ...]
+                                 # the gate of each checkout DIR in turn
 
 Phases, each asserting; any failure exits non-zero before the last line:
 
@@ -12,14 +14,19 @@ Phases, each asserting; any failure exits non-zero before the last line:
    2,990 videos x 4,096) with captions grouped by video (the main path's
    layout) and again with ground truths scattered over the gallery,
    sim_rank_tiled at a gallery above the wide budget (8,192 x 16,384),
-   gate_attention at the eval batch (1024, 4, 8, 512) with with_ave off /
-   on and mul on. Times are CUDA-event medians. Then the rank kernels'
-   edge cases on both branches (the tiled one forced by a lowered
-   WIDE_BUDGET): one text row against a gallery narrower than a tile,
-   ragged T and V, HD 512 and 2048, a gallery of duplicated rows with
-   exact ties, and ground truths outside the gallery (rank 0). The rank
-   times are taken on the main path's flat f32 embeddings, the bf16 cast
-   included, and again on operands already cast.
+   gate_attention at (B, 4, 8, 512) for B 128, 1,024 and 8,192, with
+   with_ave off / on and mul on at the eval batch 1,024. Times are
+   CUDA-event medians of one call, and for the gate also the profiler's
+   device time and the time per call of 62 calls back to back (one rtest
+   pass). Then the rank kernels' edge cases on both branches (the tiled
+   one forced by a lowered WIDE_BUDGET): one text row against a gallery
+   narrower than a tile, ragged T and V, HD 512 and 2048, a gallery of
+   duplicated rows with exact ties, and ground truths outside the gallery
+   (rank 0); and the gate's: L, H, dh and B away from the headline, x off
+   16-byte alignment, shapes that take the simple gate kernel, logits
+   scaled by 100, an all-zero row, g = 0, and a tensor g with no host sync.
+   The rank times are taken on the main path's flat f32 embeddings, the
+   bf16 cast included, and again on operands already cast.
 3. The prediction slice at full width (configs/rehearsal.py, seeded random
    weights) through ``laff_tpu_torch.engine.predictor.main``: a synthetic
    2,990-video x 20-caption world with rank_path 'kernel' and 'flat', then
@@ -27,10 +34,15 @@ Phases, each asserting; any failure exits non-zero before the last line:
    Launch counts are zeroed just before and read just after each kernel
    run. The same inputs are embedded again: the kernel run's ranks are held
    against the plain rank version on those bf16 operands, the flat run's
-   against their f32 scores, and the towers against the CPU.
+   against their f32 scores, and the towers against the CPU; one forward
+   of each tower is profiled by kernel.
 
 Prints the kernels JSON line, then ``{"ok": true, "device": ...}`` last.
 Everything it writes goes under build/ in the repository.
+
+``--gate-timing`` runs only the gate: each DIR (a checkout, e.g. the parent
+commit unpacked under build/) in its own process, with its own wrapper and
+kernel sources, held against its plain version and timed as in phase 2.
 """
 
 import json
@@ -258,35 +270,158 @@ def sim_rank_edge_phase(torch, K, gen):
         "larger-index-first; out-of-range ground truths rank 0")
 
 
-def gate_phase(torch, K, gen):
-    b, l, h, dh = 1024, 4, 8, 512
+GATE_BATCHES = (128, 1024, 8192)  # the training batch, the eval batch, a large eval batch
+GATE_OPTIONS = ((False, False), (True, False), (True, True))  # (with_ave, mul)
+GATE_RUN = 62  # gate calls of one rtest prediction pass: 59 text + 3 video batches
+
+
+def gate_inputs(torch, gen, b, l=4, h=8, dh=512, k_scale=1.0):
     x = torch.randn(b, l, h, dh, generator=gen, device="cuda")
-    bound = 1.0 / dh ** 0.5
+    bound = k_scale / dh ** 0.5
     k = (torch.rand(h, dh, generator=gen, device="cuda") * 2 - 1) * bound
     bias = (torch.rand(h, generator=gen, device="cuda") * 2 - 1) * bound
+    return x, k, bias
+
+
+def gate_times(torch, K, x, k, bias, g, with_ave, mul):
+    """ms: CUDA events around one wrapper call; device_ms: the profiler's
+    device time of the gate kernels per call (None when it records none);
+    run_ms: GATE_RUN calls back to back, per call (what the embed loop sees)."""
+    def call():
+        return K.fused_gate_attention(x, k, bias, g, with_ave, mul)
+
+    by_name = device_ms(torch, call, reps=20)
+    dev = [v for name, v in by_name.items() if "gate" in name]
+    return {"ms": time_ms(torch, call, 20), "device_ms": sum(dev) if dev else None,
+            "run_ms": time_ms(torch, lambda: [call() for _ in range(GATE_RUN)], 5) / GATE_RUN}
+
+
+def fmt_ms(v):
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def gate_phase(torch, K, gen):
+    """The gate at the headline's (L 4, H 8, dh 512): against the plain
+    version at the eval batch for every option set, then timed at each of
+    GATE_BATCHES. g is a tensor on the card, as the towers pass it."""
+    g = torch.tensor(0.8, device="cuda")
     out = {}
-    for with_ave, mul in ((False, False), (True, False), (True, True)):
-        got = K.fused_gate_attention(x, k, bias, 0.8, with_ave=with_ave, mul=mul)
-        ref = K.fused_gate_attention_plain(x, k, bias, 0.8, with_ave=with_ave, mul=mul)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        check(err <= GATE_TOL, f"gate with_ave={with_ave} mul={mul}: max err {err}")
-        ms = time_ms(torch, lambda: K.fused_gate_attention(x, k, bias, 0.8, with_ave, mul), 20)
-        plain_ms = time_ms(torch, lambda: K.fused_gate_attention_plain(
-            x, k, bias, 0.8, with_ave, mul), 20)
-        n_bytes = (x.numel() + k.numel() + bias.numel() + b * h * dh) * 4
-        ops = x.numel() * (10 if mul else 8)  # mean, logits, weighted sum, norm
-        b_ms, b_by = bound_ms(n_bytes, ops, PEAK_F32_OPS_S)
-        log(f"gate_attention (B={b}, L={l}, H={h}, dh={dh}) with_ave={with_ave} mul={mul}: "
-            f"max abs err {err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
-        out[(with_ave, mul)] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    # the headline gate (with_ave off, mul off) is the main path's; the
-    # worst error over the three option sets is reported with it
-    row = dict(out[(False, False)])
+    for b in GATE_BATCHES:
+        x, k, bias = gate_inputs(torch, gen, b)
+        for with_ave, mul in GATE_OPTIONS if b == 1024 else GATE_OPTIONS[:1]:
+            before = K.LAUNCHES["gate_attention"]
+            got = K.fused_gate_attention(x, k, bias, g, with_ave=with_ave, mul=mul)
+            ref = K.fused_gate_attention_plain(x, k, bias, g, with_ave=with_ave, mul=mul)
+            torch.cuda.synchronize()
+            check(K.LAUNCHES["gate_attention"] == before + 1,
+                  "gate: the headline shape did not take the ring kernel")
+            err = float((got - ref).abs().max())
+            check(err <= GATE_TOL, f"gate B={b} with_ave={with_ave} mul={mul}: max err {err}")
+            row = gate_times(torch, K, x, k, bias, g, with_ave, mul)
+            row["plain_ms"] = time_ms(torch, lambda: K.fused_gate_attention_plain(
+                x, k, bias, g, with_ave, mul), 20)
+            n_bytes = (x.numel() + k.numel() + bias.numel() + got.numel()) * 4
+            ops = x.numel() * (10 if mul else 8)  # mean, logits, weighted sum, norm
+            row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, ops, PEAK_F32_OPS_S)
+            row.update(max_abs_err=err, library_ms=None)
+            share = ("" if row["device_ms"] is None
+                     else f" ({row['bound_ms'] / row['device_ms']:.0%} of the bound)")
+            log(f"gate_attention (B={b}, L=4, H=8, dh=512) with_ave={with_ave} mul={mul}: "
+                f"max abs err {err:.3g}; device {fmt_ms(row['device_ms'])} ms{share}, "
+                f"call {row['ms']:.4f} ms, {GATE_RUN} calls back to back "
+                f"{row['run_ms']:.4f} ms per call, plain {row['plain_ms']:.4f} ms, "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            out[(b, with_ave, mul)] = row
+    # the main path's gate (eval batch, with_ave off, mul off) is the row; the
+    # worst error over the option sets is reported with it
+    row = dict(out[(1024, False, False)])
     row["max_abs_err"] = max(r["max_abs_err"] for r in out.values())
     return row
+
+
+def gate_edge_phase(torch, K, gen):
+    """The gate away from the headline, each case against the plain version
+    to GATE_TOL, and on the kernel the C entry point should choose: the ring
+    kernel when dh % 4 == 0, x is 16-byte aligned and one head's L slices fit
+    a stage, else the simple kernel."""
+    def run(x, k, bias, g, with_ave, mul, what):
+        aligned = x.data_ptr() % 16 == 0
+        l, dh = x.shape[1], x.shape[3]
+        ring = dh % 4 == 0 and aligned and l * dh * 4 <= K.GATE_STAGE_BYTES
+        name = "gate_attention" if ring else "gate_attention_simple"
+        before = dict(K.LAUNCHES)
+        got = K.fused_gate_attention(x, k, bias, g, with_ave=with_ave, mul=mul)
+        ref = K.fused_gate_attention_plain(x, k, bias, g, with_ave=with_ave, mul=mul)
+        torch.cuda.synchronize()
+        check(K.LAUNCHES[name] == before[name] + 1 and sum(K.LAUNCHES.values())
+              == sum(before.values()) + 1, f"gate {what}: did not take {name}")
+        check(bool(torch.isfinite(got).all()), f"gate {what}: non-finite output")
+        err = float((got - ref).abs().max())
+        check(err <= GATE_TOL, f"gate {what} with_ave={with_ave} mul={mul}: max err {err}")
+        return got
+
+    counts = dict(K.LAUNCHES)
+    i = 0
+    for l in (1, 2, 5, 16):
+        for h in (1, 4, 16):
+            for dh in (8, 130, 1024):
+                b = (1, 3, 4099)[i % 3]
+                with_ave, mul = GATE_OPTIONS[(i // 3) % 3]
+                x, k, bias = gate_inputs(torch, gen, b, l, h, dh)
+                run(x, k, bias, 0.8, with_ave, mul, f"(B={b}, L={l}, H={h}, dh={dh})")
+                i += 1
+    # one head's slices above a stage (128 KB): the simple kernel
+    x, k, bias = gate_inputs(torch, gen, 3, 16, 2, 2048)
+    run(x, k, bias, 0.8, True, True, "(B=3, L=16, H=2, dh=2048)")
+    # contiguous but one float past a 16-byte boundary: the simple kernel
+    b, l, h, dh = 1024, 4, 8, 512
+    store = torch.randn(b * l * h * dh + 1, generator=gen, device="cuda")
+    x = store[1:].view(b, l, h, dh)
+    _, k, bias = gate_inputs(torch, gen, 1)
+    for with_ave, mul in GATE_OPTIONS:
+        run(x, k, bias, 0.8, with_ave, mul, "(x one float off 16-byte alignment)")
+    # logits scaled by 100: exp overflows unless the max is taken out first
+    x, k, bias = gate_inputs(torch, gen, b, k_scale=100.0)
+    for with_ave, mul in GATE_OPTIONS:
+        run(x, k, bias, 0.8, with_ave, mul, "(logits x100)")
+    # an all-zero row gives zeros, and no NaN; g = 0 drops the residual
+    x, k, bias = gate_inputs(torch, gen, b)
+    x[5] = 0
+    for with_ave, mul in GATE_OPTIONS:
+        got = run(x, k, bias, 0.8, with_ave, mul, "(an all-zero row)")
+        check(bool((got[5] == 0).all()), "gate: an all-zero row did not give zeros")
+    run(x, k, bias, 0.0, True, False, "(g = 0)")
+    # g as a tensor on the card, given to the wrapper and held by a with_ave
+    # gate module as its buffer: neither call may wait for the host
+    from laff_tpu_torch.models.attention import MultiHeadGateAttention
+
+    g = torch.tensor(0.8, device="cuda")
+    module = MultiHeadGateAttention(h * dh, h, with_ave=True, mul=True)
+    module.reset_parameters(torch.Generator().manual_seed(SEED))
+    module = module.cuda()
+    module.global_emb_weight.fill_(0.8)
+    local = x.reshape(b, l, h * dh)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = K.fused_gate_attention(x, k, bias, g, with_ave=True, mul=True)
+        with torch.no_grad():
+            got_module = module(local)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ref = K.fused_gate_attention_plain(x, k, bias, g, with_ave=True, mul=True)
+    ref_module = K.fused_gate_attention_plain(x, module.gate_kernel.detach(),
+                                              module.gate_bias.detach(), g, mul=True)
+    err = max(float((got - ref).abs().max()), float((got_module - ref_module).abs().max()))
+    check(err <= GATE_TOL, f"gate with a tensor g: max err {err}")
+    ring = K.LAUNCHES["gate_attention"] - counts["gate_attention"]
+    simple = K.LAUNCHES["gate_attention_simple"] - counts["gate_attention_simple"]
+    log(f"gate edge cases (L 1/2/5/16 x H 1/4/16 x dh 8/130/1024 over B 1/3/4099 and the "
+        f"three option sets, dh 2048 at L 16, x off 16-byte alignment, logits x100, an "
+        f"all-zero row, g = 0, a tensor g to the wrapper and to a with_ave module under sync "
+        f"debug mode 'error'): held against the "
+        f"plain version to {GATE_TOL}; {ring} ring and {simple} simple kernel launches, each "
+        f"on the kernel its shape calls for")
 
 
 # ---------------------------------------------------------------------------
@@ -393,7 +528,92 @@ def cpu_reference_check(torch, P, ckpt, txt_feed, vis_feed, gpu_txt, gpu_vis):
     log(f"  towers on the card vs the CPU (64 captions, 64 videos): max abs err {err:.3g}")
 
 
-def main():
+def tower_profile(torch, model, txt_feed, vis_feed):
+    """Device time of one tower forward on the first eval batch of each
+    feed, by kernel: the whole forward, the torch.stack that builds the
+    gate's (B, L, D) input in FusionTower.forward (cat kernels), the gate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from laff_tpu_torch.engine.evaluator import to_device
+
+    for side, feed, fn in (("text", txt_feed, model.encode_txt),
+                           ("video", vis_feed, model.encode_vis)):
+        batch = to_device(next(iter(feed))["data"], torch.device("cuda"))
+        with torch.no_grad():
+            fn(batch)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn(batch)
+                torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+            if us:
+                by_name[e.key] = us / 1e3
+        rows = next(iter(batch.values())).shape[0]
+        if not by_name:
+            log(f"  {side} tower forward (B={rows}): the profiler recorded no device time "
+                f"(not measured)")
+            continue
+        stack = sum(v for k, v in by_name.items() if "CatArray" in k)
+        gate = sum(v for k, v in by_name.items() if "gate" in k)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        log(f"  {side} tower forward (B={rows}): device "
+            f"{sum(by_name.values()):.4f} ms, of which torch.stack (cat kernels) {stack:.4f} ms "
+            f"and the gate {gate:.4f} ms; top: "
+            + "; ".join(f"{k[:50]} {v:.4f}" for k, v in top))
+
+
+def gate_worker(torch, root):
+    """Times the gate of the checkout at ``root`` (its own wrapper, sources
+    and build) at the headline's (L 4, H 8, dh 512) for each of GATE_BATCHES
+    and GATE_OPTIONS, after holding it against its plain version."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from laff_tpu_torch.ops import kernels as K
+
+    check(os.path.abspath(K.__file__).startswith(root + os.sep),
+          f"imported {K.__file__}, not the package under {root}")
+    for name, text in K.build_kernels().items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    g = torch.tensor(0.8, device="cuda")
+    rows = []
+    for b in GATE_BATCHES:
+        x, k, bias = gate_inputs(torch, gen, b)
+        for with_ave, mul in GATE_OPTIONS:
+            got = K.fused_gate_attention(x, k, bias, g, with_ave, mul)
+            err = float((got - K.fused_gate_attention_plain(x, k, bias, g, with_ave, mul))
+                        .abs().max())
+            check(err <= GATE_TOL, f"{root}: gate B={b} with_ave={with_ave} mul={mul}: "
+                  f"max err {err}")
+            row = {"b": b, "with_ave": with_ave, "mul": mul, "max_abs_err": err,
+                   **gate_times(torch, K, x, k, bias, g, with_ave, mul)}
+            log(f"{root}: gate B={b} with_ave={with_ave} mul={mul}: device "
+                f"{fmt_ms(row['device_ms'])} ms, call {row['ms']:.4f} ms, {GATE_RUN} back to "
+                f"back {row['run_ms']:.4f} ms per call, max abs err {err:.3g}")
+            rows.append(row)
+    log("gate_timing " + json.dumps({"root": root, "rows": rows}))
+
+
+def gate_timing(roots):
+    """Each checkout's gate in its own process, in the order given: to hold
+    two trees against each other on one card, unpack the other under build/
+    and pass it, this tree, this tree, it."""
+    for root in roots:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--gate-worker", root],
+                              capture_output=True, text=True, timeout=900)
+        sys.stdout.write(proc.stdout)
+        sys.stdout.flush()
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+    return 0
+
+
+def main(argv):
     import torch
 
     if not os.path.isdir(os.path.join(ROOT, "laff_tpu_torch")):
@@ -403,6 +623,18 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if argv[:1] == ["--gate-timing"] and len(argv) > 1:
+        return gate_timing(argv[1:])
+    if argv[:1] == ["--gate-worker"] and len(argv) == 2:
+        try:
+            gate_worker(torch, argv[1])
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
+        return 0
+    if argv:
+        print(__doc__, file=sys.stderr)
+        return 2
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -440,6 +672,7 @@ def main():
         # the gt pass's cost with ground truths on every gallery tile
         sim_rank_phase(torch, K, "sim_rank_wide", 59_800, 2_990, 0, gen)
         sim_rank_edge_phase(torch, K, gen)
+        gate_edge_phase(torch, K, gen)
 
         shutil.rmtree(WORK, ignore_errors=True)
         root = os.path.join(WORK, "world")
@@ -452,10 +685,13 @@ def main():
         res_k, launches_k = run_predictor(torch, K, P, root, "rtest", ckpt, "kernel")
         check(launches_k["sim_rank_wide"] >= 1, "the kernel run launched no sim_rank_wide")
         check(launches_k["gate_attention"] >= 1, "the kernel run launched no gate_attention")
+        check(launches_k["gate_attention_simple"] == 0,
+              "the main path's gate shapes took the simple gate kernel")
         res_f, launches_f = run_predictor(torch, K, P, root, "rtest", ckpt, "flat")
         check(launches_f["sim_rank_wide"] == 0, "the flat run launched the rank kernel")
-        gpu_txt, gpu_vis, txt_feed, vis_feed, _ = reembed_and_check(
+        gpu_txt, gpu_vis, txt_feed, vis_feed, model = reembed_and_check(
             torch, K, P, root, "rtest", ckpt, res_k, res_f)
+        tower_profile(torch, model, txt_feed, vis_feed)
         cpu_reference_check(torch, P, ckpt, txt_feed, vis_feed, gpu_txt, gpu_vis)
 
         t0 = time.perf_counter()
@@ -491,4 +727,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

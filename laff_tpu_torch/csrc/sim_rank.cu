@@ -57,6 +57,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mbarrier.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -77,46 +78,6 @@ constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;  // + b
 static_assert(SMEM_BYTES <= 232448, "stages exceed the shared memory of an SM");
 
 enum Mode { kTiled = 0, kWide = 1, kGt = 2 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    return done != 0;
-}
-
-// Wait until the phase of parity `parity` has completed. A wait of about ten
-// seconds means a lost arrival: trap, so the launch fails instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    if (mbar_try_wait(bar, parity)) return;
-    const long long start = clock64();
-    while (!mbar_try_wait(bar, parity))
-        if (clock64() - start > 20000000000ll) __trap();
-}
 
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int c_inner, int c_outer) {
@@ -222,7 +183,7 @@ sim_rank_kernel(const __grid_constant__ CUtensorMap txt_map,
             mbar_init(full + 8 * s, 1);
             mbar_init(empty + 8 * s, CONSUMERS * 4);  // one arrival per consumer warp
         }
-        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        mbar_init_fence();
     }
     __syncthreads();
 

@@ -8,7 +8,10 @@ Kernels (sources in ``laff_tpu_torch/csrc``):
                   count pass; the gallery fits the wide budget
   sim_rank_tiled  the same ranks for larger galleries, ground-truth scores
                   from a separate f32 reduction (csrc/sim_rank.cu)
-  gate_attention  the fused LAFF multi-head gate (csrc/gate.cu)
+  gate_attention  the fused LAFF multi-head gate (csrc/gate.cu): a
+                  persistent bulk-copy ring kernel, and a simple kernel
+                  (counted as gate_attention_simple) for shapes outside
+                  the ring's conditions
 
 Each wrapper serves a CPU tensor with its plain version and a CUDA tensor
 with its kernel; any other device raises. There is no fallback from the
@@ -62,7 +65,7 @@ SIM_RANK_ITEM_COLS = 256
 WIDE_BUDGET = 64 * 1024 * 1024
 
 LAUNCHES: Dict[str, int] = {"sim_rank_wide": 0, "sim_rank_tiled": 0,
-                            "gate_attention": 0}
+                            "gate_attention": 0, "gate_attention_simple": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -131,14 +134,15 @@ def _lib(name: str) -> ctypes.CDLL:
     if not path.exists():
         build_kernels()
     lib = ctypes.CDLL(str(path))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i = ctypes.c_void_p, ctypes.c_int
     if name == "sim_rank":
         lib.laff_sim_rank_wide.argtypes = [p, p, p, p, p, i, i, i, p, p]
         lib.laff_sim_rank_wide.restype = i
         lib.laff_sim_rank_tiled.argtypes = [p, p, p, p, i, i, i, p, p]
         lib.laff_sim_rank_tiled.restype = i
     else:
-        lib.laff_gate_attention.argtypes = [p, p, p, f, i, i, i, i, i, i, p, p]
+        lib.laff_gate_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, p,
+                                            ctypes.POINTER(i), p]
         lib.laff_gate_attention.restype = i
     _LIBS[name] = lib
     return lib
@@ -281,13 +285,19 @@ def fused_sim_rank(txt, vis, gt_cols, prenormalized: bool = False):
 # fused LAFF gate (replaces pallas_kernels.fused_gate_attention)
 # ---------------------------------------------------------------------------
 
-_GATE_MAX_L = 16
-_GATE_SMEM_LIMIT = 227 * 1024
+# the limits of csrc/gate.cu: at most GATE_MAX_L positions; the ring kernel
+# takes dh % 4 == 0, 16-byte-aligned x, gate kernel and output, and one
+# head's L slices within a stage of GATE_STAGE_BYTES; other shapes take the
+# simple kernel (the C entry point chooses and reports which)
+GATE_MAX_L = 16
+GATE_STAGE_BYTES = 72 * 1024
+_GATE_ROUTES = ("gate_attention", "gate_attention_simple")
 
 
 def fused_gate_attention_plain(x, gate_kernel, gate_bias, global_weight=1.0,
                                with_ave: bool = True, mul: bool = False):
-    """Plain PyTorch version of :func:`fused_gate_attention`."""
+    """Plain PyTorch version of :func:`fused_gate_attention`; g may be a
+    number or a one-element tensor on x's device."""
     x = x.float()
     length = x.shape[1]
     mean = x.mean(dim=1)  # (B, H, dh)
@@ -296,8 +306,28 @@ def fused_gate_attention_plain(x, gate_kernel, gate_bias, global_weight=1.0,
     weights = torch.softmax(logits, dim=1)
     out = torch.einsum("blh,blhd->bhd", weights, x)
     if with_ave:
+        if isinstance(global_weight, torch.Tensor):
+            global_weight = global_weight.float().reshape(())
         out = out + global_weight * mean * float(length)
     return out / (torch.sqrt(torch.sum(out * out, dim=-1, keepdim=True)) + 1e-14)
+
+
+def _check_gate_args(x, gate_kernel, gate_bias, global_weight) -> None:
+    """The wrapper's contract, the same on both devices."""
+    _require(x.ndim == 4, f"x must be (B, L, H, dh), got {tuple(x.shape)}")
+    b, length, heads, dh = x.shape
+    _require(tuple(gate_kernel.shape) == (heads, dh),
+             f"gate_kernel {tuple(gate_kernel.shape)} != ({heads}, {dh})")
+    _require(tuple(gate_bias.shape) == (heads,),
+             f"gate_bias {tuple(gate_bias.shape)} != ({heads},)")
+    _require(1 <= length <= GATE_MAX_L, f"L={length} outside 1..{GATE_MAX_L}")
+    _require(0 < b * heads < 2**31 and length * heads * dh < 2**31,
+             f"x {tuple(x.shape)} out of range")
+    if isinstance(global_weight, torch.Tensor):
+        _require(global_weight.numel() == 1,
+                 f"global_weight must hold one value, got shape {tuple(global_weight.shape)}")
+        _require(global_weight.device == x.device,
+                 f"global_weight on {global_weight.device}, x on {x.device}")
 
 
 def fused_gate_attention(x, gate_kernel, gate_bias, global_weight=1.0,
@@ -305,30 +335,34 @@ def fused_gate_attention(x, gate_kernel, gate_bias, global_weight=1.0,
     """Fused multi-head LAFF gate, forward only: x (B, L, H, dh) f32 ->
     (B, H, dh) per-head unit vectors (mean over L, gate logits, softmax over
     L, weighted sum, ``with_ave`` residual g*L*mean, per-head l2norm with
-    +1e-14). Raises when an input requires grad: there is no backward."""
-    if any(t.requires_grad for t in (x, gate_kernel, gate_bias)):
+    +1e-14). ``global_weight`` (g) is a number or a one-element tensor on
+    x's device; the kernel reads a tensor g on the card, so the call never
+    waits for it. Raises when an input requires grad: there is no backward."""
+    tensors = [x, gate_kernel, gate_bias]
+    if isinstance(global_weight, torch.Tensor):
+        tensors.append(global_weight)
+    if any(t.requires_grad for t in tensors):
         raise RuntimeError("fused_gate_attention is forward-only; an input requires grad")
+    _check_gate_args(x, gate_kernel, gate_bias, global_weight)
     if _device_kind(x, gate_kernel, gate_bias) == "cpu":
         return fused_gate_attention_plain(x, gate_kernel, gate_bias, global_weight,
                                           with_ave, mul)
 
-    _require(x.ndim == 4, f"x must be (B, L, H, dh), got {tuple(x.shape)}")
     b, length, heads, dh = x.shape
     for name, t in (("x", x), ("gate_kernel", gate_kernel), ("gate_bias", gate_bias)):
         _require(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
-    _require(tuple(gate_kernel.shape) == (heads, dh),
-             f"gate_kernel {tuple(gate_kernel.shape)} != ({heads}, {dh})")
-    _require(tuple(gate_bias.shape) == (heads,),
-             f"gate_bias {tuple(gate_bias.shape)} != ({heads},)")
-    _require(1 <= length <= _GATE_MAX_L, f"L={length} outside 1..{_GATE_MAX_L}")
-    _require(4 * ((length + 2) * dh + 4) <= _GATE_SMEM_LIMIT,
-             f"L={length} x dh={dh} exceeds the kernel's shared memory")
-    _require(0 < b * heads < 2**31, "batch x heads out of range")
+    g = None
+    if with_ave:
+        if isinstance(global_weight, torch.Tensor):
+            g = global_weight.reshape(1).float()
+        else:  # a fill on the card, no copy from the host to wait for
+            g = torch.full((1,), float(global_weight), dtype=torch.float32, device=x.device)
     out = torch.empty((b, heads, dh), dtype=torch.float32, device=x.device)
+    route = ctypes.c_int(0)
     err = _lib("gate").laff_gate_attention(
         x.data_ptr(), gate_kernel.data_ptr(), gate_bias.data_ptr(),
-        float(global_weight), b, length, heads, dh, int(with_ave), int(mul),
-        out.data_ptr(), _stream(x.device))
-    _check_launch(err, "gate_attention")
+        None if g is None else g.data_ptr(), b, length, heads, dh, int(with_ave), int(mul),
+        out.data_ptr(), ctypes.byref(route), _stream(x.device))
+    _check_launch(err, _GATE_ROUTES[route.value])
     return out
