@@ -36,8 +36,23 @@ Phases, each asserting; any failure exits non-zero before the last line:
    against the plain rank version on those bf16 operands, the flat run's
    against their f32 scores, and the towers against the CPU; one forward
    of each tower is profiled by kernel.
+4. The training slice at full width: two epochs of the rehearsal config
+   through ``laff_tpu_torch.engine.trainer.main`` on a 1,500-video x
+   20-caption world (rtrain, B 128, 234 steps an epoch), validating on
+   rtest with rank_path 'kernel', every window of steps between two loss
+   reads under ``torch.cuda.set_sync_debug_mode("error")``. Checks: the
+   loss falls, R@1 is above chance, each validation launches the wide rank
+   kernel once and the gate 62 times and the steps launch neither (also
+   on a window of 60 steps with the counts zeroed around it), and one step
+   on the card agrees with the same step on the CPU. Figures: ms per step
+   (median, batches on the card), steps per second in the trainer's loop,
+   epoch and validation wall time, one step's device profile (top 10
+   kernels, idle share) and host profile. The trained checkpoint then
+   goes through ``predictor.main`` with rank_path 'kernel' and 'flat'.
 
-Prints the kernels JSON line, then ``{"ok": true, "device": ...}`` last.
+Prints the kernels JSON line (launches: the rtest prediction pass and the
+training run's validations; rbig for the tiled kernel), then
+``{"ok": true, "device": ...}`` last.
 Everything it writes goes under build/ in the repository.
 
 ``--gate-timing`` runs only the gate: each DIR (a checkout, e.g. the parent
@@ -564,6 +579,203 @@ def tower_profile(torch, model, txt_feed, vis_feed):
             + "; ".join(f"{k[:50]} {v:.4f}" for k, v in top))
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the training slice
+# ---------------------------------------------------------------------------
+
+# card (bf16 linears on cuBLAS, cuDNN GRU) vs CPU (plain versions): one step's
+# loss from the same weights and batch, dropout off; bf16 rounding of the
+# transforms moves a sum of 8 x 128 hinge terms by far less than this
+STEP_LOSS_RTOL = 1e-2
+TRAIN_WINDOW = 60  # steps between two loss reads in the checked window
+VAL_GATE_CALLS = 62  # gate calls of one rtest validation: 59 text + 3 video batches
+
+
+def dropout_off(model):
+    from laff_tpu_torch.models.layers import TransformNet
+
+    for m in model.modules():
+        if isinstance(m, TransformNet):
+            m.dropout = 0.0
+
+
+def device_batches(T, feed, device, n):
+    """The first ``n`` batches of epoch 0, featurized and on ``device``."""
+    out = []
+    for batch in feed.epoch(0):
+        hb = T.host_batch(batch, device.type == "cuda")
+        out.append(({k: v.to(device) for k, v in hb["txt"].items()},
+                    {k: v.to(device) for k, v in hb["vis"].items()}))
+        if len(out) == n:
+            return out
+    return out
+
+
+def new_step(T, config, spec, state_dict, device):
+    from laff_tpu_torch.engine.optim import make_optimizer
+    from laff_tpu_torch.models import LAFFModel
+
+    model = LAFFModel(spec)
+    model.load_state_dict(state_dict)
+    model.to(device)
+    return T.TrainStep(model, make_optimizer(config, model, bf16=True), spec)
+
+
+def step_profile(torch, step, txt, vis, gen):
+    """One train step under torch.profiler (CPU and CUDA activity): device
+    ms by kernel, host ms by operator (self time), the kernel launches,
+    and the step's wall ms (synchronized; the profiler's host cost in it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step(txt, vis, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(txt, vis, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device, host, launches = {}, {}, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+            if us:
+                device[e.key] = us / 1e3
+                launches += e.count
+        elif e.self_cpu_time_total:
+            host[e.key] = (e.self_cpu_time_total / 1e3, e.count)
+    return device, host, launches, wall
+
+
+def train_phase(torch, K, P, root, smi):
+    """Two epochs of the rehearsal config through trainer.main on rtrain,
+    validating on rtest with the rank kernel; then the checks and figures
+    of the training path; then the trained checkpoint through the
+    predictor. Returns the launches of the training run."""
+    from laff_tpu_torch.data import PairFeed
+    from laff_tpu_torch.data.synth import build_world
+    from laff_tpu_torch.engine import trainer as T
+    from laff_tpu_torch.engine.checkpoint import load_checkpoint
+    from laff_tpu_torch.engine.prepare import Options, prepare
+
+    t0 = time.perf_counter()
+    log(f"world: {build_world(root, 'rtrain', 1500, 20, 11286, SEED + 2)} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    opt = Options(trainCollection="rtrain", valCollection="rtest", rootpath=root, val_set="no",
+                  config_name="rehearsal", num_epochs=2, batch_size=128, device="cuda",
+                  rank_path="kernel", sync_debug=1, random_seed=SEED, model_prefix="smoke")
+    t0 = time.perf_counter()
+    prepared = prepare(opt)
+    feed = prepared.train_feed
+    log(f"trainer prepare: {time.perf_counter() - t0:.1f} s; {len(feed.cap_ids)} captions, "
+        f"{feed.steps_per_epoch()} steps of {feed.batch_size} per epoch")
+
+    # the main path: every step between two loss reads runs under sync debug
+    # mode 'error'; each validation takes the gate and the wide rank kernel
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = T.main(opt, prepared=prepared)
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    hist = res["history"]
+    for e in hist:
+        log(f"  epoch {e['epoch']}: loss {e['loss']:.4f}, lr {e['lr']:.6g}, train "
+            f"{e['train_seconds']:.2f} s, validate {e['val_seconds']:.2f} s, wall "
+            f"{e['wall_seconds']:.2f} s; r1 {e['r1']:.3f} r5 {e['r5']:.3f} r10 {e['r10']:.3f} "
+            f"medr {e['medr']:.0f} mir {e['mir']:.5f} [{smi}]")
+    log(f"trainer.main: {len(hist)} epochs in {wall:.1f} s (prepare in the call "
+        f"{res['prepare_seconds']} s); launches {launches} [{smi}]")
+    check(len(hist) == 2, f"trainer ran {len(hist)} epochs, not 2")
+    check(hist[1]["loss"] < hist[0]["loss"], "the training loss did not fall")
+    check(hist[1]["r1"] > 100.0 / 2990, f"validation R@1 {hist[1]['r1']} is not above chance")
+    expect = {"sim_rank_wide": 2, "sim_rank_tiled": 0, "gate_attention": 2 * VAL_GATE_CALLS,
+              "gate_attention_simple": 0}
+    check(launches == expect, f"training run launches {launches}, expected one rank and "
+          f"{VAL_GATE_CALLS} gate launches per validation and none in the steps: {expect}")
+
+    # a window of steps from the trained weights: launch counts zeroed
+    # around it, no host sync inside it
+    ckpt_path = os.path.join(res["model_path"], "model_best.pth.tar")
+    ck = load_checkpoint(ckpt_path)
+    device = torch.device("cuda")
+    step = new_step(T, prepared.config, prepared.spec, ck["state_dict"], device)
+    window = PairFeed(feed.text_batcher, feed.vis_batcher, feed.batch_size, feed.seed,
+                      cap_ids=feed.cap_ids[:TRAIN_WINDOW * feed.batch_size])
+    gen = T.epoch_generator(device, SEED, 2)
+    T.train_one_epoch(step, window, 2, device, gen, log_every=TRAIN_WINDOW)  # warm
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    loss, n = T.train_one_epoch(step, window, 3, device, gen, log_every=TRAIN_WINDOW,
+                                sync_debug=True)
+    window_s = time.perf_counter() - t0
+    check(n == TRAIN_WINDOW and loss == loss, f"window: {n} steps, loss {loss}")
+    check(sum(K.LAUNCHES.values()) == 0, f"train steps launched kernels: {dict(K.LAUNCHES)}")
+    log(f"train window: {n} steps between two loss reads under sync debug mode 'error', "
+        f"no kernel of the port launched; {window_s:.2f} s, {n / window_s:.2f} steps/s "
+        f"(host featurization overlapped) [{smi}]")
+
+    # step time on batches already on the card, and one step's device profile
+    batches = device_batches(T, feed, device, 31)
+    times = []
+    for txt, vis in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(txt, vis, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    device_ms, host_ms, n_kernels, prof_wall = step_profile(torch, step, *batches[0], gen)
+    txt, vis = batches[0]
+
+    def forward_backward():
+        step.optimizer.zero_grad()
+        step.loss_fn(*step.model(txt, vis, gen)).backward()
+
+    fb_ms = time_ms(torch, forward_backward, reps=20)
+    opt_ms = time_ms(torch, step.optimizer.step, reps=20)
+    log(f"train step (B 128, batch on the card): median {step_ms:.3f} ms wall over "
+        f"{len(times)} steps ({1e3 / step_ms:.2f} steps/s); its parts alone (CUDA events, "
+        f"median of 20): forward + loss + backward {fb_ms:.3f} ms, optimizer update over "
+        f"{step.optimizer.grad.numel()} parameters {opt_ms:.3f} ms [{smi}]")
+    if device_ms:
+        busy = sum(device_ms.values())
+        top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:10]
+        log(f"  one step profiled: {busy:.3f} ms of device time in {n_kernels} kernels; "
+            f"device idle {max(0.0, 1 - busy / step_ms):.1%} of the median step wall "
+            f"({prof_wall:.3f} ms wall under the profiler); device top 10: "
+            + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
+        top = sorted(host_ms.items(), key=lambda kv: -kv[1][0])[:10]
+        log(f"  host self time {sum(v for v, _ in host_ms.values()):.3f} ms in "
+            f"{sum(n for _, n in host_ms.values())} operator calls; host top 10: "
+            + "; ".join(f"{k[:40]} {v:.3f} ({n})" for k, (v, n) in top))
+    else:
+        log("  one step profiled: the profiler recorded no device time (not measured)")
+
+    # one step, same weights and batch, dropout off: card vs CPU
+    losses = {}
+    for dev in (device, torch.device("cpu")):
+        s = new_step(T, prepared.config, prepared.spec, ck["state_dict"], dev)
+        dropout_off(s.model)
+        txt, vis = device_batches(T, feed, dev, 1)[0]
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        losses[dev.type] = [float(s(txt, vis, g)) for _ in range(2)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    check(rel <= STEP_LOSS_RTOL, f"card vs CPU step losses {losses}")
+    log(f"  card vs CPU, two steps from the same weights and batch, dropout off: losses "
+        f"{losses['cuda']} vs {losses['cpu']} (max rel diff {rel:.3g} <= {STEP_LOSS_RTOL})")
+
+    # the trained checkpoint through the predictor, both rank paths
+    res_k, _ = run_predictor(torch, K, P, root, "rtest", ckpt_path, "kernel")
+    res_f, _ = run_predictor(torch, K, P, root, "rtest", ckpt_path, "flat")
+    val_mir = hist[int(ck["epoch"]) - 1]["mir"]
+    check(abs(res_k["t2v"][5] - val_mir) < 1e-6,
+          f"the predictor's kernel-path mir {res_k['t2v'][5]} is not the trainer's "
+          f"validation mir {val_mir}")
+    reembed_and_check(torch, K, P, root, "rtest", ckpt_path, res_k, res_f)
+    return launches
+
+
 def gate_worker(torch, root):
     """Times the gate of the checkout at ``root`` (its own wrapper, sources
     and build) at the headline's (L 4, H 8, dh 512) for each of GATE_BATCHES
@@ -643,8 +855,9 @@ def main(argv):
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              timeout=60)
-        log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
-            f"nvidia-smi gave nothing: {smi.stderr.strip()}")
+        smi_line = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
+                    f"nvidia-smi gave nothing: {smi.stderr.strip()}")
+        log(smi_line)
         log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda "
             f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}; "
             f"tf32 off for matmul and cuDNN")
@@ -703,13 +916,20 @@ def main(argv):
         check(launches_b["sim_rank_tiled"] >= 1, "the large-gallery run launched no tiled kernel")
         check(launches_b["sim_rank_wide"] == 0, "the large-gallery run took the wide kernel")
 
+        t0 = time.perf_counter()
+        launches_t = train_phase(torch, K, P, root, smi_line)
+        log(f"training phase: {time.perf_counter() - t0:.1f} s")
+
+        # launches of the main path: the rtest prediction pass and the
+        # training run's validations (rbig for the tiled kernel)
+        main_path = {k: launches_k[k] + launches_t[k] for k in launches_k}
         meta = {
             "sim_rank_wide": ("laff_tpu_torch/csrc/sim_rank.cu",
-                              "laff_tpu/ops/pallas_kernels.py:116", launches_k),
+                              "laff_tpu/ops/pallas_kernels.py:116", main_path),
             "sim_rank_tiled": ("laff_tpu_torch/csrc/sim_rank.cu",
                                "laff_tpu/ops/pallas_kernels.py:65", launches_b),
             "gate_attention": ("laff_tpu_torch/csrc/gate.cu",
-                               "laff_tpu/ops/pallas_kernels.py:274", launches_k),
+                               "laff_tpu/ops/pallas_kernels.py:274", main_path),
         }
         kernels = []
         for name, (source, replaces, launches) in meta.items():

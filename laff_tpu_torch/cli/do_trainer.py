@@ -1,0 +1,74 @@
+#!/usr/bin/env python3
+"""Training CLI; the argument surface follows ``laff_tpu.cli.do_trainer``
+for the options the port implements (the others raise, naming the
+ROADMAP item that brings them).
+
+  python -m laff_tpu_torch.cli.do_trainer <trainCollection> <valCollection> \
+      --rootpath <root> --config_name rehearsal [--device cpu] [--rank_path kernel]
+"""
+
+import argparse
+import os
+import sys
+
+from laff_tpu_torch.engine.evaluator import RANK_PATHS
+from laff_tpu_torch.engine.prepare import Options, model_dir_for
+from laff_tpu_torch.engine.trainer import main as train_main
+from laff_tpu_torch.utils import ROOT_PATH, check_to_skip
+
+
+def parse_args(argv=None) -> Options:
+    parser = argparse.ArgumentParser("LAFF trainer (PyTorch/CUDA port)")
+    parser.add_argument("trainCollection", type=str, help="train collection")
+    parser.add_argument("valCollection", type=str, help="validation collection")
+    parser.add_argument("--rootpath", type=str, default=ROOT_PATH)
+    parser.add_argument("--trainCollection2", type=str, default="None")
+    parser.add_argument("--task2_caption", type=str, default="no_task2_caption")
+    parser.add_argument("--task2_intended", default=0, type=int, choices=[0, 1])
+    parser.add_argument("--task3_caption", type=str, default="no_task3_caption")
+    parser.add_argument("--train_strategy", type=str, default="usual")
+    parser.add_argument("--overwrite", type=int, default=0, choices=[0, 1])
+    parser.add_argument("--val_set", type=str, default="setA")
+    parser.add_argument("--metric", type=str, default="mir",
+                        choices=["r1", "r5", "r10", "medr", "meanr", "mir"])
+    parser.add_argument("--num_epochs", default=80, type=int)
+    parser.add_argument("--batch_size", default=128, type=int)
+    parser.add_argument("--workers", default=2, type=int,
+                        help="feed prefetch depth (batches kept in flight)")
+    parser.add_argument("--model_prefix", default="runs_0", type=str)
+    parser.add_argument("--config_name", type=str, default="laff")
+    parser.add_argument("--parm_adjust_config", type=str, default="None")
+    parser.add_argument("--device", default="cuda", type=str,
+                        help="torch device; 'cpu' runs the plain versions of the kernels")
+    parser.add_argument("--rank_path", default="auto", choices=list(RANK_PATHS),
+                        help="validation rank path; 'kernel' forces the fused CUDA rank kernel")
+    parser.add_argument("--sync_debug", default=0, type=int, choices=[0, 1],
+                        help="run the steps between two loss reads under "
+                             "torch.cuda.set_sync_debug_mode('error')")
+    parser.add_argument("--random_seed", default=2, type=int)
+    parser.add_argument("--local_rank", default=0, type=int)
+    parser.add_argument("--pretrained_file_path", default="None", type=str,
+                        help="port checkpoint to warm-start from")
+    parser.add_argument("--save_mean_last", default=0, type=int, choices=[0, 1])
+    parser.add_argument("--resume", default=0, type=int, choices=[0, 1],
+                        help="resume a run (optimizer, LR controller, counters) from "
+                             "model_resume.pth.tar")
+    parser.add_argument("--early_stop_patience", default=10, type=int)
+    parser.add_argument("--steps_per_dispatch", default=1, type=int)
+    parser.add_argument("--device_feature_cache", default=0, type=int)
+    parser.add_argument("--device_text_cache", default=0, type=int)
+    parser.add_argument("--device_text_featurize", default=0, type=int)
+    parser.add_argument("--data_parallel", default=0, type=int)
+    return Options(**vars(parser.parse_args(argv)))
+
+
+def main(argv=None) -> int:
+    opt = parse_args(argv)
+    if check_to_skip(os.path.join(model_dir_for(opt), "model_best.pth.tar"), opt.overwrite):
+        return 0
+    train_main(opt)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,9 +1,11 @@
-"""Fixed-shape batchers and a prefetching host feed for evaluation.
+"""Fixed-shape batchers and prefetching host feeds for training and
+evaluation.
 
 * Text featurization (BoW counts, w2v mean-pool, GRU index padding) is
   vectorized host work done in the feed, not inside the model forward.
-* Eval feeds pad the final batch to the batch size and report the valid
-  count, so every tower call sees one shape.
+* The train feed (``PairFeed``) drops the trailing partial batch; eval
+  feeds pad the final batch to the batch size and report the valid count,
+  so every tower call sees one shape.
 * ``Prefetcher`` overlaps the host featurization of batch k+1 with the
   card's work on batch k.
 """
@@ -17,7 +19,7 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence
 import numpy as np
 
 from ..text.txt2vec import IndexVec, Txt2Vec
-from .sources import TextSource, VisionSource
+from .sources import TextSource, VisionSource, vis_id_of
 
 
 class TextBatcher:
@@ -73,6 +75,37 @@ class VisBatcher:
 
     def __call__(self, vis_ids: Sequence[str]) -> Dict[str, np.ndarray]:
         return self.source.gather(vis_ids)
+
+
+class PairFeed:
+    """Training feed: shuffled (caption, video) pairs in fixed-size batches,
+    ``{'txt': {...}, 'vis': {...}, 'cap_ids': [...], 'vis_ids': [...]}``.
+    Epoch e's order is ``default_rng(seed + e).permutation`` of the caption
+    ids and the trailing partial batch is dropped, as in
+    ``laff_tpu.data.PairFeed``, so both packages see the same batches in
+    the same order. ``cap_ids`` restricts the feed to a subset of the
+    captions. (The task3 negation captions come with task3.)"""
+
+    def __init__(self, text_batcher: TextBatcher, vis_batcher: VisBatcher,
+                 batch_size: int = 128, seed: int = 0,
+                 cap_ids: Optional[Sequence[str]] = None) -> None:
+        self.text_batcher = text_batcher
+        self.vis_batcher = vis_batcher
+        self.batch_size = batch_size
+        self.seed = seed
+        self.cap_ids = list(text_batcher.source.cap_ids if cap_ids is None else cap_ids)
+
+    def steps_per_epoch(self) -> int:
+        return len(self.cap_ids) // self.batch_size
+
+    def epoch(self, epoch: int) -> Iterator[Dict]:
+        order = np.random.default_rng(self.seed + epoch).permutation(len(self.cap_ids))
+        shuffled = [self.cap_ids[i] for i in order]
+        for start in range(0, self.steps_per_epoch() * self.batch_size, self.batch_size):
+            chunk = shuffled[start : start + self.batch_size]
+            vis_ids = [vis_id_of(c) for c in chunk]
+            yield {"cap_ids": chunk, "vis_ids": vis_ids, "vis": self.vis_batcher(vis_ids),
+                   "txt": self.text_batcher(chunk)}
 
 
 class EvalFeed:

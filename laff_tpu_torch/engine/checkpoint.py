@@ -10,13 +10,20 @@ with ``weights_only=True`` and references no class of either package:
   vocab        featurizer vocabularies: {'bow': {...}, 'rnn': {...}}, each
                {'encoding', 'words' (index order), 'class', 'norm'}
   opt          how the checkpoint was made (config name, sweep string, ...)
+
+The trainer adds ``epoch`` and ``best_perf``, and its resume file
+(``model_resume.pth.tar``) the optimizer state, the LR controller, the step
+and early-stop counters and the mean-last window, all tensors or plain
+data. ``save_checkpoint_dance`` keeps the reference's best-model file
+names, so the predictor loads the trainer's ``model_best.pth.tar`` as it is.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import types
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -81,6 +88,38 @@ def save_checkpoint(payload: Dict, path: str) -> None:
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+
+
+def save_checkpoint_dance(payload: Dict, is_best: bool, logdir: str,
+                          filename: str = "checkpoint.pth.tar", only_best: bool = False) -> None:
+    """The reference's best-model protocol (``trainer.py:626-645``): a best
+    epoch is staged as model_temp_best; at the end of training the staged
+    file becomes model_best. A resumed run that never beat the best before
+    the interruption has no staged file, and writes the current weights if
+    model_best does not exist yet."""
+    staged = os.path.join(logdir, "model_temp_best.pth.tar")
+    if is_best:
+        resfile = os.path.join(logdir, filename)
+        save_checkpoint(payload, resfile)
+        shutil.copyfile(resfile, staged)
+        os.remove(resfile)
+    if only_best:
+        best = os.path.join(logdir, "model_best.pth.tar")
+        if os.path.exists(staged):
+            shutil.copyfile(staged, best)
+            os.remove(staged)
+        elif not os.path.exists(best):
+            save_checkpoint(payload, best)
+
+
+def average_states(states: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """Uniform average of parameter dicts (mean_last10, reference
+    ``trainer.py:410-424``)."""
+    out = {k: v.clone() for k, v in states[0].items()}
+    for other in states[1:]:
+        for k, v in other.items():
+            out[k] += v
+    return {k: v / len(states) for k, v in out.items()}
 
 
 def load_checkpoint(path: str) -> Dict:

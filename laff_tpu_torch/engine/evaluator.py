@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..data import EvalFeed, Prefetcher
-from ..eval.metrics import ranks_from_scores
+from ..eval.metrics import metrics_from_ranks, ranks_from_scores
 from ..ops import cosine_sim, flatten_heads, fused_sim_rank, multi_head_cosine_sim
 from ..utils import get_logger
 
@@ -131,3 +131,25 @@ def t2v_ranks(txt_embs: torch.Tensor, vis_embs: torch.Tensor, txt_ids: List[str]
         scores = (tn[start:stop] @ vn.T) / heads
         ranks[start:stop] = ranks_from_scores(scores, gt[start:stop]).cpu().numpy()
     return ranks
+
+
+def validate(embedder: Embedder, txt_feed: EvalFeed, vis_feed: EvalFeed,
+             measure: str = "cosine", rank_path: str = "auto") -> Dict:
+    """Text-to-video metrics over a validation split (``laff_tpu.engine.
+    evaluator.validate``): r1, r5, r10, medr, meanr, mir and mAP, with the
+    ranks and ids. The model runs in eval mode under no_grad, so on the
+    card the towers take the gate kernel, and ``rank_path`` picks the rank
+    path as in the predictor."""
+    model = embedder.model
+    was_training = model.training
+    model.eval()
+    try:
+        vis_embs, vis_ids = embedder.embed_vis(vis_feed)
+        txt_embs, txt_ids = embedder.embed_txt(txt_feed)
+        ranks = t2v_ranks(txt_embs, vis_embs, txt_ids, vis_ids, measure=measure,
+                          rank_path=rank_path)
+    finally:
+        model.train(was_training)
+    names = ("r1", "r5", "r10", "medr", "meanr", "mir", "mAP")
+    return {**{k: float(v) for k, v in zip(names, metrics_from_ranks(ranks))}, "ranks": ranks,
+            "txt_ids": txt_ids, "vis_ids": vis_ids}

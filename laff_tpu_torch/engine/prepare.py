@@ -1,31 +1,38 @@
-"""Config -> text featurizers, model spec, and a seeded model checkpoint.
+"""Config -> text featurizers, model spec, feeds, and a seeded model.
 
-The parts of ``laff_tpu.engine.prepare`` that prediction needs:
-``load_config``, ``build_featurizers`` (BoW / w2v / GRU ids / precomputed
-CLIP, in the reference's encoder order) and ``build_spec``, plus
-``init_checkpoint``, which seeds a model for a collection the way the
-trainer's first step would (the trainer itself comes in a later slice).
-Vocabularies are built from the train captions when their pickle is
-missing, and saved in the reference layout.
+The parts of ``laff_tpu.engine.prepare`` that prediction and training
+need: ``load_config``, ``build_featurizers`` (BoW / w2v / GRU ids /
+precomputed CLIP, in the reference's encoder order), ``build_spec``, the
+trainer's ``Options`` and ``prepare`` (``train_strategy='usual'`` with one
+train collection), and ``init_checkpoint``, which seeds a model for a
+collection as the trainer does before its first step. Vocabularies are
+built from the train captions when their pickle is missing, and saved in
+the reference layout.
+
+Options of ``laff_tpu`` that the port does not have yet raise
+``NotImplementedError`` naming the ROADMAP item that brings them; none is
+silently ignored.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import importlib
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..data import PairFeed, TextBatcher, TextSource, VisBatcher, VisionSource, read_video_set
 from ..models.laff import LAFFModel
 from ..models.spec import AttentionSpec, GruSpec, LAFFSpec, TowerSpec, TransformSpec
 from ..store import BigFile
 from ..text import build_vocab, get_txt2vec
 from ..text.txt2vec import IndexVec, load_vocab_pickle
 from ..text.vocab import save_vocab
-from ..utils import get_logger
+from ..utils import ROOT_PATH, get_logger, makedirs
 
 logger = get_logger(__name__)
 
@@ -232,13 +239,35 @@ def vis_feature_dims(rootpath: str, collection: str, config) -> Dict[str, int]:
     }
 
 
+def seeded_model(spec: LAFFSpec, seed: int, we: Optional[np.ndarray] = None) -> LAFFModel:
+    """A model with the JAX package's init distributions from ``seed``
+    (xavier transforms, torch-default gates and GRU, BatchNorm at its
+    identity running stats), with ``we`` in the GRU embedding if given."""
+    model = LAFFModel(spec)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    if we is not None:
+        with torch.no_grad():
+            model.txt_net.gru.we.weight.copy_(torch.from_numpy(we))
+    return model
+
+
+def gru_init_we(config, gru_vocab, w2v_dir: str, rng) -> Optional[np.ndarray]:
+    """The w2v rows for the GRU embedding when the reference's gate allows
+    them (``we_dim`` 500, or ``config.w2v_init_rnn``), else None."""
+    w2v_init = getattr(config, "w2v_init_rnn", None)
+    if w2v_init is None:
+        w2v_init = config.we_dim == 500
+    if (gru_vocab is not None and w2v_init and os.path.exists(w2v_dir)
+            and BigFile(w2v_dir).ndims == config.we_dim):
+        return get_we(gru_vocab, w2v_dir, rng)
+    return None
+
+
 def init_checkpoint(config_name: str, rootpath: str, collection: str, seed: int,
                     parm_adjust_config: str = "None") -> Dict:
     """A checkpoint payload for a seeded, untrained model over
     ``collection``'s features and caption vocabulary: the state the trainer
-    starts from (xavier transforms, torch-default gates and GRU, w2v rows
-    in the GRU embedding when ``we_dim`` is 500, BatchNorm at its identity
-    running stats)."""
+    starts from."""
     from .checkpoint import checkpoint_payload
 
     config = load_config(config_name, parm_adjust_config)
@@ -247,16 +276,168 @@ def init_checkpoint(config_name: str, rootpath: str, collection: str, seed: int,
         config, rootpath, collection, capfile)
     spec = build_spec(config, vis_feature_dims(rootpath, collection, config),
                       txt_dims, gru_spec)
-    model = LAFFModel(spec)
-    model.reset_parameters(torch.Generator().manual_seed(seed))
-    w2v_init = getattr(config, "w2v_init_rnn", None)
-    if w2v_init is None:
-        w2v_init = config.we_dim == 500
-    if (gru_vocab is not None and w2v_init and os.path.exists(w2v_dir)
-            and BigFile(w2v_dir).ndims == config.we_dim):
-        we = get_we(gru_vocab, w2v_dir, np.random.default_rng(seed))
-        with torch.no_grad():
-            model.txt_net.gru.we.weight.copy_(torch.from_numpy(we))
+    we = gru_init_we(config, gru_vocab, w2v_dir, np.random.default_rng(seed))
+    model = seeded_model(spec, seed, we)
     opt = {"config_name": config_name, "parm_adjust_config": parm_adjust_config,
            "trainCollection": collection, "random_seed": seed}
     return checkpoint_payload(model.state_dict(), spec, config, featurizers, opt)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Options:
+    """Training options: the fields of ``laff_tpu.engine.prepare.Options``
+    (the reference ``do_trainer`` surface), plus the port's ``device`` and
+    ``rank_path``, and ``sync_debug``, a check mode that runs the train
+    steps between two log points under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+
+    trainCollection: str = "msrvtt10ktrain"
+    valCollection: str = "msrvtt10kval"
+    rootpath: str = ROOT_PATH
+    trainCollection2: str = "None"
+    task2_caption: str = "no_task2_caption"
+    task3_caption: str = "no_task3_caption"
+    train_strategy: str = "usual"
+    overwrite: int = 0
+    val_set: str = "setA"
+    metric: str = "mir"
+    num_epochs: int = 80
+    batch_size: int = 128
+    workers: int = 2
+    model_prefix: str = "runs_0"
+    config_name: str = "laff"
+    parm_adjust_config: str = "None"
+    device: str = "cuda"
+    random_seed: int = 2
+    local_rank: int = 0
+    pretrained_file_path: str = "None"
+    save_mean_last: int = 0
+    resume: int = 0
+    early_stop_patience: int = 10
+    rank_path: str = "auto"
+    sync_debug: int = 0
+    # options of laff_tpu that raise here until their ROADMAP item lands
+    steps_per_dispatch: int = 1
+    device_feature_cache: int = 0
+    device_text_cache: int = 0
+    device_text_featurize: int = 0
+    data_parallel: int = 0
+    task2_intended: int = 0
+
+
+# option, the values the port runs, the ROADMAP item that brings the others
+_NOT_PORTED = (
+    ("steps_per_dispatch", lambda v: v in (-1, 1),
+     "K-step fused dispatch (ROADMAP Queue 1 item 2; on the card a CUDA graph)"),
+    ("device_feature_cache", lambda v: v == 0,
+     "engine/feature_cache.py (ROADMAP Queue 1 item 2)"),
+    ("device_text_cache", lambda v: v == 0, "engine/feature_cache.py (ROADMAP Queue 1 item 2)"),
+    ("device_text_featurize", lambda v: v == 0,
+     "the indexed bow/w2v feed (ROADMAP Queue 1 item 2)"),
+    ("data_parallel", lambda v: v in (0, 1), "data_parallel (ROADMAP Queue 1 item 8)"),
+    ("trainCollection2", lambda v: v == "None",
+     "a second train collection (ROADMAP Queue 1 item 2)"),
+    ("train_strategy", lambda v: v == "usual",
+     "train_strategy='subset' (ROADMAP Queue 1 item 2)"),
+    ("task3_caption", lambda v: v == "no_task3_caption", "task3 (ROADMAP Queue 1 item 5)"),
+    ("task2_intended", lambda v: v == 0, "task2 (ROADMAP Queue 1 item 5)"),
+)
+
+
+def check_options(opt: Options) -> None:
+    for name, ported, later in _NOT_PORTED:
+        value = getattr(opt, name)
+        if not ported(value):
+            raise NotImplementedError(f"{name}={value!r} is not ported yet: {later}")
+    if opt.task2_caption != "no_task2_caption":
+        logger.warning("task2_caption=%s accepted but inert, as in laff_tpu without "
+                       "--task2_intended 1", opt.task2_caption)
+
+
+def check_config(config) -> None:
+    """Config features the training slice does not have yet."""
+    if getattr(config, "frame_feat_input", False):
+        raise NotImplementedError("frame features (FrameLAFF) are not ported yet: "
+                                  "ROADMAP Queue 1 item 5")
+    if "no" not in config.text_encoding["bert_encoding"]["name"]:
+        raise NotImplementedError("a BERT text tower is not ported yet: ROADMAP Queue 1 item 7")
+
+
+def model_dir_for(opt) -> str:
+    """<root>/<train>/w2vvpp_train/<val>/<val_set>/<config>/<prefix>
+    (reference ``trainer.py:88-92``)."""
+    val_set = "" if opt.val_set == "no" else opt.val_set
+    return os.path.join(opt.rootpath, opt.trainCollection, "w2vvpp_train", opt.valCollection,
+                        val_set, opt.config_name, opt.model_prefix)
+
+
+@dataclasses.dataclass
+class Prepared:
+    config: object
+    spec: LAFFSpec
+    model_path: str
+    train_feed: PairFeed
+    val_txt_source: TextSource
+    val_txt_batcher: TextBatcher
+    val_vis_batcher: VisBatcher
+    val_vis_ids: List[str]
+    featurizers: Dict
+    we: Optional[np.ndarray]  # w2v rows for the GRU embedding, or None
+
+
+def _vis_files(rootpath: str, collection: str, names) -> Dict[str, BigFile]:
+    return {n: BigFile(os.path.join(rootpath, collection, "FeatureData", n)) for n in names}
+
+
+def prepare(opt: Options) -> Prepared:
+    """Options -> config, spec, featurizers (from the train captions), the
+    GRU embedding's w2v rows, the train feed and the validation feeds."""
+    check_options(opt)
+    opt.rootpath = os.path.expanduser(opt.rootpath)
+    rootpath = opt.rootpath
+    val_set = "" if opt.val_set == "no" else opt.val_set
+    config = load_config(opt.config_name, opt.parm_adjust_config)
+    check_config(config)
+    model_path = model_dir_for(opt)
+    makedirs(model_path)
+    train, val = opt.trainCollection, opt.valCollection
+    train_capfile = os.path.join(rootpath, train, "TextData", f"{train}.caption.txt")
+    val_capfile = os.path.join(rootpath, val, "TextData", val_set, f"{val}.caption.txt")
+
+    # feature dims into the config, as the reference does (trainer.py:126-157)
+    train_vis = _vis_files(rootpath, train, config.vid_feats)
+    val_vis = _vis_files(rootpath, val, config.vid_feats)
+    config.vis_fc_layers = [{n: f.ndims for n, f in train_vis.items()},
+                            int(config.vis_fc_layers[1])]
+    vis_dims = dict(config.vis_fc_layers[0])
+    if config.vis_feat_add_concat:
+        config.vis_fc_layers[0]["vis_feat_add_concat"] = int(sum(vis_dims.values()))
+    featurizers, txt_dims, gru_spec, gru_vocab, w2v_dir = build_featurizers(
+        config, rootpath, train, train_capfile)
+    if isinstance(config.txt_fc_layers, str):
+        config.txt_fc_layers = [0, int(config.txt_fc_layers.split("-")[1])]
+    config.txt_fc_layers[0] = int(sum(txt_dims.values()))
+    spec = build_spec(config, vis_dims, txt_dims, gru_spec)
+    # the legacy RandomState seeded like laff_tpu's np.random.seed(random_seed)
+    we = gru_init_we(config, gru_vocab, w2v_dir, np.random.RandomState(opt.random_seed))
+
+    train_ids = read_video_set(os.path.join(rootpath, train, "VideoSets", f"{train}.txt"))
+    train_tsource = TextSource(train_capfile,
+                               precomputed=text_precomputed(config, train_capfile))
+    train_feed = PairFeed(
+        TextBatcher(train_tsource, dict(featurizers), max_txtlength=config.max_txtlength),
+        VisBatcher(VisionSource(train_vis, train_ids)),
+        batch_size=opt.batch_size, seed=opt.random_seed)
+    val_ids = read_video_set(os.path.join(rootpath, val, "VideoSets", f"{val}.txt"))
+    val_tsource = TextSource(val_capfile, precomputed=text_precomputed(config, val_capfile))
+    return Prepared(
+        config=config, spec=spec, model_path=model_path, train_feed=train_feed,
+        val_txt_source=val_tsource,
+        val_txt_batcher=TextBatcher(val_tsource, dict(featurizers),
+                                    max_txtlength=config.max_txtlength),
+        val_vis_batcher=VisBatcher(VisionSource(val_vis, val_ids)), val_vis_ids=val_ids,
+        featurizers=featurizers, we=we)

@@ -11,15 +11,18 @@ Module and parameter names follow the ``laff_tpu`` flax tree
 (``txt_net.transform_bow.fc1``, ``txt_net.gru``, ``vis_net.attention``),
 so ``laff_tpu_torch.engine.weights.from_jax_variables`` is a rename.
 
-Ported in this slice: the eval forward of the video-level LAFF towers.
-FrameLAFF pooling, 'concat' fusion, cross-tower tied transforms, live
-BERT/NetVLAD features, the task2 concept heads and the training-time
-zero-feature noise come with later slices and raise here.
+The eval forward and the training forward (``module.training``) of the
+video-level LAFF towers. In training, a visual feature batch that is zero
+everywhere is replaced by standard normal noise (reference
+``model/model.py:1819-1821``), drawn, like the dropout masks, from the
+``generator`` the trainer passes. FrameLAFF pooling, 'concat' fusion,
+cross-tower tied transforms, live BERT/NetVLAD features and the task2
+concept heads come with later slices and raise here.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -68,13 +71,14 @@ def transform_spec_for(spec: TowerSpec, name: str, dim_in: int) -> TransformSpec
 class FusionTower(nn.Module):
     """feature dict -> (B, H, d) multi-space embedding."""
 
-    def __init__(self, spec: TowerSpec) -> None:
+    def __init__(self, spec: TowerSpec, is_visual: bool = False) -> None:
         super().__init__()
         if spec.frame_features:
             raise NotImplementedError("FrameLAFF towers are not ported yet")
         if spec.attention.kind == "concat":
             raise NotImplementedError("'concat' fusion is not ported yet")
         self.spec = spec
+        self.is_visual = is_visual
         self.features = list(spec.features)
         for name, dim in self.features:
             if name in ("bert", "netvlad"):
@@ -108,20 +112,26 @@ class FusionTower(nn.Module):
             return self.gru(inputs["rnn_ids"], inputs["rnn_len"])
         return inputs[name]
 
-    def forward(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         spec = self.spec
         if "bow_ids" in inputs:
             inputs = densify_bow(inputs, dict(self.features)["bow"])
         locals_ = []
         for name, dim in self.features:
             feat = self._raw_feature(name, inputs)
+            if self.is_visual and self.training:
+                # decided on the card: no host sync
+                noise = torch.randn(feat.shape, generator=generator, device=feat.device,
+                                    dtype=feat.dtype)
+                feat = torch.where(feat.abs().sum() == 0, noise, feat)
             transform = getattr(self, f"transform_{safe_name(name)}")
             if name in spec.no_transform and transform.fc1 is None:
                 feat = feat.repeat(1, spec.common_dim // feat.shape[-1])
-            locals_.append(transform(feat))
+            locals_.append(transform(feat, generator))
         if spec.feat_add_concat:
             cat = torch.cat([self._raw_feature(n, inputs) for n, _ in self.features], dim=1)
-            locals_.append(self.transform_feat_add_concat(cat))
+            locals_.append(self.transform_feat_add_concat(cat, generator))
         local_embs = torch.stack(locals_, dim=1)  # (B, L, common)
         if self.expert_embedding is not None:
             local_embs = local_embs + self.expert_embedding[None]
@@ -142,18 +152,20 @@ class LAFFModel(nn.Module):
             raise NotImplementedError("task2 concept heads are not ported yet")
         self.spec = spec
         self.txt_net = FusionTower(spec.txt)
-        self.vis_net = FusionTower(spec.vis)
+        self.vis_net = FusionTower(spec.vis, is_visual=True)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init with the JAX package's distributions."""
         self.txt_net.reset_parameters(generator)
         self.vis_net.reset_parameters(generator)
 
-    def encode_txt(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self.txt_net(inputs)
+    def encode_txt(self, inputs: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.txt_net(inputs, generator)
 
-    def encode_vis(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self.vis_net(inputs)
+    def encode_vis(self, inputs: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.vis_net(inputs, generator)
 
-    def forward(self, txt_inputs, vis_inputs):
-        return self.encode_txt(txt_inputs), self.encode_vis(vis_inputs)
+    def forward(self, txt_inputs, vis_inputs, generator: Optional[torch.Generator] = None):
+        return self.encode_txt(txt_inputs, generator), self.encode_vis(vis_inputs, generator)

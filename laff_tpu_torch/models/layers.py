@@ -5,6 +5,12 @@ Linear (xavier-uniform, zero bias) -> activation (tanh default) -> dropout
 passthrough used for pre-aligned CLIP features. BatchNorm has eps 1e-5 and
 torch momentum 0.1 (flax momentum 0.9); in eval it uses the running stats.
 
+In training (``module.training``) BatchNorm normalizes with the batch
+statistics and updates its running statistics as flax does: with the
+*biased* batch variance (``nn.BatchNorm1d`` would blend in the unbiased
+one), reduced in f32. Dropout draws its mask from the ``generator`` the
+caller passes (the trainer's, one per epoch), so a run repeats exactly.
+
 With a ``compute_dtype`` (bf16 for the headline) the input, the linear map
 and the activation run in that type, BatchNorm normalizes in f32 and rounds
 back, and the output is cast to f32, as ``laff_tpu.models.layers`` does.
@@ -37,7 +43,7 @@ class TransformNet(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(dim_in, dim_out) if fc else None
         self.activation = activation if activation in _ACTIVATIONS else None
-        self.drop = nn.Dropout(dropout) if dropout and dropout > 1e-3 else None
+        self.dropout = dropout if dropout and dropout > 1e-3 else 0.0
         self.bn1 = (nn.BatchNorm1d(dim_out, eps=1e-5, momentum=0.1)
                     if batch_norm else None)
         self.compute_dtype = compute_dtype
@@ -49,7 +55,20 @@ class TransformNet(nn.Module):
         if self.bn1 is not None:
             self.bn1.reset_parameters()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        bn = self.bn1
+        if not self.training:
+            return bn(x)
+        out = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=0, correction=0)
+            keep = 1.0 - bn.momentum
+            bn.running_mean.mul_(keep).add_(mean * bn.momentum)
+            bn.running_var.mul_(keep).add_(var * bn.momentum)
+        return out
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         dtype = self.compute_dtype
         if dtype is not None:
             x = x.to(dtype)
@@ -58,8 +77,10 @@ class TransformNet(nn.Module):
             x = F.linear(x, w.to(x.dtype), b.to(x.dtype))
         if self.activation is not None:
             x = _ACTIVATIONS[self.activation](x)
-        if self.drop is not None:
-            x = self.drop(x)
+        if self.dropout and self.training:
+            keep = 1.0 - self.dropout
+            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+            x = torch.where(mask, x / keep, x.new_zeros(()))
         if self.bn1 is not None:
-            x = self.bn1(x.float()).to(x.dtype)
+            x = self._batch_norm(x.float()).to(x.dtype)
         return x.float() if dtype is not None else x

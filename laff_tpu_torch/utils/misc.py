@@ -1,10 +1,11 @@
-"""Shared utilities: logging and idempotent-rerun guards."""
+"""Shared utilities: logging, idempotent-rerun guards, running meters."""
 
 from __future__ import annotations
 
 import logging
 import os
 import sys
+import time
 
 ROOT_PATH = os.path.join(os.environ.get("HOME", os.path.expanduser("~")), "VisualSearch")
 
@@ -45,3 +46,45 @@ def check_to_skip(filename: str, overwrite: bool) -> bool:
         logger.info("%s exists. skip", filename)
         return True
     return False
+
+
+class AverageMeter:
+    """Running mean and sum (reference ``util.py:55-80``)."""
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val: float, n: int = 1) -> None:
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)
+
+
+class Progress:
+    """Progress line with rate and ETA, logged at most every ``interval`` s."""
+
+    def __init__(self, total: int, label: str = "", interval: float = 2.0) -> None:
+        self.total = max(int(total), 1)
+        self.label = label
+        self.interval = interval
+        self.seen = 0
+        self.start = time.time()
+        self._last_print = 0.0
+
+    def add(self, n: int) -> None:
+        self.seen += n
+        now = time.time()
+        if now - self._last_print < self.interval and self.seen < self.total:
+            return
+        self._last_print = now
+        rate = self.seen / max(now - self.start, 1e-9)
+        eta = (self.total - self.seen) / max(rate, 1e-9)
+        logger.info("%s %d/%d (%.1f%%) %.1f/s eta %.0fs", self.label, self.seen, self.total,
+                    100.0 * self.seen / self.total, rate, eta)
