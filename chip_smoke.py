@@ -36,19 +36,42 @@ Phases, each asserting; any failure exits non-zero before the last line:
    against the plain rank version on those bf16 operands, the flat run's
    against their f32 scores, and the towers against the CPU; one forward
    of each tower is profiled by kernel.
-4. The training slice at full width: two epochs of the rehearsal config
-   through ``laff_tpu_torch.engine.trainer.main`` on a 1,500-video x
-   20-caption world (rtrain, B 128, 234 steps an epoch), validating on
-   rtest with rank_path 'kernel', every window of steps between two loss
-   reads under ``torch.cuda.set_sync_debug_mode("error")``. Checks: the
-   loss falls, R@1 is above chance, each validation launches the wide rank
-   kernel once and the gate 62 times and the steps launch neither (also
-   on a window of 60 steps with the counts zeroed around it), and one step
-   on the card agrees with the same step on the CPU. Figures: ms per step
-   (median, batches on the card), steps per second in the trainer's loop,
-   epoch and validation wall time, one step's device profile (top 10
-   kernels, idle share) and host profile. The trained checkpoint then
-   goes through ``predictor.main`` with rank_path 'kernel' and 'flat'.
+4. The training slice at full width on a 1,500-video x 20-caption world
+   (rtrain, B 128, 234 steps an epoch), at the default dispatch: the
+   train features in device caches, K = 8 steps per dispatch as one CUDA
+   graph replayed 8 times, validation batches staged on the card.
+   (a) The caches' gathered rows equal the fed batches (bf16 cast
+   included) bit for bit on the first 3 batches; cache bytes and build
+   seconds. (b) 16 graphed cached steps against 16 eager fed steps from the
+   same weights, optimizer state and epoch seed (the graph captured on the
+   generator before it is reseeded), dropout on: losses within 1e-5
+   relative, parameters within 1e-5 (equal is expected), no host sync and
+   no kernel of the port in the graphed steps; the capture seconds. (c)
+   Two epochs of ``laff_tpu_torch.engine.trainer.main`` at the
+   default Options (plus rank_path 'kernel' and sync_debug, so every window
+   of graphed steps between two loss reads runs under
+   ``torch.cuda.set_sync_debug_mode("error")``), validating on rtest: it
+   must choose both caches, K 8 as a graph and staged validation; the loss
+   falls, R@1 is above chance, each validation launches the wide rank
+   kernel once and the gate 62 times and the steps neither; the second
+   validation replays the staged batches and its metrics equal an unstaged
+   validate of the same weights exactly; the process's default CUDA
+   generator is left as it was. (d) Timings: the graphed step
+   (median wall, host enqueue, CUDA events, profiled device time and idle
+   share) against the eager step (median wall on batches on the card, its
+   forward + backward and optimizer parts, device profile), epoch wall,
+   validation wall staging and replayed; an unstaged embed_txt pass and a
+   staging validation with the bf16 rounding on the card (the default) and
+   on the host, in the order host, card, card, host, metrics equal. The fed
+   epoch loop with the caches off: 60 single steps through
+   ``train_one_epoch`` between two loss reads under sync debug mode
+   'error', launch counts zeroed before, none of the port's. (e) 60 steps with
+   device_text_featurize=1 (sparse bow, pooled w2v; cached, graphed)
+   against the dense fed path: losses within 1e-5 relative. The bigru at
+   the rehearsal's GRU width: no host sync, the card against the CPU, and
+   a CUDA graph of its forward + backward against eager. One step on
+   the card against the CPU; (f) the trained checkpoint through
+   ``predictor.main`` with rank_path 'kernel' and 'flat'.
 
 Prints the kernels JSON line (launches: the rtest prediction pass and the
 training run's validations; rbig for the tiled kernel), then
@@ -60,6 +83,7 @@ commit unpacked under build/) in its own process, with its own wrapper and
 kernel sources, held against its plain version and timed as in phase 2.
 """
 
+import itertools
 import json
 import os
 import shutil
@@ -587,8 +611,32 @@ def tower_profile(torch, model, txt_feed, vis_feed):
 # loss from the same weights and batch, dropout off; bf16 rounding of the
 # transforms moves a sum of 8 x 128 hinge terms by far less than this
 STEP_LOSS_RTOL = 1e-2
-TRAIN_WINDOW = 60  # steps between two loss reads in the checked window
+# graphed cached steps vs eager fed steps from the same state and generator:
+# the same kernels on the same operands, so equal is expected; these bound it
+GRAPH_LOSS_RTOL = 1e-5
+GRAPH_PARAM_ATOL = 1e-5
+# the indexed text feed (sparse bow scattered, w2v mean-pooled on the card)
+# vs the dense host features over 60 steps: f32 sums of the same terms
+INDEXED_LOSS_RTOL = 1e-5
+INDEXED_STEPS = 60  # steps of the indexed text feed held against the dense one
+# the bigru on the card (cuDNN, TF32 off) vs the CPU: f32 recurrences and
+# gradient sums in another order, relative to the largest value
+BIGRU_RTOL = 1e-4
+GRAPH_STEPS = 16  # graphed vs eager: two dispatches of K 8
+TRAIN_WINDOW = 60  # fed steps between two loss reads in the checked window
+CACHE_CHECK_BATCHES = 3
 VAL_GATE_CALLS = 62  # gate calls of one rtest validation: 59 text + 3 video batches
+
+
+class Counting:
+    """A batcher that counts its calls (to see a staged feed replay)."""
+
+    def __init__(self, batcher):
+        self.batcher, self.calls = batcher, 0
+
+    def __call__(self, ids):
+        self.calls += 1
+        return self.batcher(ids)
 
 
 def dropout_off(model):
@@ -599,15 +647,24 @@ def dropout_off(model):
             m.dropout = 0.0
 
 
-def device_batches(T, feed, device, n):
+def first_batches(feed, n, featurize=True):
+    """The first ``n`` batches of epoch 0 of a feed over ``feed``'s batchers
+    and captions, featurized or (as the caches take them) ids only."""
+    from laff_tpu_torch.data import PairFeed
+
+    copy = PairFeed(feed.text_batcher, feed.vis_batcher, feed.batch_size, feed.seed,
+                    cap_ids=feed.cap_ids)
+    copy.featurize_txt = copy.featurize_vis = featurize
+    return list(itertools.islice(copy.epoch(0), n))
+
+
+def device_batches(T, feed, device, n, cast=False):
     """The first ``n`` batches of epoch 0, featurized and on ``device``."""
     out = []
-    for batch in feed.epoch(0):
-        hb = T.host_batch(batch, device.type == "cuda")
+    for batch in first_batches(feed, n):
+        hb = T.host_batch(batch, device.type == "cuda", cast, cast)
         out.append(({k: v.to(device) for k, v in hb["txt"].items()},
                     {k: v.to(device) for k, v in hb["vis"].items()}))
-        if len(out) == n:
-            return out
     return out
 
 
@@ -621,18 +678,24 @@ def new_step(T, config, spec, state_dict, device):
     return T.TrainStep(model, make_optimizer(config, model, bf16=True), spec)
 
 
-def step_profile(torch, step, txt, vis, gen):
-    """One train step under torch.profiler (CPU and CUDA activity): device
-    ms by kernel, host ms by operator (self time), the kernel launches,
-    and the step's wall ms (synchronized; the profiler's host cost in it)."""
+def flat_params(model):
+    import torch
+
+    return torch.cat([p.detach().flatten() for p in model.parameters()])
+
+
+def profiled(torch, fn):
+    """``fn`` once under torch.profiler (CPU and CUDA activity): device ms
+    by kernel, host ms by operator (self time), the kernel launches, and the
+    wall ms (synchronized; the profiler's host cost in it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step(txt, vis, gen)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(txt, vis, gen)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     device, host, launches = {}, {}, 0
@@ -647,15 +710,329 @@ def step_profile(torch, step, txt, vis, gen):
     return device, host, launches, wall
 
 
-def train_phase(torch, K, P, root, smi):
-    """Two epochs of the rehearsal config through trainer.main on rtrain,
-    validating on rtest with the rank kernel; then the checks and figures
-    of the training path; then the trained checkpoint through the
-    predictor. Returns the launches of the training run."""
+def log_profile(what, device_ms, host_ms, n_kernels, prof_wall, step_ms, steps=1):
+    """One profiled run's device and host figures, per step of ``steps``."""
+    if not device_ms:
+        log(f"  {what} profiled: the profiler recorded no device time (not measured)")
+        return None
+    busy = sum(device_ms.values()) / steps
+    host = sum(v for v, _ in host_ms.values()) / steps
+    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:10]
+    log(f"  {what} profiled: {busy:.3f} ms of device time a step in {n_kernels / steps:.0f} "
+        f"kernels; device idle {max(0.0, 1 - busy / step_ms):.1%} of the median step wall "
+        f"({prof_wall / steps:.3f} ms a step under the profiler); host self time "
+        f"{host:.3f} ms a step; device top 10 (ms over {steps} steps): "
+        + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
+    top = sorted(host_ms.items(), key=lambda kv: -kv[1][0])[:10]
+    log(f"  {what} host top 10 (ms over {steps} steps): "
+        + "; ".join(f"{k[:40]} {v:.3f} ({n})" for k, (v, n) in top))
+    return busy
+
+
+def cache_and_graph_checks(torch, K, T, opt, prepared, smi):
+    """(a) the caches' gathered batches against the fed path's, bit for bit;
+    (b) 16 graphed cached steps (K 8) against 16 eager fed steps from the same
+    weights, optimizer state and epoch generator, dropout on; then the
+    graphed step's and the eager step's timings and profiles."""
+    from laff_tpu_torch.engine.prepare import seeded_model
+
+    device = torch.device("cuda")
+    feed = prepared.train_feed
+    init = seeded_model(prepared.spec, SEED, prepared.we).state_dict()
+    base = new_step(T, prepared.config, prepared.spec, init, device)
+    d = T.setup_dispatch(opt, prepared, base, device, True, True)
+    vis_cache, txt_cache, multi = d["vis_cache"], d["txt_cache"], d["multi_step"]
+    check(vis_cache is not None and txt_cache is not None and multi is not None
+          and d["steps_per_dispatch"] == 8, f"the default dispatch chose {d}")
+    log(f"caches: visual {vis_cache.nbytes} bytes in {vis_cache.build_seconds:.2f} s, text "
+        f"{txt_cache.nbytes} bytes in {txt_cache.build_seconds:.2f} s "
+        f"({sorted(txt_cache.arrays)}); {d['steps_per_dispatch']} steps per dispatch")
+
+    batches = first_batches(feed, GRAPH_STEPS)
+    for b in batches[:CACHE_CHECK_BATCHES]:
+        fed = T.host_batch(b, True, True, True)
+        for side, cache, ids in (("vis", vis_cache, b["vis_ids"]),
+                                 ("txt", txt_cache, b["cap_ids"])):
+            got = cache.gather(cache.indices(ids).to(device))
+            for k, v in fed[side].items():
+                want = v.to(device)
+                check(got[k].dtype == want.dtype and torch.equal(got[k], want),
+                      f"cached {side} '{k}' differs from the fed batch")
+    log(f"  (a) the first {CACHE_CHECK_BATCHES} batches of epoch 0: cached rows equal the fed "
+        f"batches bit for bit, bf16 cast included")
+
+    # (b) eager fed steps, then graphed cached steps, from the same state
+    eager = new_step(T, prepared.config, prepared.spec, init, device)
+    gen = T.epoch_generator(device, SEED, 0)
+    fed = [T.host_batch(b, True, True, True) for b in batches]
+    dev_batches = [tuple({k: v.to(device) for k, v in hb[side].items()}
+                         for side in ("txt", "vis")) for hb in fed]
+    e_losses = torch.stack([eager(txt, vis, gen) for txt, vis in dev_batches]).cpu()
+    idx = [(txt_cache.indices(b["cap_ids"]), vis_cache.indices(b["vis_ids"])) for b in batches]
+    # captured on a generator seeded for another epoch, then reseeded, as
+    # the trainer reseeds its generator each epoch after the first capture
+    gen = T.epoch_generator(device, SEED, 1)
+    multi.capture(idx[0], gen)
+    T.epoch_generator(device, SEED, 0, gen)
+    K.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g_losses = torch.cat([multi(idx[:8], gen), multi(idx[8:], gen)])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    g_losses = g_losses.cpu()
+    check(sum(K.LAUNCHES.values()) == 0, f"graphed steps launched kernels: {dict(K.LAUNCHES)}")
+    rel = float(((g_losses - e_losses).abs() / e_losses.abs()).max())
+    dp = float((flat_params(base.model) - flat_params(eager.model)).abs().max())
+    check(rel <= GRAPH_LOSS_RTOL and dp <= GRAPH_PARAM_ATOL,
+          f"graphed vs eager: loss rel diff {rel}, parameter diff {dp}")
+    log(f"  (b) {GRAPH_STEPS} graphed cached steps (K 8) vs {GRAPH_STEPS} eager fed steps, dropout "
+        f"on, one epoch seed (the graph captured before a reseed): max loss rel diff {rel:.3g} "
+        f"(<= {GRAPH_LOSS_RTOL}), max parameter diff {dp:.3g} (<= {GRAPH_PARAM_ATOL}); capture "
+        f"{multi.capture_seconds:.2f} s "
+        f"with {T.GRAPH_WARMUP} warm-up steps; no host sync, no kernel of the port; losses "
+        f"{[round(float(v), 4) for v in g_losses[:4]]}...")
+
+    # (d) timings: the graphed step against the eager step
+    group = idx[:8]
+    walls, hosts = [], []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        multi(group, gen)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / 8)
+        hosts.append((t1 - t0) * 1e3 / 8)
+    g_ms, g_host = statistics.median(walls[2:]), statistics.median(hosts[2:])
+    ev_ms = time_ms(torch, lambda: multi(group, gen), reps=10) / 8
+    log(f"graphed step (B 128, K 8, index batches): median {g_ms:.3f} ms wall a step over 10 "
+        f"dispatches, host enqueue {g_host:.3f} ms a step, CUDA events {ev_ms:.3f} ms a step "
+        f"[{smi}]")
+    prof = profiled(torch, lambda: multi(group, gen))
+    g_dev = log_profile("graphed dispatch of 8 steps", *prof, g_ms, steps=8)
+
+    times = []
+    for txt, vis in dev_batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager(txt, vis, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    e_ms = statistics.median(times[1:])
+    txt, vis = dev_batches[0]
+
+    def forward_backward():
+        eager.optimizer.zero_grad()
+        eager.loss_fn(*eager.model(txt, vis, gen)).backward()
+
+    fb_ms = time_ms(torch, forward_backward, reps=20)
+    opt_ms = time_ms(torch, eager.optimizer.step, reps=20)
+    log(f"eager step (B 128, batch on the card): median {e_ms:.3f} ms wall over "
+        f"{len(times) - 1} steps; its parts alone (CUDA events, median of 20): forward + loss "
+        f"+ backward {fb_ms:.3f} ms, optimizer update over {eager.optimizer.grad.numel()} "
+        f"parameters {opt_ms:.3f} ms [{smi}]")
+    e_dev = log_profile("eager step", *profiled(torch, lambda: eager(txt, vis, gen)), e_ms)
+    log("step_timing " + json.dumps({
+        "graphed_ms": g_ms, "graphed_host_ms": g_host, "graphed_event_ms": ev_ms,
+        "graphed_device_ms": g_dev, "eager_ms": e_ms, "eager_device_ms": e_dev,
+        "capture_s": multi.capture_seconds, "vis_cache_bytes": vis_cache.nbytes,
+        "vis_cache_s": vis_cache.build_seconds, "txt_cache_bytes": txt_cache.nbytes,
+        "txt_cache_s": txt_cache.build_seconds, "card": smi}))
+    return init
+
+
+def eval_cast_timing(torch, opt, prepared, model, txt_batcher, vis_batcher, want, smi):
+    """Where validation rounds bf16 tower inputs: on the card after an f32
+    upload (the default) or on the host before it. Per order host, card,
+    card, host on fresh feeds: one unstaged embed_txt pass (the predictor's)
+    and one validate that stages (the first validation), whose metrics must
+    equal ``want``."""
+    from laff_tpu_torch.data import EvalFeed
+    from laff_tpu_torch.engine.evaluator import Embedder, validate
+
+    device = torch.device("cuda")
+    eval_batch = prepared.config.eval_batch_size
+    depth = max(2, int(opt.workers) + 1)
+
+    def feeds(stage):
+        txt = EvalFeed(prepared.val_txt_source.cap_ids, txt_batcher, eval_batch)
+        vis = EvalFeed(prepared.val_vis_ids, vis_batcher, eval_batch)
+        txt.stage_on_device = vis.stage_on_device = stage
+        return txt, vis
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    times = {"host": {"embed_txt": [], "validate": []}, "card": {"embed_txt": [], "validate": []}}
+    model.eval()  # as the predictor embeds: no BatchNorm updates, no dropout
+    for where in ("host", "card", "card", "host"):
+        emb = Embedder(model, device, prefetch_depth=depth, host_cast=where == "host")
+        sec, _ = timed(lambda: emb.embed_txt(feeds(False)[0]))
+        times[where]["embed_txt"].append(sec)
+        sec, res = timed(lambda: validate(emb, *feeds(True), rank_path="kernel"))
+        times[where]["validate"].append(sec)
+        diff = {k: (res[k], v) for k, v in want.items() if res[k] != v}
+        check(not diff, f"validation with the bf16 cast on the {where}: {diff}")
+    model.train()
+    log("  validation's bf16 rounding on the host vs the card (s; order host, card, card, "
+        "host; metrics equal): eval_cast_timing " + json.dumps({**times, "smi": smi}))
+
+
+def fed_window_check(torch, K, T, opt, prepared, state_dict, smi):
+    """The fed epoch loop with the caches off (the trainCollection2 epoch's
+    path, and any train set above LAFF_TPU_CACHE_BUDGET): single steps
+    through train_one_epoch, batches featurized and pinned by the prefetch
+    thread and copied without blocking, from the trained weights. A warm
+    window, then launch counts zeroed and 60 steps between two loss reads
+    under sync debug mode 'error': no kernel of the port may launch."""
+    import dataclasses
+
     from laff_tpu_torch.data import PairFeed
+
+    device = torch.device("cuda")
+    feed = prepared.train_feed
+    step = new_step(T, prepared.config, prepared.spec, state_dict, device)
+    fed = dataclasses.replace(opt, device_feature_cache=0, device_text_cache=0)
+    d = T.setup_dispatch(fed, prepared, step, device, True, True)
+    check(d["vis_cache"] is None and d["txt_cache"] is None and d["multi_step"] is None,
+          f"the dispatch with the caches off chose {d}")
+    window = PairFeed(feed.text_batcher, feed.vis_batcher, feed.batch_size, feed.seed,
+                      cap_ids=feed.cap_ids[:TRAIN_WINDOW * feed.batch_size])
+    gen = T.epoch_generator(device, SEED, 2)
+    kw = dict(log_every=TRAIN_WINDOW, prefetch_depth=d["prefetch_depth"], cast_txt=True,
+              cast_vis=True)
+    T.train_one_epoch(d["step"], window, 2, device, gen, **kw)  # warm
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    loss, n = T.train_one_epoch(d["step"], window, 3, device, gen, sync_debug=True, **kw)
+    window_s = time.perf_counter() - t0
+    check(n == TRAIN_WINDOW and loss == loss, f"fed window: {n} steps, loss {loss}")
+    check(sum(K.LAUNCHES.values()) == 0, f"fed train steps launched kernels: {dict(K.LAUNCHES)}")
+    log(f"  fed window (caches off, single steps): {n} steps between two loss reads under sync "
+        f"debug mode 'error', no kernel of the port launched; {window_s:.2f} s, "
+        f"{n / window_s:.2f} steps/s (host featurization overlapped) [{smi}]")
+
+
+def indexed_text_check(torch, T, opt, prepared, init, smi):
+    """(e) 60 steps with device_text_featurize=1 (sparse bow scattered and w2v
+    mean-pooled on the card, cached and graphed as the defaults take them)
+    against 60 eager steps of the dense host features, the same weights and
+    generator."""
+    import dataclasses
+
+    from laff_tpu_torch.engine.prepare import prepare
+
+    device = torch.device("cuda")
+    opt_i = dataclasses.replace(opt, device_text_featurize=1, model_prefix="smoke_indexed")
+    t0 = time.perf_counter()
+    prep_i = prepare(opt_i)
+    step_i = new_step(T, prep_i.config, prep_i.spec, init, device)
+    d = T.setup_dispatch(opt_i, prep_i, step_i, device, True, True)
+    txt_cache, vis_cache = d["txt_cache"], d["vis_cache"]
+    check(d["multi_step"] is not None and "w2v_ids" in txt_cache.arrays
+          and "bow_ids" in txt_cache.arrays, f"indexed dispatch chose {d}")
+    log(f"  indexed text: prepare + caches {time.perf_counter() - t0:.1f} s; text cache "
+        f"{txt_cache.nbytes} bytes ({sorted(txt_cache.arrays)}), w2v table "
+        f"{tuple(prep_i.w2v_table.shape)}")
+    idx = [(txt_cache.indices(b["cap_ids"]), vis_cache.indices(b["vis_ids"]))
+           for b in first_batches(prep_i.train_feed, INDEXED_STEPS, featurize=False)]
+    gen = T.epoch_generator(device, SEED, 0)
+    got = torch.cat([d["multi_step"](idx[s:s + 8], gen) for s in range(0, len(idx), 8)]).cpu()
+
+    dense = new_step(T, prepared.config, prepared.spec, init, device)
+    gen = T.epoch_generator(device, SEED, 0)
+    ref = torch.stack([dense(txt, vis, gen) for txt, vis in
+                       device_batches(T, prepared.train_feed, device, INDEXED_STEPS, True)]).cpu()
+    rel = float(((got - ref).abs() / ref.abs()).max())
+    check(len(got) == len(ref) == INDEXED_STEPS and rel <= INDEXED_LOSS_RTOL,
+          f"indexed vs dense text: {len(got)} / {len(ref)} steps, max loss rel diff {rel}")
+    log(f"  (e) {INDEXED_STEPS} steps with device_text_featurize=1 (cached, graphed) vs the dense "
+        f"fed path: max loss rel diff {rel:.3g} (<= {INDEXED_LOSS_RTOL}); last losses "
+        f"{float(got[-1]):.5f} / {float(ref[-1]):.5f} [{smi}]")
+
+
+def bigru_check(torch):
+    """The bidirectional GRU (reverse direction by per-row gathers on the
+    card) at the rehearsal's GRU width: forward + backward under sync debug
+    'error', against the CPU, then captured as a CUDA graph and replayed on
+    new captions against eager."""
+    from laff_tpu_torch.models import GruEncoder
+    from laff_tpu_torch.models.spec import GruSpec
+
+    b, t = 128, 32
+    gen = torch.Generator().manual_seed(SEED)
+    spec = GruSpec(vocab_size=11291, we_dim=500, rnn_size=1024, bidirectional=True)
+    cpu = GruEncoder(spec).train()
+    cpu.reset_parameters(gen)
+    card = GruEncoder(spec).train()
+    card.load_state_dict(cpu.state_dict())
+    card.cuda()
+
+    def inputs():
+        ids = torch.randint(1, spec.vocab_size, (b, t), generator=gen)
+        lengths = torch.randint(1, t + 1, (b,), generator=gen)
+        ids[torch.arange(t)[None, :] >= lengths[:, None]] = 0
+        return ids, lengths
+
+    def run(module, ids, lengths):
+        module.zero_grad(set_to_none=False)
+        out = module(ids, lengths)
+        out.square().sum().backward()
+        return out.detach(), module.rnn.weight_hh_l0_reverse.grad.detach()
+
+    ids, lengths = inputs()
+    static = (ids.cuda(), lengths.cuda())
+    run(card, *static)  # the gradients exist before the checked call
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [v.clone() for v in run(card, *static)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = run(cpu, ids, lengths)
+    errs = [float((g.cpu() - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+    check(max(errs) <= BIGRU_RTOL, f"bigru card vs CPU: output / gradient diff {errs}")
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            run(card, *static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = run(card, *static)
+    ids2, lengths2 = inputs()
+    static[0].copy_(ids2)
+    static[1].copy_(lengths2)
+    graph.replay()
+    replayed = [v.clone() for v in static_out]
+    eager = run(card, ids2.cuda(), lengths2.cuda())
+    graph_errs = [float((g - e).abs().max() / e.abs().max()) for g, e in zip(replayed, eager)]
+    check(max(graph_errs) <= GRAPH_LOSS_RTOL,
+          f"the bigru replayed from a CUDA graph vs eager: output / gradient diff {graph_errs}")
+    log(f"  bigru (B {b}, T {t}, we 500, rnn 1024 x 2): no host sync in forward + backward; card "
+        f"vs CPU output / gradient diff {errs[0]:.3g} / {errs[1]:.3g} of the largest value "
+        f"(<= {BIGRU_RTOL}); a CUDA graph of forward + backward on new captions vs eager: "
+        f"{graph_errs[0]:.3g} / {graph_errs[1]:.3g} (<= {GRAPH_LOSS_RTOL})")
+
+
+def train_phase(torch, K, P, root, smi):
+    """The training slice at full width: the caches and the graph against the
+    fed eager path, two epochs of trainer.main at the default dispatch,
+    the replayed validation against an unstaged one, the indexed text feed,
+    and the trained checkpoint through the predictor. Returns the launches
+    of the training run."""
+    from laff_tpu_torch.data import EvalFeed
     from laff_tpu_torch.data.synth import build_world
     from laff_tpu_torch.engine import trainer as T
     from laff_tpu_torch.engine.checkpoint import load_checkpoint
+    from laff_tpu_torch.engine.evaluator import Embedder, validate
     from laff_tpu_torch.engine.prepare import Options, prepare
 
     t0 = time.perf_counter()
@@ -669,22 +1046,36 @@ def train_phase(torch, K, P, root, smi):
     feed = prepared.train_feed
     log(f"trainer prepare: {time.perf_counter() - t0:.1f} s; {len(feed.cap_ids)} captions, "
         f"{feed.steps_per_epoch()} steps of {feed.batch_size} per epoch")
+    init = cache_and_graph_checks(torch, K, T, opt, prepared, smi)
 
-    # the main path: every step between two loss reads runs under sync debug
-    # mode 'error'; each validation takes the gate and the wide rank kernel
+    # (c) the main path at the default dispatch: every window of graphed
+    # steps between two loss reads under sync debug mode 'error'; each
+    # validation takes the gate and the wide rank kernel, the second one
+    # replays the batches staged by the first
+    txt_batcher, vis_batcher = prepared.val_txt_batcher, prepared.val_vis_batcher
+    prepared.val_txt_batcher = Counting(txt_batcher)
+    prepared.val_vis_batcher = Counting(vis_batcher)
+    default_rng = torch.cuda.get_rng_state()
     K.reset_launches()
     t0 = time.perf_counter()
     res = T.main(opt, prepared=prepared)
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    hist = res["history"]
+    check(torch.equal(torch.cuda.get_rng_state(), default_rng),
+          "trainer.main moved the process's default CUDA generator")
+    hist, chose = res["history"], res["dispatch"]
+    log(f"trainer.main chose: {chose}")
     for e in hist:
-        log(f"  epoch {e['epoch']}: loss {e['loss']:.4f}, lr {e['lr']:.6g}, train "
-            f"{e['train_seconds']:.2f} s, validate {e['val_seconds']:.2f} s, wall "
+        log(f"  epoch {e['epoch']}: loss {e['loss']:.4f}, lr {e['lr']:.6g}, {e['steps']} steps, "
+            f"train {e['train_seconds']:.2f} s, validate {e['val_seconds']:.2f} s, wall "
             f"{e['wall_seconds']:.2f} s; r1 {e['r1']:.3f} r5 {e['r5']:.3f} r10 {e['r10']:.3f} "
             f"medr {e['medr']:.0f} mir {e['mir']:.5f} [{smi}]")
     log(f"trainer.main: {len(hist)} epochs in {wall:.1f} s (prepare in the call "
         f"{res['prepare_seconds']} s); launches {launches} [{smi}]")
+    check(chose["vis_cache_bytes"] and chose["txt_cache_bytes"] and chose["graph"]
+          and chose["steps_per_dispatch"] == 8 and chose["stage_val_features"],
+          f"the default dispatch did not take both caches, K 8 as a CUDA graph and staged "
+          f"validation: {chose}")
     check(len(hist) == 2, f"trainer ran {len(hist)} epochs, not 2")
     check(hist[1]["loss"] < hist[0]["loss"], "the training loss did not fall")
     check(hist[1]["r1"] > 100.0 / 2990, f"validation R@1 {hist[1]['r1']} is not above chance")
@@ -692,65 +1083,31 @@ def train_phase(torch, K, P, root, smi):
               "gate_attention_simple": 0}
     check(launches == expect, f"training run launches {launches}, expected one rank and "
           f"{VAL_GATE_CALLS} gate launches per validation and none in the steps: {expect}")
+    calls = prepared.val_txt_batcher.calls + prepared.val_vis_batcher.calls
+    check(calls == VAL_GATE_CALLS, f"the validation batchers ran {calls} times in two "
+          f"validations; the second should replay the {VAL_GATE_CALLS} staged batches")
+    device = torch.device("cuda")
+    eval_batch = prepared.config.eval_batch_size
+    unstaged = validate(Embedder(res["model"], device),
+                        EvalFeed(prepared.val_txt_source.cap_ids, txt_batcher, eval_batch),
+                        EvalFeed(prepared.val_vis_ids, vis_batcher, eval_batch),
+                        rank_path="kernel")
+    diff = {k: (hist[1][k], unstaged[k]) for k in T.METRICS if hist[1][k] != unstaged[k]}
+    check(not diff, f"replayed validation vs unstaged, same weights: {diff}")
+    log(f"  the second validation replayed the staged batches ({calls} batcher calls in two "
+        f"validations); its metrics equal an unstaged validate of the same weights exactly; "
+        f"validation wall: {hist[0]['val_seconds']:.2f} s staging, {hist[1]['val_seconds']:.2f} "
+        f"s replayed; epoch train wall {hist[0]['train_seconds']:.2f} s (capture included) / "
+        f"{hist[1]['train_seconds']:.2f} s; the default CUDA generator untouched [{smi}]")
+    eval_cast_timing(torch, opt, prepared, res["model"], txt_batcher, vis_batcher,
+                     {k: unstaged[k] for k in T.METRICS}, smi)
+    del res["model"]
 
-    # a window of steps from the trained weights: launch counts zeroed
-    # around it, no host sync inside it
     ckpt_path = os.path.join(res["model_path"], "model_best.pth.tar")
     ck = load_checkpoint(ckpt_path)
-    device = torch.device("cuda")
-    step = new_step(T, prepared.config, prepared.spec, ck["state_dict"], device)
-    window = PairFeed(feed.text_batcher, feed.vis_batcher, feed.batch_size, feed.seed,
-                      cap_ids=feed.cap_ids[:TRAIN_WINDOW * feed.batch_size])
-    gen = T.epoch_generator(device, SEED, 2)
-    T.train_one_epoch(step, window, 2, device, gen, log_every=TRAIN_WINDOW)  # warm
-    torch.cuda.synchronize()
-    K.reset_launches()
-    t0 = time.perf_counter()
-    loss, n = T.train_one_epoch(step, window, 3, device, gen, log_every=TRAIN_WINDOW,
-                                sync_debug=True)
-    window_s = time.perf_counter() - t0
-    check(n == TRAIN_WINDOW and loss == loss, f"window: {n} steps, loss {loss}")
-    check(sum(K.LAUNCHES.values()) == 0, f"train steps launched kernels: {dict(K.LAUNCHES)}")
-    log(f"train window: {n} steps between two loss reads under sync debug mode 'error', "
-        f"no kernel of the port launched; {window_s:.2f} s, {n / window_s:.2f} steps/s "
-        f"(host featurization overlapped) [{smi}]")
-
-    # step time on batches already on the card, and one step's device profile
-    batches = device_batches(T, feed, device, 31)
-    times = []
-    for txt, vis in batches[1:]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(txt, vis, gen)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    step_ms = statistics.median(times)
-    device_ms, host_ms, n_kernels, prof_wall = step_profile(torch, step, *batches[0], gen)
-    txt, vis = batches[0]
-
-    def forward_backward():
-        step.optimizer.zero_grad()
-        step.loss_fn(*step.model(txt, vis, gen)).backward()
-
-    fb_ms = time_ms(torch, forward_backward, reps=20)
-    opt_ms = time_ms(torch, step.optimizer.step, reps=20)
-    log(f"train step (B 128, batch on the card): median {step_ms:.3f} ms wall over "
-        f"{len(times)} steps ({1e3 / step_ms:.2f} steps/s); its parts alone (CUDA events, "
-        f"median of 20): forward + loss + backward {fb_ms:.3f} ms, optimizer update over "
-        f"{step.optimizer.grad.numel()} parameters {opt_ms:.3f} ms [{smi}]")
-    if device_ms:
-        busy = sum(device_ms.values())
-        top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:10]
-        log(f"  one step profiled: {busy:.3f} ms of device time in {n_kernels} kernels; "
-            f"device idle {max(0.0, 1 - busy / step_ms):.1%} of the median step wall "
-            f"({prof_wall:.3f} ms wall under the profiler); device top 10: "
-            + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
-        top = sorted(host_ms.items(), key=lambda kv: -kv[1][0])[:10]
-        log(f"  host self time {sum(v for v, _ in host_ms.values()):.3f} ms in "
-            f"{sum(n for _, n in host_ms.values())} operator calls; host top 10: "
-            + "; ".join(f"{k[:40]} {v:.3f} ({n})" for k, (v, n) in top))
-    else:
-        log("  one step profiled: the profiler recorded no device time (not measured)")
+    fed_window_check(torch, K, T, opt, prepared, ck["state_dict"], smi)
+    indexed_text_check(torch, T, opt, prepared, init, smi)
+    bigru_check(torch)
 
     # one step, same weights and batch, dropout off: card vs CPU
     losses = {}
@@ -765,7 +1122,7 @@ def train_phase(torch, K, P, root, smi):
     log(f"  card vs CPU, two steps from the same weights and batch, dropout off: losses "
         f"{losses['cuda']} vs {losses['cpu']} (max rel diff {rel:.3g} <= {STEP_LOSS_RTOL})")
 
-    # the trained checkpoint through the predictor, both rank paths
+    # (f) the trained checkpoint through the predictor, both rank paths
     res_k, _ = run_predictor(torch, K, P, root, "rtest", ckpt_path, "kernel")
     res_f, _ = run_predictor(torch, K, P, root, "rtest", ckpt_path, "flat")
     val_mir = hist[int(ck["epoch"]) - 1]["mir"]

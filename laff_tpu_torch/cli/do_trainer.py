@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Training CLI; the argument surface follows ``laff_tpu.cli.do_trainer``
-for the options the port implements (the others raise, naming the
-ROADMAP item that brings them).
+"""Training CLI; the argument surface and defaults follow
+``laff_tpu.cli.do_trainer`` for the options the port implements (the
+others raise, naming the ROADMAP item that brings them).
 
   python -m laff_tpu_torch.cli.do_trainer <trainCollection> <valCollection> \
       --rootpath <root> --config_name rehearsal [--device cpu] [--rank_path kernel]
+
+At the defaults the train features live on the card when they fit
+``LAFF_TPU_CACHE_BUDGET`` (4 GiB), K = 8 steps go per dispatch as a CUDA
+graph, and validation batches are staged on the card.
 """
 
 import argparse
@@ -54,10 +58,21 @@ def parse_args(argv=None) -> Options:
                         help="resume a run (optimizer, LR controller, counters) from "
                              "model_resume.pth.tar")
     parser.add_argument("--early_stop_patience", default=10, type=int)
-    parser.add_argument("--steps_per_dispatch", default=1, type=int)
-    parser.add_argument("--device_feature_cache", default=0, type=int)
-    parser.add_argument("--device_text_cache", default=0, type=int)
-    parser.add_argument("--device_text_featurize", default=0, type=int)
+    parser.add_argument("--steps_per_dispatch", default=-1, type=int,
+                        help="K train steps per dispatch, on the card one CUDA graph "
+                             "replayed K times; -1 auto (8 once both caches are on)")
+    parser.add_argument("--device_feature_cache", default=-1, type=int, choices=[-1, 0, 1],
+                        help="keep the train video features on the card; batches carry "
+                             "row indices (-1 auto: within LAFF_TPU_CACHE_BUDGET)")
+    parser.add_argument("--device_text_cache", default=-1, type=int, choices=[-1, 0, 1],
+                        help="keep the caption encodings on the card too (-1 auto: with "
+                             "the feature cache, within the budget)")
+    parser.add_argument("--device_text_featurize", default=0, type=int, choices=[0, 1],
+                        help="ship bow as sparse (ids, counts) and w2v as row ids; "
+                             "densify and mean-pool on the card")
+    parser.add_argument("--stage_val_features", default=1, type=int, choices=[0, 1],
+                        help="keep the validation batches on the card after the first "
+                             "pass and replay them (LAFF_TPU_EVAL_STAGE_BUDGET)")
     parser.add_argument("--data_parallel", default=0, type=int)
     return Options(**vars(parser.parse_args(argv)))
 

@@ -1,4 +1,4 @@
-from .feed import EvalFeed, PairFeed, Prefetcher, TextBatcher, VisBatcher
+from .feed import EvalFeed, PairFeed, Prefetcher, TextBatcher, VisBatcher, host_cast_bf16
 from .sources import TextSource, VisionSource, read_video_set, vis_id_of
 
 __all__ = [
@@ -7,6 +7,7 @@ __all__ = [
     "Prefetcher",
     "TextBatcher",
     "VisBatcher",
+    "host_cast_bf16",
     "TextSource",
     "VisionSource",
     "read_video_set",

@@ -8,6 +8,8 @@ evaluation.
   so every tower call sees one shape.
 * ``Prefetcher`` overlaps the host featurization of batch k+1 with the
   card's work on batch k.
+* With the trainer's device caches on, ``PairFeed`` skips featurization
+  and a batch carries only its ``cap_ids`` and ``vis_ids``.
 """
 
 from __future__ import annotations
@@ -17,16 +19,34 @@ import threading
 from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..text.txt2vec import IndexVec, Txt2Vec
 from .sources import TextSource, VisionSource, vis_id_of
 
 
+def host_cast_bf16(arrays: Dict[str, np.ndarray], bf16: bool = True) -> Dict[str, torch.Tensor]:
+    """Feature arrays as CPU tensors; with ``bf16`` float32 ones are rounded
+    to bfloat16 on the host (torch's cast: round to nearest even, as the
+    towers' first op on the card rounds). For bf16 towers the result is the
+    same and the bytes to the card are halved; integer arrays pass
+    unchanged."""
+    out = {}
+    for k, v in arrays.items():
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = t.to(torch.bfloat16) if bf16 and t.dtype == torch.float32 else t
+    return out
+
+
 class TextBatcher:
-    """cap_ids -> model-ready dense text arrays.
+    """cap_ids -> model-ready text arrays.
 
     featurizers:
-      'bow' / 'w2v': Txt2Vec instances -> (B, D)
+      'bow' / 'w2v': Txt2Vec instances -> (B, D); with ``indexed_bow`` the
+      bow goes as sparse 'bow_ids' / 'bow_cnt' (B, max_txtlength) pairs that
+      the tower densifies on the card, with ``indexed_w2v`` the w2v goes as
+      'w2v_ids' (B, max_txtlength) rows of the featurizer's
+      ``build_row_index`` table and 'w2v_len' (B,), mean-pooled in the step
       'rnn': IndexVec -> 'rnn_ids' (B, max_txtlength) + 'rnn_len' (B,)
       'clip' / 'bert': taken from TextSource.precomputed ('CLIP_encoding',
       'bert_encoding' BigFiles) -> (B, D)
@@ -39,10 +59,14 @@ class TextBatcher:
         source: TextSource,
         featurizers: Dict[str, Txt2Vec],
         max_txtlength: int = 77,
+        indexed_bow: bool = False,
+        indexed_w2v: bool = False,
     ) -> None:
         self.source = source
         self.featurizers = featurizers
         self.max_txtlength = max_txtlength
+        self.indexed_bow = indexed_bow
+        self.indexed_w2v = indexed_w2v
 
     def __call__(self, cap_ids: Sequence[str]) -> Dict[str, np.ndarray]:
         captions = self.source.captions_for(cap_ids)
@@ -62,6 +86,12 @@ class TextBatcher:
                 if precomputed is None:
                     precomputed = self.source.gather_precomputed(cap_ids)
                 batch[name] = precomputed[self._PRECOMPUTED_KEYS[name]]
+            elif name == "bow" and self.indexed_bow:
+                batch["bow_ids"], batch["bow_cnt"] = t2v.encode_batch_indexed(
+                    captions, self.max_txtlength)
+            elif name == "w2v" and self.indexed_w2v:
+                batch["w2v_ids"], batch["w2v_len"] = t2v.encode_batch_indexed(
+                    captions, self.max_txtlength)
             else:
                 batch[name] = t2v.encode_batch(captions)
         return batch
@@ -94,6 +124,8 @@ class PairFeed:
         self.batch_size = batch_size
         self.seed = seed
         self.cap_ids = list(text_batcher.source.cap_ids if cap_ids is None else cap_ids)
+        self.featurize_txt = True
+        self.featurize_vis = True
 
     def steps_per_epoch(self) -> int:
         return len(self.cap_ids) // self.batch_size
@@ -104,13 +136,20 @@ class PairFeed:
         for start in range(0, self.steps_per_epoch() * self.batch_size, self.batch_size):
             chunk = shuffled[start : start + self.batch_size]
             vis_ids = [vis_id_of(c) for c in chunk]
-            yield {"cap_ids": chunk, "vis_ids": vis_ids, "vis": self.vis_batcher(vis_ids),
-                   "txt": self.text_batcher(chunk)}
+            batch = {"cap_ids": chunk, "vis_ids": vis_ids}
+            if self.featurize_vis:
+                batch["vis"] = self.vis_batcher(vis_ids)
+            if self.featurize_txt:
+                batch["txt"] = self.text_batcher(chunk)
+            yield batch
 
 
 class EvalFeed:
     """Deterministic feed over all items; final batch padded to the batch
-    size (repeating its last id) with 'valid' giving the real count."""
+    size (repeating its last id) with 'valid' giving the real count. With
+    ``stage_on_device`` the evaluator keeps the batches it uploaded on the
+    card and replays them on later passes (the features do not change
+    between epochs)."""
 
     def __init__(
         self,
@@ -121,6 +160,8 @@ class EvalFeed:
         self.ids = list(ids)
         self.batcher = batcher
         self.batch_size = batch_size
+        self.stage_on_device = False
+        self.staged = None  # (key, device batches) once staged by the evaluator
 
     def __len__(self) -> int:
         return len(self.ids)

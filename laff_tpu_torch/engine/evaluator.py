@@ -1,9 +1,15 @@
 """Inference: embed galleries and queries, similarity matrices, gt ranks.
 
 Visual embeddings are computed once and kept on the device; text batches
-stream through the text tower; the full score matrix (for v2t metrics and
-the rank dump) is built in text blocks; t2v ranks come from counting on
-the device, never from a host argsort.
+stream through the text tower (float features rounded to bf16 for bf16
+towers, the towers' own first op, on the card after an f32 upload; with
+``host_cast`` on the host before it); an eval feed with
+``stage_on_device`` keeps its uploaded batches on the card after its first
+pass and replays them on later ones (validation features do not change
+between epochs), up to ``LAFF_TPU_EVAL_STAGE_BUDGET`` bytes (4 GiB) a
+feed, above which it streams unstaged as ``laff_tpu`` does; the full
+score matrix (for v2t metrics and the rank dump) is built in text blocks;
+t2v ranks come from counting on the device, never from a host argsort.
 
 Rank paths (``rank_path``), with the rule of ``laff_tpu.engine.evaluator``:
 
@@ -20,12 +26,13 @@ Rank paths (``rank_path``), with the rule of ``laff_tpu.engine.evaluator``:
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import os
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
 
-from ..data import EvalFeed, Prefetcher
+from ..data import EvalFeed, Prefetcher, host_cast_bf16
 from ..eval.metrics import metrics_from_ranks, ranks_from_scores
 from ..ops import cosine_sim, flatten_heads, fused_sim_rank, multi_head_cosine_sim
 from ..utils import get_logger
@@ -42,35 +49,89 @@ FLAT_SCORE_BUDGET = 2 * 1024**3
 LARGE_GALLERY = 50_000
 
 
-def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
-            for k, v in batch.items()}
+STAGE_BUDGET_ENV = "LAFF_TPU_EVAL_STAGE_BUDGET"
+STAGE_BUDGET_DEFAULT = 4 * 1024**3  # bytes of device memory per staged feed
+
+
+def to_device(batch: Dict[str, np.ndarray], device: torch.device,
+              bf16: bool = False) -> Dict[str, torch.Tensor]:
+    return {k: v.to(device, non_blocking=True) for k, v in host_cast_bf16(batch, bf16).items()}
+
+
+def card_cast_bf16(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``host_cast_bf16`` on tensors already on the card: the same values."""
+    return {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v for k, v in batch.items()}
+
+
+def device_batches(feed: EvalFeed, device: torch.device, bf16: bool, prefetch_depth: int,
+                   host_cast: bool = False
+                   ) -> Iterator[Tuple[Dict[str, torch.Tensor], List[str], int]]:
+    """(device arrays, ids, valid) per batch of ``feed``, float ones rounded
+    to bf16 with ``bf16`` (on the card after the upload, or with
+    ``host_cast`` on the host before it); staged on the card when the feed
+    asks for it and the batches fit the budget, replayed from there on
+    later passes (the same tensors, so the same embeddings)."""
+    key = (str(device), bf16)
+    stage = feed.stage_on_device
+    if stage and feed.staged is not None and feed.staged[0] == key:
+        yield from feed.staged[1]
+        return
+    budget = int(os.environ.get(STAGE_BUDGET_ENV, STAGE_BUDGET_DEFAULT))
+    items, nbytes = ([] if stage else None), 0
+    for item in Prefetcher(iter(feed), depth=prefetch_depth):
+        data = to_device(item["data"], device, bf16 and host_cast)
+        if bf16 and not host_cast:
+            data = card_cast_bf16(data)
+        out = (data, item["ids"], item["valid"])
+        if items is not None:
+            nbytes += sum(t.numel() * t.element_size() for t in out[0].values())
+            if nbytes > budget:
+                logger.info("not staging the eval feed on the device: %d batches exceed the "
+                            "%d-byte budget (%s to raise)", len(items) + 1, budget,
+                            STAGE_BUDGET_ENV)
+                items = None
+            else:
+                items.append(out)
+        yield out
+    if items is not None:
+        feed.staged = (key, items)
+        logger.info("staged the eval feed on the device: %d batches, %.1f MB (replayed on "
+                    "later passes)", len(items), nbytes / 2**20)
 
 
 class Embedder:
     """Tower application over eval feeds, grad off, batches featurized on
-    the host by a prefetch thread ``prefetch_depth`` batches ahead."""
+    the host by a prefetch thread ``prefetch_depth`` batches ahead, or
+    replayed from the card for a staged feed. ``host_cast`` rounds float
+    features to bf16 for bf16 towers on the host instead of the card
+    (``device_batches``): the same embeddings, but a slower pass on an
+    H100 machine (``chip_smoke.py``'s ``eval_cast_timing``)."""
 
-    def __init__(self, model, device: torch.device, prefetch_depth: int = 2):
+    def __init__(self, model, device: torch.device, prefetch_depth: int = 2,
+                 host_cast: bool = False):
         self.model = model
         self.device = torch.device(device)
         self.prefetch_depth = max(1, prefetch_depth)
+        self.host_cast = host_cast
+        spec = model.spec
+        self._txt_bf16 = spec.txt.compute_dtype == "bfloat16"
+        self._vis_bf16 = spec.vis.compute_dtype == "bfloat16"
 
     @torch.no_grad()
-    def _embed(self, fn, feed: EvalFeed) -> Tuple[torch.Tensor, List[str]]:
+    def _embed(self, fn, feed: EvalFeed, bf16: bool) -> Tuple[torch.Tensor, List[str]]:
         chunks, ids = [], []
-        for item in Prefetcher(iter(feed), depth=self.prefetch_depth):
-            emb = fn(to_device(item["data"], self.device))
-            valid = item["valid"]
+        for data, batch_ids, valid in device_batches(feed, self.device, bf16,
+                                                     self.prefetch_depth, self.host_cast):
+            emb = fn(data)
             chunks.append(emb[:valid] if valid < emb.shape[0] else emb)
-            ids.extend(item["ids"])
+            ids.extend(batch_ids)
         return torch.cat(chunks, dim=0), ids
 
     def embed_txt(self, feed: EvalFeed):
-        return self._embed(self.model.encode_txt, feed)
+        return self._embed(self.model.encode_txt, feed, self._txt_bf16)
 
     def embed_vis(self, feed: EvalFeed):
-        return self._embed(self.model.encode_vis, feed)
+        return self._embed(self.model.encode_vis, feed, self._vis_bf16)
 
 
 @torch.no_grad()

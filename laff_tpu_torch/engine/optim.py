@@ -17,7 +17,9 @@ With ``skip_nonfinite`` (the bf16 towers) a step whose gradients are not
 all finite leaves the parameters, the moments and the count as they were.
 Every gradient lives in one flat f32 buffer (``p.grad`` is a view of it),
 so the finite check, the clip and the update are a few whole-buffer ops on
-the card, and the step never waits for the host.
+the card, and the step never waits for the host. The state tensors (count,
+moments, learning rate) are updated in place, never rebound, so a CUDA
+graph captured over a step keeps reading and writing the live state.
 """
 
 from __future__ import annotations
@@ -91,24 +93,28 @@ class OptaxChain:
             if mu is not None:
                 mu = torch.where(finite, mu, self.mu)
         torch._foreach_add_(self.params, self._update_views)
-        self.count, self.mu, self.nu = count, mu, nu
+        # in place: a captured CUDA graph writes the tensors it saw
+        self.count.copy_(count)
+        self.nu.copy_(nu)
+        if mu is not None:
+            self.mu.copy_(mu)
 
     def state_dict(self) -> Dict:
-        out = {"kind": self.kind, "lr": self.lr.cpu(), "count": self.count.cpu(),
-               "nu": self.nu.cpu()}
+        # copies: the live tensors change in place with every step
+        out = {"kind": self.kind, "lr": self.lr.to("cpu", copy=True),
+               "count": self.count.to("cpu", copy=True), "nu": self.nu.to("cpu", copy=True)}
         if self.mu is not None:
-            out["mu"] = self.mu.cpu()
+            out["mu"] = self.mu.to("cpu", copy=True)
         return out
 
     def load_state_dict(self, state: Dict) -> None:
         if state["kind"] != self.kind:
             raise ValueError(f"optimizer state of {state['kind']!r}, not {self.kind!r}")
-        device = self.grad.device
         self.lr.copy_(state["lr"])
-        self.count = state["count"].to(device)
-        self.nu = state["nu"].to(device)
+        self.count.copy_(state["count"])
+        self.nu.copy_(state["nu"])
         if self.mu is not None:
-            self.mu = state["mu"].to(device)
+            self.mu.copy_(state["mu"])
 
 
 def make_optimizer(config, model: torch.nn.Module, bf16: bool = False) -> OptaxChain:

@@ -3,9 +3,10 @@
 The parts of ``laff_tpu.engine.prepare`` that prediction and training
 need: ``load_config``, ``build_featurizers`` (BoW / w2v / GRU ids /
 precomputed CLIP, in the reference's encoder order), ``build_spec``, the
-trainer's ``Options`` and ``prepare`` (``train_strategy='usual'`` with one
-train collection), and ``init_checkpoint``, which seeds a model for a
-collection as the trainer does before its first step. Vocabularies are
+trainer's ``Options`` and ``prepare`` (``train_strategy`` 'usual' or
+'subset', an optional ``trainCollection2``, the indexed text feed of
+``device_text_featurize``), and ``init_checkpoint``, which seeds a model for
+a collection as the trainer does before its first step. Vocabularies are
 built from the train captions when their pickle is missing, and saved in
 the reference layout.
 
@@ -290,10 +291,19 @@ def init_checkpoint(config_name: str, rootpath: str, collection: str, seed: int,
 @dataclasses.dataclass
 class Options:
     """Training options: the fields of ``laff_tpu.engine.prepare.Options``
-    (the reference ``do_trainer`` surface), plus the port's ``device`` and
-    ``rank_path``, and ``sync_debug``, a check mode that runs the train
-    steps between two log points under
-    ``torch.cuda.set_sync_debug_mode("error")``."""
+    (the reference ``do_trainer`` surface) with its defaults, plus the
+    port's ``device`` and ``rank_path``, and ``sync_debug``, a check mode
+    that runs the train steps between two log points under
+    ``torch.cuda.set_sync_debug_mode("error")``.
+
+    The dispatch options, as in ``laff_tpu``: ``device_feature_cache`` and
+    ``device_text_cache`` keep the train features on the card (-1 auto:
+    when the estimate fits ``LAFF_TPU_CACHE_BUDGET``, 0 off, 1 on);
+    ``steps_per_dispatch`` runs K steps per dispatch, on the card one CUDA
+    graph replayed K times (-1 auto: 8 when both caches are on, else 1);
+    ``device_text_featurize`` ships bow and w2v as row ids; and
+    ``stage_val_features`` keeps the validation batches on the card after
+    the first pass (``LAFF_TPU_EVAL_STAGE_BUDGET``)."""
 
     trainCollection: str = "msrvtt10ktrain"
     valCollection: str = "msrvtt10kval"
@@ -320,29 +330,19 @@ class Options:
     early_stop_patience: int = 10
     rank_path: str = "auto"
     sync_debug: int = 0
-    # options of laff_tpu that raise here until their ROADMAP item lands
-    steps_per_dispatch: int = 1
-    device_feature_cache: int = 0
-    device_text_cache: int = 0
+    steps_per_dispatch: int = -1
+    device_feature_cache: int = -1
+    device_text_cache: int = -1
     device_text_featurize: int = 0
+    stage_val_features: int = 1
+    # options of laff_tpu that raise here until their ROADMAP item lands
     data_parallel: int = 0
     task2_intended: int = 0
 
 
 # option, the values the port runs, the ROADMAP item that brings the others
 _NOT_PORTED = (
-    ("steps_per_dispatch", lambda v: v in (-1, 1),
-     "K-step fused dispatch (ROADMAP Queue 1 item 2; on the card a CUDA graph)"),
-    ("device_feature_cache", lambda v: v == 0,
-     "engine/feature_cache.py (ROADMAP Queue 1 item 2)"),
-    ("device_text_cache", lambda v: v == 0, "engine/feature_cache.py (ROADMAP Queue 1 item 2)"),
-    ("device_text_featurize", lambda v: v == 0,
-     "the indexed bow/w2v feed (ROADMAP Queue 1 item 2)"),
     ("data_parallel", lambda v: v in (0, 1), "data_parallel (ROADMAP Queue 1 item 8)"),
-    ("trainCollection2", lambda v: v == "None",
-     "a second train collection (ROADMAP Queue 1 item 2)"),
-    ("train_strategy", lambda v: v == "usual",
-     "train_strategy='subset' (ROADMAP Queue 1 item 2)"),
     ("task3_caption", lambda v: v == "no_task3_caption", "task3 (ROADMAP Queue 1 item 5)"),
     ("task2_intended", lambda v: v == 0, "task2 (ROADMAP Queue 1 item 5)"),
 )
@@ -353,6 +353,8 @@ def check_options(opt: Options) -> None:
         value = getattr(opt, name)
         if not ported(value):
             raise NotImplementedError(f"{name}={value!r} is not ported yet: {later}")
+    if opt.train_strategy not in ("usual", "subset"):
+        raise ValueError(f"train_strategy {opt.train_strategy!r} is not 'usual' or 'subset'")
     if opt.task2_caption != "no_task2_caption":
         logger.warning("task2_caption=%s accepted but inert, as in laff_tpu without "
                        "--task2_intended 1", opt.task2_caption)
@@ -371,7 +373,10 @@ def model_dir_for(opt) -> str:
     """<root>/<train>/w2vvpp_train/<val>/<val_set>/<config>/<prefix>
     (reference ``trainer.py:88-92``)."""
     val_set = "" if opt.val_set == "no" else opt.val_set
-    return os.path.join(opt.rootpath, opt.trainCollection, "w2vvpp_train", opt.valCollection,
+    train = opt.trainCollection
+    if opt.trainCollection2 != "None":
+        train = train + "_" + opt.trainCollection2
+    return os.path.join(opt.rootpath, train, "w2vvpp_train", opt.valCollection,
                         val_set, opt.config_name, opt.model_prefix)
 
 
@@ -387,15 +392,44 @@ class Prepared:
     val_vis_ids: List[str]
     featurizers: Dict
     we: Optional[np.ndarray]  # w2v rows for the GRU embedding, or None
+    train2_feed: Optional[PairFeed] = None  # trainCollection2's pairs, single steps
+    # (K+1, D) w2v table that the step mean-pools from, with device_text_featurize
+    w2v_table: Optional[np.ndarray] = None
 
 
 def _vis_files(rootpath: str, collection: str, names) -> Dict[str, BigFile]:
     return {n: BigFile(os.path.join(rootpath, collection, "FeatureData", n)) for n in names}
 
 
+def _pair_feed(config, featurizers, tsource, vsource, batch_size, seed, dtf, dtf_w2v,
+               cap_ids=None) -> PairFeed:
+    return PairFeed(
+        TextBatcher(tsource, dict(featurizers), max_txtlength=config.max_txtlength,
+                    indexed_bow=dtf, indexed_w2v=dtf_w2v),
+        VisBatcher(vsource), batch_size=batch_size, seed=seed, cap_ids=cap_ids)
+
+
+def _captions_file(rootpath: str, collection: str, val_set: str = "") -> str:
+    return os.path.join(rootpath, collection, "TextData", val_set,
+                        f"{collection}.caption.txt")
+
+
+def _video_set(rootpath: str, collection: str) -> List[str]:
+    return read_video_set(os.path.join(rootpath, collection, "VideoSets",
+                                       f"{collection}.txt"))
+
+
 def prepare(opt: Options) -> Prepared:
     """Options -> config, spec, featurizers (from the train captions), the
-    GRU embedding's w2v rows, the train feed and the validation feeds."""
+    GRU embedding's w2v rows, the train feeds and the validation feeds
+    (``laff_tpu.engine.prepare.prepare``).
+
+    * ``train_strategy='subset'``: no validation collection; the train
+      captions split 98.5/1.5 in file order and the holdout validates.
+    * ``trainCollection2``: a second train feed (seed + 1), run after each
+      epoch's main one; the vocabularies live under ``<train>_<train2>``.
+    * ``device_text_featurize``: bow as sparse pairs, and w2v as row ids of
+      a table over the train captions' words (``w2v_table``)."""
     check_options(opt)
     opt.rootpath = os.path.expanduser(opt.rootpath)
     rootpath = opt.rootpath
@@ -404,20 +438,20 @@ def prepare(opt: Options) -> Prepared:
     check_config(config)
     model_path = model_dir_for(opt)
     makedirs(model_path)
-    train, val = opt.trainCollection, opt.valCollection
-    train_capfile = os.path.join(rootpath, train, "TextData", f"{train}.caption.txt")
-    val_capfile = os.path.join(rootpath, val, "TextData", val_set, f"{val}.caption.txt")
+    train, val, train2 = opt.trainCollection, opt.valCollection, opt.trainCollection2
+    subset = opt.train_strategy == "subset"
+    train_capfile = _captions_file(rootpath, train)
 
     # feature dims into the config, as the reference does (trainer.py:126-157)
     train_vis = _vis_files(rootpath, train, config.vid_feats)
-    val_vis = _vis_files(rootpath, val, config.vid_feats)
     config.vis_fc_layers = [{n: f.ndims for n, f in train_vis.items()},
                             int(config.vis_fc_layers[1])]
     vis_dims = dict(config.vis_fc_layers[0])
     if config.vis_feat_add_concat:
         config.vis_fc_layers[0]["vis_feat_add_concat"] = int(sum(vis_dims.values()))
+    vocab_collection = train if train2 == "None" else f"{train}_{train2}"
     featurizers, txt_dims, gru_spec, gru_vocab, w2v_dir = build_featurizers(
-        config, rootpath, train, train_capfile)
+        config, rootpath, vocab_collection, train_capfile)
     if isinstance(config.txt_fc_layers, str):
         config.txt_fc_layers = [0, int(config.txt_fc_layers.split("-")[1])]
     config.txt_fc_layers[0] = int(sum(txt_dims.values()))
@@ -425,19 +459,52 @@ def prepare(opt: Options) -> Prepared:
     # the legacy RandomState seeded like laff_tpu's np.random.seed(random_seed)
     we = gru_init_we(config, gru_vocab, w2v_dir, np.random.RandomState(opt.random_seed))
 
-    train_ids = read_video_set(os.path.join(rootpath, train, "VideoSets", f"{train}.txt"))
     train_tsource = TextSource(train_capfile,
                                precomputed=text_precomputed(config, train_capfile))
-    train_feed = PairFeed(
-        TextBatcher(train_tsource, dict(featurizers), max_txtlength=config.max_txtlength),
-        VisBatcher(VisionSource(train_vis, train_ids)),
-        batch_size=opt.batch_size, seed=opt.random_seed)
-    val_ids = read_video_set(os.path.join(rootpath, val, "VideoSets", f"{val}.txt"))
-    val_tsource = TextSource(val_capfile, precomputed=text_precomputed(config, val_capfile))
+    train_vsource = VisionSource(train_vis, _video_set(rootpath, train))
+    train2_tsource = None
+    if train2 != "None":
+        capfile2 = _captions_file(rootpath, train2)
+        train2_tsource = TextSource(capfile2, precomputed=text_precomputed(config, capfile2))
+
+    # the w2v table must cover every caption a train feed can emit
+    dtf = bool(opt.device_text_featurize)
+    w2v_table = None
+    dtf_w2v = dtf and featurizers.get("w2v") is not None
+    if dtf_w2v:
+        caps = list(train_tsource.captions.values())
+        if train2_tsource is not None:
+            caps += list(train2_tsource.captions.values())
+        w2v_table = featurizers["w2v"].build_row_index(caps)
+
+    train_caps = None
+    if subset:  # sequential 98.5/1.5 split (reference trainer.py:477)
+        all_caps = list(train_tsource.cap_ids)
+        cut = int(0.985 * len(all_caps))
+        train_caps, holdout = all_caps[:cut], all_caps[cut:]
+    train_feed = _pair_feed(config, featurizers, train_tsource, train_vsource, opt.batch_size,
+                            opt.random_seed, dtf, dtf_w2v, cap_ids=train_caps)
+    train2_feed = None
+    if train2_tsource is not None:
+        train2_vsource = VisionSource(_vis_files(rootpath, train2, config.vid_feats),
+                                      _video_set(rootpath, train2))
+        train2_feed = _pair_feed(config, featurizers, train2_tsource, train2_vsource,
+                                 opt.batch_size, opt.random_seed + 1, dtf, dtf_w2v)
+
+    if subset:
+        val_tsource = copy.copy(train_tsource)
+        val_tsource.cap_ids = holdout
+        val_ids = list(dict.fromkeys(c.split("#")[0] for c in holdout))
+        val_vsource = train_vsource
+    else:
+        val_capfile = _captions_file(rootpath, val, val_set)
+        val_tsource = TextSource(val_capfile, precomputed=text_precomputed(config, val_capfile))
+        val_ids = _video_set(rootpath, val)
+        val_vsource = VisionSource(_vis_files(rootpath, val, config.vid_feats), val_ids)
     return Prepared(
         config=config, spec=spec, model_path=model_path, train_feed=train_feed,
         val_txt_source=val_tsource,
         val_txt_batcher=TextBatcher(val_tsource, dict(featurizers),
-                                    max_txtlength=config.max_txtlength),
-        val_vis_batcher=VisBatcher(VisionSource(val_vis, val_ids)), val_vis_ids=val_ids,
-        featurizers=featurizers, we=we)
+                                    max_txtlength=config.max_txtlength, indexed_bow=dtf),
+        val_vis_batcher=VisBatcher(val_vsource), val_vis_ids=val_ids,
+        featurizers=featurizers, we=we, train2_feed=train2_feed, w2v_table=w2v_table)

@@ -45,13 +45,15 @@ def safe_name(name: str) -> str:
 
 def densify_bow(inputs: Dict[str, torch.Tensor], dim: int) -> Dict[str, torch.Tensor]:
     """Scatter sparse (ids, counts) bow pairs back to the dense (B, vocab)
-    row; padding ids hit the sink column ``dim``, which is dropped."""
+    row; padding ids hit the sink column ``dim``, which is dropped. The row
+    is made contiguous, so the transform's product runs as on a fed dense
+    batch."""
     inputs = dict(inputs)
     ids = inputs.pop("bow_ids").long()
     cnt = inputs.pop("bow_cnt")
     dense = torch.zeros((ids.shape[0], dim + 1), dtype=cnt.dtype, device=cnt.device)
     dense.scatter_add_(1, ids, cnt)
-    inputs["bow"] = dense[:, :dim]
+    inputs["bow"] = dense[:, :dim].contiguous()
     return inputs
 
 
@@ -121,10 +123,10 @@ class FusionTower(nn.Module):
         for name, dim in self.features:
             feat = self._raw_feature(name, inputs)
             if self.is_visual and self.training:
-                # decided on the card: no host sync
-                noise = torch.randn(feat.shape, generator=generator, device=feat.device,
-                                    dtype=feat.dtype)
-                feat = torch.where(feat.abs().sum() == 0, noise, feat)
+                # decided on the card: no host sync; drawn in f32 whatever
+                # the feature's type, so a host bf16 cast draws the same
+                noise = torch.randn(feat.shape, generator=generator, device=feat.device)
+                feat = torch.where(feat.abs().sum() == 0, noise, feat.float())
             transform = getattr(self, f"transform_{safe_name(name)}")
             if name in spec.no_transform and transform.fc1 is None:
                 feat = feat.repeat(1, spec.common_dim // feat.shape[-1])

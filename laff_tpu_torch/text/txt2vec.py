@@ -10,7 +10,7 @@ the input pipeline and the device graph only sees dense arrays.
 from __future__ import annotations
 
 import pickle
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -96,6 +96,31 @@ class BowVec(Txt2Vec):
                 vec[idx] += 1
         return vec
 
+    def encode_batch_indexed(self, queries: Sequence[str], max_tokens: int = 77):
+        """Sparse form of ``encode_batch`` for densifying on the card: ids
+        (B, T) int32, padded with ``self.ndims`` (the scatter's sink
+        column), and counts (B, T) float32, normalized when ``self.norm >
+        0`` so the scatter reproduces ``encoding``. Only a caption with more
+        than ``max_tokens`` distinct in-vocabulary words is cut."""
+        ids = np.full((len(queries), max_tokens), self.ndims, np.int32)
+        cnt = np.zeros((len(queries), max_tokens), np.float32)
+        for i, q in enumerate(queries):
+            c: Dict[int, float] = {}
+            for word in self._preprocess(q):
+                idx = self.vocab.find(word)
+                if idx >= 0:
+                    c[idx] = c.get(idx, 0.0) + 1.0
+            if not c:
+                continue
+            vals = np.fromiter(c.values(), np.float32, len(c))
+            if self.norm > 0:
+                vals = vals / (np.linalg.norm(vals, self.norm) + 1e-10)
+            keys = np.fromiter(c.keys(), np.int32, len(c))
+            t = min(len(keys), max_tokens)
+            ids[i, :t] = keys[:t]
+            cnt[i, :t] = vals[:t]
+        return ids, cnt
+
     def __len__(self) -> int:
         return self.ndims
 
@@ -114,6 +139,42 @@ class W2Vec(Txt2Vec):
         if vectors.shape[0] > 0:
             return vectors.mean(axis=0)
         return np.zeros(self.ndims, dtype=np.float32)
+
+    def build_row_index(self, captions: Sequence[str]) -> np.ndarray:
+        """Restrict the w2v vocabulary to the words of ``captions`` and build
+        the gather table for pooling on the card: (K+1, D) float32 with a
+        zero sink row at K. ``encode_batch_indexed`` then gives row ids."""
+        if self.norm > 0:
+            raise ValueError("indexed w2v supports norm=0 only")
+        words: List[str] = []
+        seen = set()
+        for q in captions:
+            for w in self._preprocess(q):
+                if w not in seen and w in self.w2v.name2index:
+                    seen.add(w)
+                    words.append(w)
+        _, table = self.w2v.gather(words)
+        self._row_of: Dict[str, int] = {w: i for i, w in enumerate(words)}
+        self.table = np.concatenate([table, np.zeros((1, self.ndims), np.float32)])
+        logger.info("w2v table for the card: %d words x %d dims (%.1f MB)",
+                    len(words), self.ndims, self.table.nbytes / 1e6)
+        return self.table
+
+    def encode_batch_indexed(self, queries: Sequence[str], max_tokens: int = 77):
+        """(ids (B, T) int32, n (B,) int32) for the mean pool
+        ``table[ids].sum(1) / n`` on the card. Rows come in ``gather``'s
+        order, so the sum takes the host mean's operands in its order;
+        padding hits the zero sink row. Needs ``build_row_index``."""
+        sink = len(self._row_of)
+        ids = np.full((len(queries), max_tokens), sink, np.int32)
+        n = np.ones((len(queries),), np.int32)
+        for i, q in enumerate(queries):
+            rows = [self._row_of[w] for w in self._preprocess(q) if w in self._row_of]
+            t = min(len(rows), max_tokens)
+            if t:
+                ids[i, :t] = rows[:t]
+                n[i] = t
+        return ids, n
 
 
 class IndexVec(Txt2Vec):

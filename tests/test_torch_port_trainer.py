@@ -472,13 +472,29 @@ def test_resume_gives_the_uninterrupted_result(world, monkeypatch):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("steps_per_dispatch", 8), ("device_feature_cache", 1), ("device_text_cache", -1),
-    ("device_text_featurize", 1), ("data_parallel", 4), ("trainCollection2", "other"),
-    ("train_strategy", "subset"), ("task3_caption", "negation"), ("task2_intended", 1)])
+    ("data_parallel", 4), ("task3_caption", "negation"), ("task2_intended", 1)])
 def test_options_not_ported_raise(world, option, value):
     opt = port_prepare.Options(device="cpu", **_base(world), **{option: value})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         port_prepare.prepare(opt)
+
+
+DISPATCH_OPTIONS = ("steps_per_dispatch", "device_feature_cache", "device_text_cache",
+                    "device_text_featurize", "stage_val_features")
+
+
+@pytest.mark.parametrize("where", ["Options", "cli"])
+@pytest.mark.parametrize("option", DISPATCH_OPTIONS)
+def test_dispatch_defaults_equal_laff_tpu(option, where):
+    """The port's Options and its CLI default every dispatch option as
+    laff_tpu's Options and CLI do."""
+    from laff_tpu.cli import do_trainer as jax_cli
+
+    if where == "Options":
+        got, ref = port_prepare.Options(), JOptions()
+    else:
+        got, ref = do_trainer.parse_args(["a", "b"]), jax_cli.parse_args(["a", "b"])
+    assert getattr(got, option) == getattr(ref, option)
 
 
 @pytest.mark.parametrize("change", [
