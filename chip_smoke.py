@@ -8,14 +8,16 @@
 Phases, each asserting; any failure exits non-zero before the last line:
 
 1. Device and build: the card's name and power limit (nvidia-smi), the
-   CUDA kernels compiled from laff_tpu_torch/csrc (one nvcc per source).
+   CUDA kernels compiled from laff_tpu_torch/csrc (one nvcc per source), the
+   native text featurizer compiled from laff_tpu_torch/native (it must load).
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes: sim_rank_wide at the MV-test3k shape (59,800 captions x
    2,990 videos x 4,096) with captions grouped by video (the main path's
    layout) and again with ground truths scattered over the gallery,
    sim_rank_tiled at a gallery above the wide budget (8,192 x 16,384),
    gate_attention at (B, 4, 8, 512) for B 128, 1,024 and 8,192, with
-   with_ave off / on and mul on at the eval batch 1,024. Times are
+   with_ave off / on and mul on at the eval batch 1,024, and at FrameLAFF's
+   video-tower shape (1,024, 5, 8, 512). Times are
    CUDA-event medians of one call, and for the gate also the profiler's
    device time and the time per call of 62 calls back to back (one rtest
    pass). Then the rank kernels' edge cases on both branches (the tiled
@@ -31,6 +33,7 @@ Phases, each asserting; any failure exits non-zero before the last line:
    weights) through ``laff_tpu_torch.engine.predictor.main``: a synthetic
    2,990-video x 20-caption world with rank_path 'kernel' and 'flat', then
    an 8,600-video world (above the wide budget) with rank_path 'kernel'.
+   The rtest pass's text featurization must run in the native featurizer.
    Launch counts are zeroed just before and read just after each kernel
    run. The same inputs are embedded again: the kernel run's ranks are held
    against the plain rank version on those bf16 operands, the flat run's
@@ -60,21 +63,36 @@ Phases, each asserting; any failure exits non-zero before the last line:
    (median wall, host enqueue, CUDA events, profiled device time and idle
    share) against the eager step (median wall on batches on the card, its
    forward + backward and optimizer parts, device profile), epoch wall,
-   validation wall staging and replayed; an unstaged embed_txt pass and a
-   staging validation with the bf16 rounding on the card (the default) and
-   on the host, in the order host, card, card, host, metrics equal. The fed
-   epoch loop with the caches off: 60 single steps through
+   validation wall staging and replayed, and each epoch's wall outside
+   train and validation; an unstaged embed_txt pass and a staging
+   validation with the text featurizers on their Python path and in the
+   native fastfeat, in the order python, native, native, python, metrics
+   equal (and equal with the bf16 rounding on the host); the same two
+   epochs again with the checkpoints written on the epoch loop's thread
+   instead of trainer.AsyncSaver, each epoch's wall outside train and
+   validation. The fed epoch loop with the caches off: 60 single steps through
    ``train_one_epoch`` between two loss reads under sync debug mode
    'error', launch counts zeroed before, none of the port's. (e) 60 steps with
    device_text_featurize=1 (sparse bow, pooled w2v; cached, graphed)
    against the dense fed path: losses within 1e-5 relative. The bigru at
-   the rehearsal's GRU width: no host sync, the card against the CPU, and
-   a CUDA graph of its forward + backward against eager. One step on
-   the card against the CPU; (f) the trained checkpoint through
-   ``predictor.main`` with rank_path 'kernel' and 'flat'.
+   the rehearsal's GRU width: no host sync, the card against the CPU, a
+   CUDA graph of its forward + backward against eager, and its time per
+   call with each direction's weights in a cuDNN buffer of their own against
+   one buffer for the module. One step on the card against the CPU; (f) the
+   trained checkpoint through ``predictor.main`` with rank_path 'kernel'
+   and 'flat'.
+5. FrameLAFF at full width (configs/frame_rehearsal.py: the shape of
+   FrameLaff_NoFrameFc_StrongCLIP_adjust at parm 0_7_1_12_0_12_0, 512-d
+   frame rows pooled by the plain gate beside four video features, L = 5
+   locals at the video tower's gate; 91.2 M parameters) on rtrain -> rtest
+   with 8-60 frames a video, 50 kept: (a), (b) and (d)'s step timings with
+   the padded frames in the visual cache, (c) two epochs of trainer.main
+   at the default dispatch with the same checks, one step on the card
+   against the CPU, and the trained checkpoint through ``predictor.main``
+   (rank_path 'kernel'), timed by phase.
 
-Prints the kernels JSON line (launches: the rtest prediction pass and the
-training run's validations; rbig for the tiled kernel), then
+Prints the kernels JSON line (launches: each main path counted from 0
+around its run, summed, and by path; rbig for the tiled kernel), then
 ``{"ok": true, "device": ...}`` last.
 Everything it writes goes under build/ in the repository.
 
@@ -339,14 +357,15 @@ def fmt_ms(v):
     return "not measured" if v is None else f"{v:.4f}"
 
 
-def gate_phase(torch, K, gen):
-    """The gate at the headline's (L 4, H 8, dh 512): against the plain
-    version at the eval batch for every option set, then timed at each of
-    GATE_BATCHES. g is a tensor on the card, as the towers pass it."""
+def gate_phase(torch, K, gen, l=4, batches=GATE_BATCHES):
+    """The gate at (L, H 8, dh 512), L 4 on the LAFF path, 5 in FrameLAFF's
+    video tower: against the plain version at the eval batch for every
+    option set, then timed at each of ``batches``. g is a tensor on the
+    card, as the towers pass it."""
     g = torch.tensor(0.8, device="cuda")
     out = {}
-    for b in GATE_BATCHES:
-        x, k, bias = gate_inputs(torch, gen, b)
+    for b in batches:
+        x, k, bias = gate_inputs(torch, gen, b, l)
         for with_ave, mul in GATE_OPTIONS if b == 1024 else GATE_OPTIONS[:1]:
             before = K.LAUNCHES["gate_attention"]
             got = K.fused_gate_attention(x, k, bias, g, with_ave=with_ave, mul=mul)
@@ -365,7 +384,7 @@ def gate_phase(torch, K, gen):
             row.update(max_abs_err=err, library_ms=None)
             share = ("" if row["device_ms"] is None
                      else f" ({row['bound_ms'] / row['device_ms']:.0%} of the bound)")
-            log(f"gate_attention (B={b}, L=4, H=8, dh=512) with_ave={with_ave} mul={mul}: "
+            log(f"gate_attention (B={b}, L={l}, H=8, dh=512) with_ave={with_ave} mul={mul}: "
                 f"max abs err {err:.3g}; device {fmt_ms(row['device_ms'])} ms{share}, "
                 f"call {row['ms']:.4f} ms, {GATE_RUN} calls back to back "
                 f"{row['run_ms']:.4f} ms per call, plain {row['plain_ms']:.4f} ms, "
@@ -729,11 +748,12 @@ def log_profile(what, device_ms, host_ms, n_kernels, prof_wall, step_ms, steps=1
     return busy
 
 
-def cache_and_graph_checks(torch, K, T, opt, prepared, smi):
-    """(a) the caches' gathered batches against the fed path's, bit for bit;
-    (b) 16 graphed cached steps (K 8) against 16 eager fed steps from the same
-    weights, optimizer state and epoch generator, dropout on; then the
-    graphed step's and the eager step's timings and profiles."""
+def cache_and_graph_checks(torch, K, T, opt, prepared, smi, what):
+    """(a) the caches' gathered batches against the fed path's, bit for bit
+    (FrameLAFF's padded frames and masks included); (b) 16 graphed cached
+    steps (K 8) against 16 eager fed steps from the same weights, optimizer
+    state and epoch generator, dropout on; then the graphed step's and the
+    eager step's timings and profiles. ``what`` names the path in the log."""
     from laff_tpu_torch.engine.prepare import seeded_model
 
     device = torch.device("cuda")
@@ -744,9 +764,13 @@ def cache_and_graph_checks(torch, K, T, opt, prepared, smi):
     vis_cache, txt_cache, multi = d["vis_cache"], d["txt_cache"], d["multi_step"]
     check(vis_cache is not None and txt_cache is not None and multi is not None
           and d["steps_per_dispatch"] == 8, f"the default dispatch chose {d}")
-    log(f"caches: visual {vis_cache.nbytes} bytes in {vis_cache.build_seconds:.2f} s, text "
-        f"{txt_cache.nbytes} bytes in {txt_cache.build_seconds:.2f} s "
-        f"({sorted(txt_cache.arrays)}); {d['steps_per_dispatch']} steps per dispatch")
+    frames = {k: tuple(v.shape) for k, v in vis_cache.arrays.items() if "@" in k}
+    frame_bytes = sum(vis_cache.arrays[k].numel() * vis_cache.arrays[k].element_size()
+                      for k in frames)
+    log(f"[{what}] caches: visual {vis_cache.nbytes} bytes in {vis_cache.build_seconds:.2f} s "
+        f"(frame arrays {frame_bytes} bytes: {frames}), text {txt_cache.nbytes} bytes in "
+        f"{txt_cache.build_seconds:.2f} s ({sorted(txt_cache.arrays)}); "
+        f"{d['steps_per_dispatch']} steps per dispatch [{smi}]")
 
     batches = first_batches(feed, GRAPH_STEPS)
     for b in batches[:CACHE_CHECK_BATCHES]:
@@ -758,8 +782,8 @@ def cache_and_graph_checks(torch, K, T, opt, prepared, smi):
                 want = v.to(device)
                 check(got[k].dtype == want.dtype and torch.equal(got[k], want),
                       f"cached {side} '{k}' differs from the fed batch")
-    log(f"  (a) the first {CACHE_CHECK_BATCHES} batches of epoch 0: cached rows equal the fed "
-        f"batches bit for bit, bf16 cast included")
+    log(f"  [{what}] (a) the first {CACHE_CHECK_BATCHES} batches of epoch 0: cached rows equal "
+        f"the fed batches bit for bit, bf16 cast included ({sorted(fed['vis'])})")
 
     # (b) eager fed steps, then graphed cached steps, from the same state
     eager = new_step(T, prepared.config, prepared.spec, init, device)
@@ -786,7 +810,8 @@ def cache_and_graph_checks(torch, K, T, opt, prepared, smi):
     dp = float((flat_params(base.model) - flat_params(eager.model)).abs().max())
     check(rel <= GRAPH_LOSS_RTOL and dp <= GRAPH_PARAM_ATOL,
           f"graphed vs eager: loss rel diff {rel}, parameter diff {dp}")
-    log(f"  (b) {GRAPH_STEPS} graphed cached steps (K 8) vs {GRAPH_STEPS} eager fed steps, dropout "
+    log(f"  [{what}] (b) {GRAPH_STEPS} graphed cached steps (K 8) vs {GRAPH_STEPS} eager fed "
+        f"steps, dropout "
         f"on, one epoch seed (the graph captured before a reseed): max loss rel diff {rel:.3g} "
         f"(<= {GRAPH_LOSS_RTOL}), max parameter diff {dp:.3g} (<= {GRAPH_PARAM_ATOL}); capture "
         f"{multi.capture_seconds:.2f} s "
@@ -806,11 +831,12 @@ def cache_and_graph_checks(torch, K, T, opt, prepared, smi):
         hosts.append((t1 - t0) * 1e3 / 8)
     g_ms, g_host = statistics.median(walls[2:]), statistics.median(hosts[2:])
     ev_ms = time_ms(torch, lambda: multi(group, gen), reps=10) / 8
-    log(f"graphed step (B 128, K 8, index batches): median {g_ms:.3f} ms wall a step over 10 "
+    log(f"[{what}] graphed step (B 128, K 8, index batches): median {g_ms:.3f} ms wall a step "
+        f"over 10 "
         f"dispatches, host enqueue {g_host:.3f} ms a step, CUDA events {ev_ms:.3f} ms a step "
         f"[{smi}]")
     prof = profiled(torch, lambda: multi(group, gen))
-    g_dev = log_profile("graphed dispatch of 8 steps", *prof, g_ms, steps=8)
+    g_dev = log_profile(f"[{what}] graphed dispatch of 8 steps", *prof, g_ms, steps=8)
 
     times = []
     for txt, vis in dev_batches:
@@ -828,12 +854,13 @@ def cache_and_graph_checks(torch, K, T, opt, prepared, smi):
 
     fb_ms = time_ms(torch, forward_backward, reps=20)
     opt_ms = time_ms(torch, eager.optimizer.step, reps=20)
-    log(f"eager step (B 128, batch on the card): median {e_ms:.3f} ms wall over "
+    log(f"[{what}] eager step (B 128, batch on the card): median {e_ms:.3f} ms wall over "
         f"{len(times) - 1} steps; its parts alone (CUDA events, median of 20): forward + loss "
         f"+ backward {fb_ms:.3f} ms, optimizer update over {eager.optimizer.grad.numel()} "
         f"parameters {opt_ms:.3f} ms [{smi}]")
-    e_dev = log_profile("eager step", *profiled(torch, lambda: eager(txt, vis, gen)), e_ms)
-    log("step_timing " + json.dumps({
+    e_dev = log_profile(f"[{what}] eager step", *profiled(torch, lambda: eager(txt, vis, gen)),
+                        e_ms)
+    log("step_timing " + json.dumps({"path": what,
         "graphed_ms": g_ms, "graphed_host_ms": g_host, "graphed_event_ms": ev_ms,
         "graphed_device_ms": g_dev, "eager_ms": e_ms, "eager_device_ms": e_dev,
         "capture_s": multi.capture_seconds, "vis_cache_bytes": vis_cache.nbytes,
@@ -842,12 +869,15 @@ def cache_and_graph_checks(torch, K, T, opt, prepared, smi):
     return init
 
 
-def eval_cast_timing(torch, opt, prepared, model, txt_batcher, vis_batcher, want, smi):
-    """Where validation rounds bf16 tower inputs: on the card after an f32
-    upload (the default) or on the host before it. Per order host, card,
-    card, host on fresh feeds: one unstaged embed_txt pass (the predictor's)
-    and one validate that stages (the first validation), whose metrics must
-    equal ``want``."""
+def featurizer_timing(torch, opt, prepared, model, txt_batcher, vis_batcher, want, smi):
+    """The host featurizer of the LAFF path: per order python, native,
+    native, python on fresh feeds, one unstaged embed_txt pass (the
+    predictor's) and one validate that stages (the first validation), the
+    text featurizers on their Python path or in the native fastfeat; the
+    native calls are counted, and the metrics must equal ``want``. Then one
+    staging validate with the bf16 rounding on the host instead of the card,
+    whose metrics must equal too."""
+    from laff_tpu_torch import native
     from laff_tpu_torch.data import EvalFeed
     from laff_tpu_torch.engine.evaluator import Embedder, validate
 
@@ -868,19 +898,98 @@ def eval_cast_timing(torch, opt, prepared, model, txt_batcher, vis_batcher, want
         torch.cuda.synchronize()
         return time.perf_counter() - t0, out
 
-    times = {"host": {"embed_txt": [], "validate": []}, "card": {"embed_txt": [], "validate": []}}
+    load = native.get_fastfeat
+
+    def use_native(flag):
+        native.get_fastfeat = load if flag else (lambda: None)
+
+    times = {path: {"embed_txt": [], "validate": [], "native_calls": []}
+             for path in ("python", "native")}
     model.eval()  # as the predictor embeds: no BatchNorm updates, no dropout
-    for where in ("host", "card", "card", "host"):
-        emb = Embedder(model, device, prefetch_depth=depth, host_cast=where == "host")
-        sec, _ = timed(lambda: emb.embed_txt(feeds(False)[0]))
-        times[where]["embed_txt"].append(sec)
-        sec, res = timed(lambda: validate(emb, *feeds(True), rank_path="kernel"))
-        times[where]["validate"].append(sec)
+    try:
+        for path in ("python", "native", "native", "python"):
+            use_native(path == "native")
+            native.reset_calls()
+            emb = Embedder(model, device, prefetch_depth=depth)
+            sec, _ = timed(lambda: emb.embed_txt(feeds(False)[0]))
+            times[path]["embed_txt"].append(sec)
+            sec, res = timed(lambda: validate(emb, *feeds(True), rank_path="kernel"))
+            times[path]["validate"].append(sec)
+            diff = {k: (res[k], v) for k, v in want.items() if res[k] != v}
+            check(not diff, f"validation with the {path} featurizer: {diff}")
+            calls = dict(native.CALLS)
+            times[path]["native_calls"].append(calls)
+            check((min(calls.values()) > 0) == (path == "native"),
+                  f"the {path} passes made native calls {calls}")
+        use_native(True)
+        emb = Embedder(model, device, prefetch_depth=depth, host_cast=True)
+        res = validate(emb, *feeds(True), rank_path="kernel")
         diff = {k: (res[k], v) for k, v in want.items() if res[k] != v}
-        check(not diff, f"validation with the bf16 cast on the {where}: {diff}")
-    model.train()
-    log("  validation's bf16 rounding on the host vs the card (s; order host, card, card, "
-        "host; metrics equal): eval_cast_timing " + json.dumps({**times, "smi": smi}))
+        check(not diff, f"validation with the bf16 cast on the host: {diff}")
+    finally:
+        use_native(True)
+        model.train()
+    log("  the text featurizer, Python path vs native fastfeat (s; order python, native, native, "
+        "python; metrics equal, and equal with the bf16 cast on the host): featurizer_timing "
+        + json.dumps({**times, "smi": smi}))
+
+
+class Synchronous:
+    """A checkpoint writer on the epoch loop's own thread: the port's saves
+    before ``trainer.AsyncSaver``, for timing against it."""
+
+    def submit(self, fn, *args, **kwargs):
+        fn(*args, **kwargs)
+
+    def join(self):
+        pass
+
+
+def epoch_remainder(hist):
+    """Per epoch, the wall the epoch loop spends outside train and validate
+    (checkpoints, logs, the LR controller), s."""
+    return [round(e["wall_seconds"] - e["train_seconds"] - e["val_seconds"], 2) for e in hist]
+
+
+def saver_timing(torch, T, opt, prepared, hist, smi):
+    """The run of ``main`` that made ``hist`` (the background saver) again
+    with the checkpoints written on the epoch loop's thread, into another
+    model directory: each epoch's wall minus train minus validation."""
+    import dataclasses
+
+    model_path = prepared.model_path + "_synchronous_saver"
+    os.makedirs(model_path, exist_ok=True)
+    saver = T.AsyncSaver
+    T.AsyncSaver = Synchronous
+    try:
+        res = T.main(opt, prepared=dataclasses.replace(prepared, model_path=model_path))
+    finally:
+        T.AsyncSaver = saver
+    del res["model"]
+    log("  epoch wall minus train minus validation (s), checkpoints written in the background "
+        f"(trainer.AsyncSaver) vs on the epoch loop's thread: saver_timing "
+        + json.dumps({"background": epoch_remainder(hist),
+                      "synchronous": epoch_remainder(res["history"]),
+                      "background_walls": [e["wall_seconds"] for e in hist],
+                      "synchronous_walls": [e["wall_seconds"] for e in res["history"]],
+                      "smi": smi}))
+
+
+def card_vs_cpu_step(torch, T, prepared, state_dict, what):
+    """One step on the card and on the CPU from the same weights and batch,
+    dropout off: losses within STEP_LOSS_RTOL."""
+    device = torch.device("cuda")
+    losses = {}
+    for dev in (device, torch.device("cpu")):
+        s = new_step(T, prepared.config, prepared.spec, state_dict, dev)
+        dropout_off(s.model)
+        txt, vis = device_batches(T, prepared.train_feed, dev, 1)[0]
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        losses[dev.type] = [float(s(txt, vis, g)) for _ in range(2)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    check(rel <= STEP_LOSS_RTOL, f"[{what}] card vs CPU step losses {losses}")
+    log(f"  [{what}] card vs CPU, two steps from the same weights and batch, dropout off: losses "
+        f"{losses['cuda']} vs {losses['cpu']} (max rel diff {rel:.3g} <= {STEP_LOSS_RTOL})")
 
 
 def fed_window_check(torch, K, T, opt, prepared, state_dict, smi):
@@ -957,11 +1066,16 @@ def indexed_text_check(torch, T, opt, prepared, init, smi):
         f"{float(got[-1]):.5f} / {float(ref[-1]):.5f} [{smi}]")
 
 
-def bigru_check(torch):
+def bigru_check(torch, smi):
     """The bidirectional GRU (reverse direction by per-row gathers on the
     card) at the rehearsal's GRU width: forward + backward under sync debug
     'error', against the CPU, then captured as a CUDA graph and replayed on
-    new captions against eager."""
+    new captions against eager. Then its time per call (CUDA events, median
+    of 20; forward + backward, and forward alone under no_grad) with each
+    direction's weights in a cuDNN buffer of their own (the port's layout:
+    cuDNN warns of no weight copy) against ``nn.GRU``'s one buffer for the
+    module (cuDNN copies the reverse direction's weights at every call)."""
+    import warnings
     from laff_tpu_torch.models import GruEncoder
     from laff_tpu_torch.models.spec import GruSpec
 
@@ -1021,22 +1135,130 @@ def bigru_check(torch):
         f"(<= {BIGRU_RTOL}); a CUDA graph of forward + backward on new captions vs eager: "
         f"{graph_errs[0]:.3g} / {graph_errs[1]:.3g} (<= {GRAPH_LOSS_RTOL})")
 
+    def forward():
+        with torch.no_grad():
+            card(*static)
+
+    times = {}
+    for layout in ("per_direction", "one_buffer"):
+        if layout == "one_buffer":  # nn.GRU's own layout, the port's before
+            torch.nn.GRU.flatten_parameters(card.rnn)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run(card, *static)
+            torch.cuda.synchronize()
+        copies = [w for w in caught if "contiguous chunk of memory" in str(w.message)]
+        check(bool(copies) == (layout == "one_buffer"),
+              f"bigru {layout}: cuDNN weight-copy warnings {len(copies)}")
+        times[layout] = {"fwd_bwd_ms": time_ms(torch, lambda: run(card, *static), 20),
+                         "fwd_ms": time_ms(torch, forward, 20), "cudnn_copy_warnings": len(copies)}
+    log("  bigru time per call (B 128, T 32), each direction's weights in a buffer of their "
+        "own vs one buffer for the module: bigru_timing " + json.dumps({**times, "smi": smi}))
+
+
+def run_main(torch, K, T, opt, prepared, smi, what):
+    """(c) ``trainer.main`` for two epochs at the default dispatch, every
+    window of graphed steps between two loss reads under sync debug mode
+    'error'. It must take both caches, K 8 as a graph and staged validation;
+    each validation launches the wide rank kernel once and the gate
+    VAL_GATE_CALLS times (the steps none), the second one replays the
+    batches staged by the first and its metrics equal an unstaged validate of
+    the same weights; the process's default CUDA generator is left alone.
+    Returns (the result, the launches, the unstaged metrics)."""
+    from laff_tpu_torch.data import EvalFeed
+    from laff_tpu_torch.engine.evaluator import Embedder, validate
+
+    txt_batcher, vis_batcher = prepared.val_txt_batcher, prepared.val_vis_batcher
+    counting = (Counting(txt_batcher), Counting(vis_batcher))
+    prepared.val_txt_batcher, prepared.val_vis_batcher = counting
+    default_rng = torch.cuda.get_rng_state()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = T.main(opt, prepared=prepared)
+    finally:
+        prepared.val_txt_batcher, prepared.val_vis_batcher = txt_batcher, vis_batcher
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    check(torch.equal(torch.cuda.get_rng_state(), default_rng),
+          f"[{what}] trainer.main moved the process's default CUDA generator")
+    hist, chose = res["history"], res["dispatch"]
+    log(f"[{what}] trainer.main chose: {chose}")
+    for e in hist:
+        log(f"  [{what}] epoch {e['epoch']}: loss {e['loss']:.4f}, lr {e['lr']:.6g}, "
+            f"{e['steps']} steps, train {e['train_seconds']:.2f} s, validate "
+            f"{e['val_seconds']:.2f} s, wall {e['wall_seconds']:.2f} s; r1 {e['r1']:.3f} "
+            f"r5 {e['r5']:.3f} r10 {e['r10']:.3f} medr {e['medr']:.0f} mir {e['mir']:.5f} [{smi}]")
+    log(f"[{what}] trainer.main: {len(hist)} epochs in {wall:.1f} s (prepare in the call "
+        f"{res['prepare_seconds']} s); launches {launches} [{smi}]")
+    check(chose["vis_cache_bytes"] and chose["txt_cache_bytes"] and chose["graph"]
+          and chose["steps_per_dispatch"] == 8 and chose["stage_val_features"],
+          f"[{what}] the default dispatch did not take both caches, K 8 as a CUDA graph and "
+          f"staged validation: {chose}")
+    check(len(hist) == 2, f"[{what}] trainer ran {len(hist)} epochs, not 2")
+    check(hist[1]["loss"] < hist[0]["loss"], f"[{what}] the training loss did not fall")
+    check(hist[1]["r1"] > 100.0 / 2990,
+          f"[{what}] validation R@1 {hist[1]['r1']} is not above chance")
+    expect = {"sim_rank_wide": 2, "sim_rank_tiled": 0, "gate_attention": 2 * VAL_GATE_CALLS,
+              "gate_attention_simple": 0}
+    check(launches == expect, f"[{what}] training run launches {launches}, expected one rank "
+          f"and {VAL_GATE_CALLS} gate launches per validation and none in the steps: {expect}")
+    calls = counting[0].calls + counting[1].calls
+    check(calls == VAL_GATE_CALLS, f"[{what}] the validation batchers ran {calls} times in "
+          f"two validations; the second should replay the {VAL_GATE_CALLS} staged batches")
+    device = torch.device("cuda")
+    eval_batch = prepared.config.eval_batch_size
+    unstaged = validate(Embedder(res["model"], device),
+                        EvalFeed(prepared.val_txt_source.cap_ids, txt_batcher, eval_batch),
+                        EvalFeed(prepared.val_vis_ids, vis_batcher, eval_batch),
+                        rank_path="kernel")
+    diff = {k: (hist[1][k], unstaged[k]) for k in T.METRICS if hist[1][k] != unstaged[k]}
+    check(not diff, f"[{what}] replayed validation vs unstaged, same weights: {diff}")
+    log(f"  [{what}] the second validation replayed the staged batches; its metrics equal an "
+        f"unstaged validate of the same weights exactly; validation wall: "
+        f"{hist[0]['val_seconds']:.2f} s staging, {hist[1]['val_seconds']:.2f} s replayed; "
+        f"epoch train wall {hist[0]['train_seconds']:.2f} s (capture included) / "
+        f"{hist[1]['train_seconds']:.2f} s; the default CUDA generator untouched; epoch wall "
+        f"minus train minus validation {epoch_remainder(hist)} s (background saver) [{smi}]")
+    return res, launches, {k: unstaged[k] for k in T.METRICS}
+
+
+def trained_checkpoint_prediction(torch, K, P, root, res, rank_paths, what):
+    """(f) the trained best checkpoint through ``predictor.main`` on rtest, for
+    each rank path; the kernel path's mir must be the trainer's validation
+    mir of that epoch. Returns the checkpoint path, the results and the
+    kernel run's launches."""
+    from laff_tpu_torch.engine.checkpoint import load_checkpoint
+
+    ckpt_path = os.path.join(res["model_path"], "model_best.pth.tar")
+    ck = load_checkpoint(ckpt_path)
+    out = {path: run_predictor(torch, K, P, root, "rtest", ckpt_path, path)
+           for path in rank_paths}
+    res_k, launches = out["kernel"]
+    val_mir = res["history"][int(ck["epoch"]) - 1]["mir"]
+    check(abs(res_k["t2v"][5] - val_mir) < 1e-6,
+          f"[{what}] the predictor's kernel-path mir {res_k['t2v'][5]} is not the trainer's "
+          f"validation mir {val_mir}")
+    check(launches["sim_rank_wide"] == 1 and launches["gate_attention"] == GATE_RUN
+          and launches["gate_attention_simple"] == 0,
+          f"[{what}] the kernel prediction pass launched {launches}")
+    return ckpt_path, {p: r for p, (r, _) in out.items()}, launches
+
 
 def train_phase(torch, K, P, root, smi):
     """The training slice at full width: the caches and the graph against the
-    fed eager path, two epochs of trainer.main at the default dispatch,
-    the replayed validation against an unstaged one, the indexed text feed,
-    and the trained checkpoint through the predictor. Returns the launches
-    of the training run."""
-    from laff_tpu_torch.data import EvalFeed
+    fed eager path, two epochs of trainer.main at the default dispatch, the
+    host featurizer and the checkpoint writer timed, the replayed validation
+    against an unstaged one, the indexed text feed, and the trained
+    checkpoint through the predictor. Returns the launches of the training
+    run and of the trained checkpoint's kernel prediction pass."""
     from laff_tpu_torch.data.synth import build_world
     from laff_tpu_torch.engine import trainer as T
     from laff_tpu_torch.engine.checkpoint import load_checkpoint
-    from laff_tpu_torch.engine.evaluator import Embedder, validate
     from laff_tpu_torch.engine.prepare import Options, prepare
 
     t0 = time.perf_counter()
-    log(f"world: {build_world(root, 'rtrain', 1500, 20, 11286, SEED + 2)} "
+    log(f"world: {build_world(root, 'rtrain', 1500, 20, 11286, SEED + 2, frame_feat=True)} "
         f"in {time.perf_counter() - t0:.1f} s")
     opt = Options(trainCollection="rtrain", valCollection="rtest", rootpath=root, val_set="no",
                   config_name="rehearsal", num_epochs=2, batch_size=128, device="cuda",
@@ -1046,91 +1268,70 @@ def train_phase(torch, K, P, root, smi):
     feed = prepared.train_feed
     log(f"trainer prepare: {time.perf_counter() - t0:.1f} s; {len(feed.cap_ids)} captions, "
         f"{feed.steps_per_epoch()} steps of {feed.batch_size} per epoch")
-    init = cache_and_graph_checks(torch, K, T, opt, prepared, smi)
-
-    # (c) the main path at the default dispatch: every window of graphed
-    # steps between two loss reads under sync debug mode 'error'; each
-    # validation takes the gate and the wide rank kernel, the second one
-    # replays the batches staged by the first
-    txt_batcher, vis_batcher = prepared.val_txt_batcher, prepared.val_vis_batcher
-    prepared.val_txt_batcher = Counting(txt_batcher)
-    prepared.val_vis_batcher = Counting(vis_batcher)
-    default_rng = torch.cuda.get_rng_state()
-    K.reset_launches()
-    t0 = time.perf_counter()
-    res = T.main(opt, prepared=prepared)
-    wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    check(torch.equal(torch.cuda.get_rng_state(), default_rng),
-          "trainer.main moved the process's default CUDA generator")
-    hist, chose = res["history"], res["dispatch"]
-    log(f"trainer.main chose: {chose}")
-    for e in hist:
-        log(f"  epoch {e['epoch']}: loss {e['loss']:.4f}, lr {e['lr']:.6g}, {e['steps']} steps, "
-            f"train {e['train_seconds']:.2f} s, validate {e['val_seconds']:.2f} s, wall "
-            f"{e['wall_seconds']:.2f} s; r1 {e['r1']:.3f} r5 {e['r5']:.3f} r10 {e['r10']:.3f} "
-            f"medr {e['medr']:.0f} mir {e['mir']:.5f} [{smi}]")
-    log(f"trainer.main: {len(hist)} epochs in {wall:.1f} s (prepare in the call "
-        f"{res['prepare_seconds']} s); launches {launches} [{smi}]")
-    check(chose["vis_cache_bytes"] and chose["txt_cache_bytes"] and chose["graph"]
-          and chose["steps_per_dispatch"] == 8 and chose["stage_val_features"],
-          f"the default dispatch did not take both caches, K 8 as a CUDA graph and staged "
-          f"validation: {chose}")
-    check(len(hist) == 2, f"trainer ran {len(hist)} epochs, not 2")
-    check(hist[1]["loss"] < hist[0]["loss"], "the training loss did not fall")
-    check(hist[1]["r1"] > 100.0 / 2990, f"validation R@1 {hist[1]['r1']} is not above chance")
-    expect = {"sim_rank_wide": 2, "sim_rank_tiled": 0, "gate_attention": 2 * VAL_GATE_CALLS,
-              "gate_attention_simple": 0}
-    check(launches == expect, f"training run launches {launches}, expected one rank and "
-          f"{VAL_GATE_CALLS} gate launches per validation and none in the steps: {expect}")
-    calls = prepared.val_txt_batcher.calls + prepared.val_vis_batcher.calls
-    check(calls == VAL_GATE_CALLS, f"the validation batchers ran {calls} times in two "
-          f"validations; the second should replay the {VAL_GATE_CALLS} staged batches")
-    device = torch.device("cuda")
-    eval_batch = prepared.config.eval_batch_size
-    unstaged = validate(Embedder(res["model"], device),
-                        EvalFeed(prepared.val_txt_source.cap_ids, txt_batcher, eval_batch),
-                        EvalFeed(prepared.val_vis_ids, vis_batcher, eval_batch),
-                        rank_path="kernel")
-    diff = {k: (hist[1][k], unstaged[k]) for k in T.METRICS if hist[1][k] != unstaged[k]}
-    check(not diff, f"replayed validation vs unstaged, same weights: {diff}")
-    log(f"  the second validation replayed the staged batches ({calls} batcher calls in two "
-        f"validations); its metrics equal an unstaged validate of the same weights exactly; "
-        f"validation wall: {hist[0]['val_seconds']:.2f} s staging, {hist[1]['val_seconds']:.2f} "
-        f"s replayed; epoch train wall {hist[0]['train_seconds']:.2f} s (capture included) / "
-        f"{hist[1]['train_seconds']:.2f} s; the default CUDA generator untouched [{smi}]")
-    eval_cast_timing(torch, opt, prepared, res["model"], txt_batcher, vis_batcher,
-                     {k: unstaged[k] for k in T.METRICS}, smi)
+    init = cache_and_graph_checks(torch, K, T, opt, prepared, smi, "laff")
+    res, launches, unstaged = run_main(torch, K, T, opt, prepared, smi, "laff")
+    featurizer_timing(torch, opt, prepared, res["model"], prepared.val_txt_batcher,
+                      prepared.val_vis_batcher, unstaged, smi)
     del res["model"]
+    saver_timing(torch, T, opt, prepared, res["history"], smi)
 
-    ckpt_path = os.path.join(res["model_path"], "model_best.pth.tar")
-    ck = load_checkpoint(ckpt_path)
+    ck = load_checkpoint(os.path.join(res["model_path"], "model_best.pth.tar"))
     fed_window_check(torch, K, T, opt, prepared, ck["state_dict"], smi)
     indexed_text_check(torch, T, opt, prepared, init, smi)
-    bigru_check(torch)
+    bigru_check(torch, smi)
+    card_vs_cpu_step(torch, T, prepared, ck["state_dict"], "laff")
 
-    # one step, same weights and batch, dropout off: card vs CPU
-    losses = {}
-    for dev in (device, torch.device("cpu")):
-        s = new_step(T, prepared.config, prepared.spec, ck["state_dict"], dev)
-        dropout_off(s.model)
-        txt, vis = device_batches(T, feed, dev, 1)[0]
-        g = torch.Generator(device=dev).manual_seed(SEED)
-        losses[dev.type] = [float(s(txt, vis, g)) for _ in range(2)]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
-    check(rel <= STEP_LOSS_RTOL, f"card vs CPU step losses {losses}")
-    log(f"  card vs CPU, two steps from the same weights and batch, dropout off: losses "
-        f"{losses['cuda']} vs {losses['cpu']} (max rel diff {rel:.3g} <= {STEP_LOSS_RTOL})")
+    ckpt_path, out, launches_p = trained_checkpoint_prediction(
+        torch, K, P, root, res, ("kernel", "flat"), "laff")
+    reembed_and_check(torch, K, P, root, "rtest", ckpt_path, out["kernel"], out["flat"])
+    return launches, launches_p
 
-    # (f) the trained checkpoint through the predictor, both rank paths
-    res_k, _ = run_predictor(torch, K, P, root, "rtest", ckpt_path, "kernel")
-    res_f, _ = run_predictor(torch, K, P, root, "rtest", ckpt_path, "flat")
-    val_mir = hist[int(ck["epoch"]) - 1]["mir"]
-    check(abs(res_k["t2v"][5] - val_mir) < 1e-6,
-          f"the predictor's kernel-path mir {res_k['t2v'][5]} is not the trainer's "
-          f"validation mir {val_mir}")
-    reembed_and_check(torch, K, P, root, "rtest", ckpt_path, res_k, res_f)
-    return launches
+
+def frame_phase(torch, K, P, root, smi):
+    """5. FrameLAFF (configs/frame_rehearsal.py: frame_rehearsal's shape of
+    FrameLaff_NoFrameFc_StrongCLIP_adjust at parm 0_7_1_12_0_12_0) at full
+    width on rtrain -> rtest, both with 512-d frame rows (8-60 a video, at
+    most 50 kept): the caches with the padded frames and the graph against
+    the fed eager path, two epochs of trainer.main at the default dispatch
+    (the video tower's gate at L 5 in each validation), one step on the card
+    against the CPU, and the trained checkpoint through the predictor.
+    Returns the launches of the training run and of the prediction pass."""
+    from laff_tpu_torch.engine import trainer as T
+    from laff_tpu_torch.engine.checkpoint import load_checkpoint
+    from laff_tpu_torch.engine.prepare import Options, prepare
+    from laff_tpu_torch.models import LAFFModel
+
+    opt = Options(trainCollection="rtrain", valCollection="rtest", rootpath=root, val_set="no",
+                  config_name="frame_rehearsal", num_epochs=2, batch_size=128, device="cuda",
+                  rank_path="kernel", sync_debug=1, random_seed=SEED,
+                  model_prefix="smoke_frames")
+    t0 = time.perf_counter()
+    prepared = prepare(opt)
+    vis = prepared.spec.vis
+    n_params = sum(p.numel() for p in LAFFModel(prepared.spec).parameters())
+    log(f"[frames] trainer prepare: {time.perf_counter() - t0:.1f} s; video tower "
+        f"{[n for n, _ in vis.features]} + frames {vis.frame_features} pooled by "
+        f"{vis.frame_attention.kind}; {n_params} parameters")
+    check(vis.frame_features == (("clip_frames", 512),) and len(vis.features) == 4
+          and vis.frame_feat_with_video_feat and not vis.frame_add_fc
+          and vis.frame_attention.kind == "attention_noAveNoAverageMul",
+          f"[frames] the frame_rehearsal spec is not FrameLAFF's headline shape: {vis}")
+    cache_and_graph_checks(torch, K, T, opt, prepared, smi, "frames")
+    res, launches, _ = run_main(torch, K, T, opt, prepared, smi, "frames")
+    del res["model"]
+    ck = load_checkpoint(os.path.join(res["model_path"], "model_best.pth.tar"))
+    card_vs_cpu_step(torch, T, prepared, ck["state_dict"], "frames")
+    _, out, launches_p = trained_checkpoint_prediction(torch, K, P, root, res, ("kernel",),
+                                                       "frames")
+    secs = out["kernel"]["seconds"]
+    log("[frames] frame_timing " + json.dumps({
+        "epochs": [{k: e[k] for k in ("train_seconds", "val_seconds", "wall_seconds", "loss",
+                                      "r1")} for e in res["history"]],
+        "remainder": epoch_remainder(res["history"]),
+        "vis_cache_bytes": res["dispatch"]["vis_cache_bytes"],
+        "vis_cache_s": res["dispatch"]["vis_cache_seconds"],
+        "predict_seconds": secs, "predict_total_s": sum(secs.values()), "smi": smi}))
+    return launches, launches_p
 
 
 def gate_worker(torch, root):
@@ -1219,11 +1420,18 @@ def main(argv):
             f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}; "
             f"tf32 off for matmul and cuDNN")
 
+        from laff_tpu_torch import native
         from laff_tpu_torch.data.synth import build_world
         from laff_tpu_torch.engine import predictor as P
         from laff_tpu_torch.engine.checkpoint import save_checkpoint
         from laff_tpu_torch.engine.prepare import init_checkpoint
         from laff_tpu_torch.ops import kernels as K
+
+        t0 = time.perf_counter()
+        check(native.get_fastfeat() is not None,
+              "the native featurizer (laff_tpu_torch/native/fastfeat.cpp) did not build or load")
+        log(f"native featurizer: {native.library_path()} loaded in "
+            f"{time.perf_counter() - t0:.1f} s (built from the checkout when absent)")
 
         t0 = time.perf_counter()
         logs = K.build_kernels()
@@ -1239,6 +1447,8 @@ def main(argv):
             "sim_rank_tiled": sim_rank_phase(torch, K, "sim_rank_tiled", 8_192, 16_384, 0, gen),
             "gate_attention": gate_phase(torch, K, gen),
         }
+        # FrameLAFF's video tower fuses 5 locals: the gate at L 5
+        gate_l5 = gate_phase(torch, K, gen, l=5, batches=(1024,))
         # the gt pass's cost with ground truths on every gallery tile
         sim_rank_phase(torch, K, "sim_rank_wide", 59_800, 2_990, 0, gen)
         sim_rank_edge_phase(torch, K, gen)
@@ -1247,12 +1457,17 @@ def main(argv):
         shutil.rmtree(WORK, ignore_errors=True)
         root = os.path.join(WORK, "world")
         t0 = time.perf_counter()
-        log(f"world: {build_world(root, 'rtest', 2990, 20, 11286, SEED)} "
+        log(f"world: {build_world(root, 'rtest', 2990, 20, 11286, SEED, frame_feat=True)} "
             f"in {time.perf_counter() - t0:.1f} s")
         ckpt = os.path.join(WORK, "rtest_model.pt")
         save_checkpoint(init_checkpoint("rehearsal", root, "rtest", SEED), ckpt)
 
+        native.reset_calls()
         res_k, launches_k = run_predictor(torch, K, P, root, "rtest", ckpt, "kernel")
+        calls = dict(native.CALLS)
+        check(min(calls.values()) > 0, f"the prediction pass made no native featurizer call: "
+              f"{calls}")
+        log(f"  the text featurization of that pass ran in the native fastfeat: {calls} batches")
         check(launches_k["sim_rank_wide"] >= 1, "the kernel run launched no sim_rank_wide")
         check(launches_k["gate_attention"] >= 1, "the kernel run launched no gate_attention")
         check(launches_k["gate_attention_simple"] == 0,
@@ -1274,12 +1489,20 @@ def main(argv):
         check(launches_b["sim_rank_wide"] == 0, "the large-gallery run took the wide kernel")
 
         t0 = time.perf_counter()
-        launches_t = train_phase(torch, K, P, root, smi_line)
+        launches_t, launches_tp = train_phase(torch, K, P, root, smi_line)
         log(f"training phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches_f, launches_fp = frame_phase(torch, K, P, root, smi_line)
+        log(f"FrameLAFF phase: {time.perf_counter() - t0:.1f} s")
 
-        # launches of the main path: the rtest prediction pass and the
-        # training run's validations (rbig for the tiled kernel)
-        main_path = {k: launches_k[k] + launches_t[k] for k in launches_k}
+        # launches of the main paths, each counted from 0 around its run:
+        # the rtest prediction pass, the LAFF training run's validations and
+        # its checkpoint's pass, FrameLAFF's (rbig for the tiled kernel)
+        by_path = {"laff_predict": launches_k, "laff_train": launches_t,
+                   "laff_trained_predict": launches_tp, "frames_train": launches_f,
+                   "frames_trained_predict": launches_fp}
+        main_path = {k: sum(p[k] for p in by_path.values()) for k in launches_k}
+        rows["gate_attention"]["at_l5"] = gate_l5
         meta = {
             "sim_rank_wide": ("laff_tpu_torch/csrc/sim_rank.cu",
                               "laff_tpu/ops/pallas_kernels.py:116", main_path),
@@ -1290,8 +1513,11 @@ def main(argv):
         }
         kernels = []
         for name, (source, replaces, launches) in meta.items():
+            paths = ({"rbig_predict": launches[name]} if launches is launches_b else
+                     {p: v[name] for p, v in by_path.items()})
             kernels.append({"name": name, "route": "cuda", "source": source,
-                            "replaces": replaces, "launches": launches[name], **rows[name]})
+                            "replaces": replaces, "launches": launches[name],
+                            "launches_by_path": paths, **rows[name]})
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(json.dumps({"kernels": kernels}))
     except SmokeFailure as e:

@@ -82,7 +82,7 @@ class TextBatcher:
             elif name in self._PRECOMPUTED_KEYS:
                 if t2v is not None:
                     raise NotImplementedError(
-                        f"live '{name}' text towers are not ported yet")
+                        f"live '{name}' text towers are not ported yet: ROADMAP Queue 1 item 6")
                 if precomputed is None:
                     precomputed = self.source.gather_precomputed(cap_ids)
                 batch[name] = precomputed[self._PRECOMPUTED_KEYS[name]]
@@ -98,13 +98,17 @@ class TextBatcher:
 
 
 class VisBatcher:
-    """vis_ids -> model-ready video-level feature arrays."""
+    """vis_ids -> model-ready visual arrays: the video-level features and
+    each of the source's frame features padded to its ``max_frame`` with
+    its mask (one shape for every batch)."""
 
     def __init__(self, source: VisionSource) -> None:
         self.source = source
 
     def __call__(self, vis_ids: Sequence[str]) -> Dict[str, np.ndarray]:
-        return self.source.gather(vis_ids)
+        batch = self.source.gather(vis_ids)
+        batch.update(self.source.gather_frames(vis_ids))
+        return batch
 
 
 class PairFeed:

@@ -7,6 +7,8 @@ memory-mapped BigFiles, run ahead of the card by the prefetch thread in
 
 Collection layout (unchanged from the reference, so existing dumps work):
   <root>/<collection>/FeatureData/<feat_name>/{feature.bin,id.txt,shape.txt}
+  <root>/<collection>/FeatureData/frame/<feat_name>/  (frame rows, ids
+                                                       '<videoid>_<frameidx>')
   <root>/<collection>/TextData/<capfile>.caption.txt    ("cap_id caption")
   <root>/<collection>/TextData/<dir_name>/              (precomputed text feats)
   <root>/<collection>/VideoSets/<collection>.txt        (video id list)
@@ -22,11 +24,26 @@ from ..store import BigFile
 
 
 class VisionSource:
-    """Video-level feature access for a set of video ids."""
+    """Video-level (and optionally frame-level) feature access for a set of
+    video ids."""
 
-    def __init__(self, feat_files: Dict[str, BigFile], vis_ids: Sequence[str]) -> None:
+    def __init__(self, feat_files: Dict[str, BigFile], vis_ids: Sequence[str],
+                 frame_feat_files: Optional[Dict[str, BigFile]] = None,
+                 max_frame: int = 200) -> None:
         self.feat_files = feat_files
         self.vis_ids = list(vis_ids)
+        self.max_frame = max_frame
+        self.frame_feat_files = frame_feat_files or {}
+        # frame ids are '<videoid>_<frameidx>': grouped by video, sorted by
+        # frame index as a number (reference data_provider.py:430-446)
+        self.vid2frames: Dict[str, Dict[str, List[str]]] = {}
+        for fname, bf in self.frame_feat_files.items():
+            groups: Dict[str, List[str]] = {}
+            for frame_id in bf.names:
+                groups.setdefault("_".join(frame_id.split("_")[:-1]), []).append(frame_id)
+            for ids in groups.values():
+                ids.sort(key=lambda x: int(x.split("_")[-1]))
+            self.vid2frames[fname] = groups
 
     def __len__(self) -> int:
         return len(self.vis_ids)
@@ -40,6 +57,25 @@ class VisionSource:
                 missing = set(vis_ids) - set(found)
                 raise KeyError(f"feature '{name}' missing ids: {sorted(missing)[:5]}")
             out[name] = arr
+        return out
+
+    def gather_frames(self, vis_ids: Sequence[str]) -> Dict[str, np.ndarray]:
+        """Frame features: '<name>@frames' (B, max_frame, D) float32 holding
+        each video's first ``max_frame`` frames, right-padded with zeros,
+        and '<name>@mask' (B, max_frame) float32, 1 on a frame. A video with
+        no frame in the file gets an all-zero row and mask."""
+        out = {}
+        for fname, bf in self.frame_feat_files.items():
+            groups = self.vid2frames[fname]
+            frames = np.zeros((len(vis_ids), self.max_frame, bf.ndims), dtype=np.float32)
+            mask = np.zeros((len(vis_ids), self.max_frame), dtype=np.float32)
+            for i, vid in enumerate(vis_ids):
+                ids = groups.get(vid, [])[: self.max_frame]
+                if ids:
+                    frames[i, : len(ids)] = bf.gather(ids)[1]
+                    mask[i, : len(ids)] = 1.0
+            out[f"{fname}@frames"] = frames
+            out[f"{fname}@mask"] = mask
         return out
 
 

@@ -10,6 +10,17 @@ Writes one collection in the reference layout, in the shape of
   <root>/<collection>/VideoSets/<collection>.txt
   <root>/word2vec/synth500                                (500-d w2v)
 
+With ``frame_feat`` (the FrameLAFF world) also
+
+  <root>/<collection>/FeatureData/c3d                     (2048-d)
+  <root>/<collection>/FeatureData/frame/clip_frames       (512-d frame rows,
+                                                           ids '<vid>_<k>')
+  <root>/<collection>/FeatureData/clip_frames             (the same rows)
+
+with 8-60 frames a video, so that a ``max_frame`` of 50 both cuts and
+pads; these are drawn after everything else, so the rest of the world is
+the one ``frame_feat=False`` builds.
+
 Each video draws 8 distinct words from the vocabulary (every word is used
 by some video, so the BoW vocabulary has ``n_vocab`` entries, 11,286 like
 the headline's); its features are a fixed projection of the summed word
@@ -27,6 +38,9 @@ import numpy as np
 from ..store import write_bigfile
 
 FEATS = {"clip_ft": 512, "timesformer": 768, "x3d": 2048, "ircsn": 2048}
+FRAME_FEATS = {"c3d": 2048}  # video-level features of the FrameLAFF world
+FRAME_NAME, FRAME_DIM = "clip_frames", 512
+FRAMES_PER_VIDEO = (8, 60)
 LATENT = 24
 CLIP_DIM = 512
 W2V_DIM = 500
@@ -47,8 +61,15 @@ def _video_words(rng: np.random.Generator, n_videos: int, n_vocab: int) -> np.nd
     return words
 
 
+def _projection(name: str, dim: int) -> np.ndarray:
+    # crc32 keeps projections stable across processes (str hash is salted)
+    return np.random.default_rng(zlib.crc32(name.encode()) % 1000).standard_normal(
+        (LATENT, dim)).astype(np.float32) * 0.3
+
+
 def build_world(root: str, collection: str = "rtest", n_videos: int = 2990,
-                caps_per_video: int = 20, n_vocab: int = 11286, seed: int = 0) -> dict:
+                caps_per_video: int = 20, n_vocab: int = 11286, seed: int = 0,
+                frame_feat: bool = False) -> dict:
     """Build the collection and its w2v table; returns a summary dict."""
     rng = np.random.default_rng(seed)
     vocab = [f"w{i:05d}" for i in range(n_vocab)]
@@ -58,10 +79,8 @@ def build_world(root: str, collection: str = "rtest", n_videos: int = 2990,
     latent = word_codes[words].sum(axis=1)
     cdir = os.path.join(root, collection)
     for feat, dim in FEATS.items():
-        # crc32 keeps projections stable across processes (str hash is salted)
-        proj = np.random.default_rng(zlib.crc32(feat.encode()) % 1000).standard_normal(
-            (LATENT, dim)).astype(np.float32) * 0.3
-        mat = latent @ proj + 0.1 * rng.standard_normal((n_videos, dim)).astype(np.float32)
+        mat = latent @ _projection(feat, dim) + 0.1 * rng.standard_normal(
+            (n_videos, dim)).astype(np.float32)
         write_bigfile(os.path.join(cdir, "FeatureData", feat), vids, mat)
 
     sel = np.argsort(rng.random((n_videos, caps_per_video, 8)), axis=2)[:, :, :6]
@@ -89,5 +108,20 @@ def build_world(root: str, collection: str = "rtest", n_videos: int = 2990,
 
     w2v = np.random.default_rng(5).standard_normal((n_vocab + 2, W2V_DIM)).astype(np.float32)
     write_bigfile(os.path.join(root, "word2vec", "synth500"), vocab + ["the", "a"], w2v)
-    return {"collection": collection, "videos": n_videos, "captions": len(cap_ids),
-            "vocab": n_vocab}
+    summary = {"collection": collection, "videos": n_videos, "captions": len(cap_ids),
+               "vocab": n_vocab}
+    if frame_feat:
+        for feat, dim in FRAME_FEATS.items():
+            mat = latent @ _projection(feat, dim) + 0.1 * rng.standard_normal(
+                (n_videos, dim)).astype(np.float32)
+            write_bigfile(os.path.join(cdir, "FeatureData", feat), vids, mat)
+        counts = rng.integers(FRAMES_PER_VIDEO[0], FRAMES_PER_VIDEO[1] + 1, n_videos)
+        frame_ids = [f"{vid}_{k}" for vid, n in zip(vids, counts) for k in range(n)]
+        rows = np.repeat(latent @ _projection(FRAME_NAME, FRAME_DIM), counts, axis=0)
+        rows += 0.1 * rng.standard_normal(rows.shape).astype(np.float32)
+        # both layouts: FeatureData/frame/<name>, which prepare reads, and
+        # the flat one, for reading a frame file as a plain BigFile
+        for where in (("frame", FRAME_NAME), (FRAME_NAME,)):
+            write_bigfile(os.path.join(cdir, "FeatureData", *where), frame_ids, rows)
+        summary["frames"] = len(frame_ids)
+    return summary

@@ -42,6 +42,20 @@ def _plain(value) -> bool:
     return isinstance(value, _PLAIN)
 
 
+def _builtin(value):
+    """Plain data with numpy's str and number subclasses (an ``adjust_parm``
+    picks names out of numpy arrays) as the builtin types, which a
+    ``weights_only`` load accepts."""
+    if isinstance(value, dict):
+        return {k: _builtin(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_builtin(v) for v in value)
+    for kind in (bool, int, float, str):
+        if isinstance(value, kind):
+            return kind(value)
+    return value
+
+
 def config_to_dict(config) -> Dict:
     """Every public, non-callable attribute whose value is plain data."""
     out = {}
@@ -50,7 +64,7 @@ def config_to_dict(config) -> Dict:
             continue
         value = getattr(config, name)
         if not callable(value) and _plain(value):
-            out[name] = value
+            out[name] = _builtin(value)
     return out
 
 

@@ -7,7 +7,8 @@ towers, the towers' own first op, on the card after an f32 upload; with
 ``stage_on_device`` keeps its uploaded batches on the card after its first
 pass and replays them on later ones (validation features do not change
 between epochs), up to ``LAFF_TPU_EVAL_STAGE_BUDGET`` bytes (4 GiB) a
-feed, above which it streams unstaged as ``laff_tpu`` does; the full
+feed, every array counted (a FrameLAFF gallery's padded frames and masks
+too), above which it streams unstaged as ``laff_tpu`` does; the full
 score matrix (for v2t metrics and the rank dump) is built in text blocks;
 t2v ranks come from counting on the device, never from a host argsort.
 
@@ -140,7 +141,7 @@ def score_matrix(txt_embs: torch.Tensor, vis_embs: torch.Tensor, block: int = 81
     """Full (T, V) f32 similarity matrix on the host, computed on the
     embeddings' device in text blocks."""
     if measure != "cosine":
-        raise NotImplementedError(f"measure {measure!r} is not ported yet")
+        raise NotImplementedError(f"measure {measure!r} is not ported yet: ROADMAP Queue 1 item 2")
     fn = multi_head_cosine_sim if txt_embs.ndim == 3 else cosine_sim
     n = txt_embs.shape[0]
     out = np.empty((n, vis_embs.shape[0]), dtype=np.float32)
@@ -173,7 +174,7 @@ def t2v_ranks(txt_embs: torch.Tensor, vis_embs: torch.Tensor, txt_ids: List[str]
     once (the H-head mean of cosines is one flat dot / H). Exact duplicate
     scores rank the larger gallery index first on every path."""
     if measure != "cosine":
-        raise NotImplementedError(f"measure {measure!r} is not ported yet")
+        raise NotImplementedError(f"measure {measure!r} is not ported yet: ROADMAP Queue 1 item 2")
     vid_index = {v: i for i, v in enumerate(vis_ids)}
     gt = torch.as_tensor([vid_index[t.split("#")[0]] for t in txt_ids],
                          dtype=torch.int32, device=txt_embs.device)

@@ -24,15 +24,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..data import EvalFeed, TextBatcher, TextSource, VisBatcher, VisionSource, read_video_set
+from ..data import EvalFeed, TextBatcher, TextSource, VisBatcher, read_video_set
 from ..eval.metrics import eval_v2t, metrics_from_ranks
 from ..models import LAFFModel
-from ..store import BigFile
 from ..text.txt2vec import BowVec, BowVecNSW, IndexVec, get_txt2vec
 from ..utils import ROOT_PATH, check_to_skip, get_logger, makedirs
 from .checkpoint import load_checkpoint, vocab_from_dict
 from .evaluator import LARGE_GALLERY, Embedder, score_matrix, t2v_ranks
-from .prepare import text_precomputed, w2v_dir_for
+from .prepare import text_precomputed, vision_source, w2v_dir_for
 
 logger = get_logger(__name__)
 
@@ -97,12 +96,12 @@ def rebuild_featurizers(ckpt: Dict, rootpath: str) -> Dict:
 
 
 def build_test_feeds(opt: PredictOptions, config, query_set: str, featurizers):
-    """Vision + text feeds for a test collection and query set."""
+    """Vision + text feeds for a test collection and query set; the
+    gallery feed carries the frame features of a FrameLAFF config."""
     coll_dir = os.path.join(opt.rootpath, opt.testCollection)
-    vis_files = {n: BigFile(os.path.join(coll_dir, "FeatureData", n))
-                 for n in config.vid_feats}
     vis_ids = read_video_set(os.path.join(coll_dir, "VideoSets", opt.testCollection + ".txt"))
-    vis_feed = EvalFeed(vis_ids, VisBatcher(VisionSource(vis_files, vis_ids)),
+    vis_feed = EvalFeed(vis_ids, VisBatcher(vision_source(opt.rootpath, opt.testCollection,
+                                                          config, vis_ids)),
                         batch_size=opt.batch_size)
     capfile = os.path.join(coll_dir, "TextData", query_set)
     tsrc = TextSource(capfile, precomputed=text_precomputed(config, capfile))
@@ -165,7 +164,7 @@ def main(opt: PredictOptions) -> Dict:
 
     for query_set in opt.query_sets.split(","):
         if coll in AVS_COLLECTIONS or query_set == "simple_query.txt":
-            raise NotImplementedError("AVS score files are not ported yet")
+            raise NotImplementedError("AVS score files are not ported yet: ROADMAP Queue 1 item 5")
         output_dir = os.path.join(opt.rootpath, coll, "SimilarityIndex", query_set,
                                   opt.sim_name)
         if check_to_skip(os.path.join(output_dir, "id.sent.score.txt"), opt.overwrite):
@@ -184,7 +183,8 @@ def main(opt: PredictOptions) -> Dict:
         vis_feed, txt_feed, tsrc, vis_ids = build_test_feeds(opt, config, query_set, featurizers)
         if len(vis_ids) > LARGE_GALLERY:
             raise NotImplementedError(
-                f"gallery of {len(vis_ids)} videos: large-gallery streaming is not ported yet")
+                f"gallery of {len(vis_ids)} videos: large-gallery streaming is not ported yet: "
+                f"ROADMAP Queue 1 item 5")
         txt_embs, txt_ids = embedder.embed_txt(txt_feed)
         lap("embed_txt")
         if vis_embs is None:  # cached across query sets

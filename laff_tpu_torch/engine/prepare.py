@@ -10,6 +10,10 @@ a collection as the trainer does before its first step. Vocabularies are
 built from the train captions when their pickle is missing, and saved in
 the reference layout.
 
+FrameLAFF configs (``frame_feat_input``) open their frame BigFiles from
+``FeatureData/frame/<name>`` of each collection (train, validation,
+``trainCollection2``) and feed them padded to ``max_frame``.
+
 Options of ``laff_tpu`` that the port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them; none is
 silently ignored.
@@ -153,7 +157,8 @@ def build_featurizers(config, rootpath: str, vocab_collection: str, train_capfil
         txt_dims["clip"] = config.clip_opt["size"]
         featurizers["clip"] = None  # precomputed via TextSource
     if "no" not in te["NetVLAD_encoding"]["name"]:
-        raise NotImplementedError("NetVLAD text encoding is not ported yet")
+        raise NotImplementedError("NetVLAD text encoding is not ported yet: "
+                                  "ROADMAP Queue 1 item 2")
     return featurizers, txt_dims, gru_spec, gru_vocab, w2v_dir
 
 
@@ -174,13 +179,15 @@ def _no_transform_keys(names) -> Tuple[str, ...]:
 
 
 def build_spec(config, vis_dims: Dict[str, int], txt_dims: Dict[str, int],
-               gru_spec: Optional[GruSpec]) -> LAFFSpec:
-    """config + discovered feature dims -> frozen LAFFSpec (the
-    video-level subset of ``laff_tpu.engine.prepare.build_spec``)."""
+               gru_spec: Optional[GruSpec],
+               frame_dims: Optional[Dict[str, int]] = None) -> LAFFSpec:
+    """config + discovered feature dims (``frame_dims``: FrameLAFF's frame
+    features) -> frozen LAFFSpec (``laff_tpu.engine.prepare.build_spec``
+    without task2, task3 and a live BERT)."""
     if getattr(config, "txt_fc_same_with_vis_fc", False):
-        raise NotImplementedError("txt_fc_same_with_vis_fc is not ported yet")
-    if getattr(config, "frame_feat_input", False):
-        raise NotImplementedError("frame features (FrameLAFF) are not ported yet")
+        raise NotImplementedError("txt_fc_same_with_vis_fc is not ported yet: "
+                                  "ROADMAP Queue 1 item 2")
+    frame_dims = frame_dims or {}
     if isinstance(config.txt_fc_layers, str):
         txt_common = int(config.txt_fc_layers.split("-")[1])
     else:
@@ -221,7 +228,10 @@ def build_spec(config, vis_dims: Dict[str, int], txt_dims: Dict[str, int],
         expert_embedding=config.vis_expert_embedding["expert"],
         expert_l2norm=config.vis_expert_embedding["l2norm"],
         dropout=config.dropout, batch_norm=config.batch_norm,
-        activation=config.activation, frame_add_fc=config.vis_frame_addFC,
+        activation=config.activation, frame_features=tuple(frame_dims.items()),
+        frame_attention=(_attn_spec(config, config.vis_frame_attention) if frame_dims
+                         else None),
+        frame_add_fc=config.vis_frame_addFC,
         frame_feat_with_video_feat=config.frame_feat_with_video_feat,
         feat_add_concat=config.vis_feat_add_concat, compute_dtype=compute_dtype,
     )
@@ -234,10 +244,11 @@ def build_spec(config, vis_dims: Dict[str, int], txt_dims: Dict[str, int],
 
 
 def vis_feature_dims(rootpath: str, collection: str, config) -> Dict[str, int]:
-    return {
-        name: BigFile(os.path.join(rootpath, collection, "FeatureData", name)).ndims
-        for name in config.vid_feats
-    }
+    return {n: f.ndims for n, f in _vis_files(rootpath, collection, config.vid_feats).items()}
+
+
+def frame_feature_dims(rootpath: str, collection: str, config) -> Dict[str, int]:
+    return {n: f.ndims for n, f in open_frame_files(rootpath, collection, config).items()}
 
 
 def seeded_model(spec: LAFFSpec, seed: int, we: Optional[np.ndarray] = None) -> LAFFModel:
@@ -276,7 +287,7 @@ def init_checkpoint(config_name: str, rootpath: str, collection: str, seed: int,
     featurizers, txt_dims, gru_spec, gru_vocab, w2v_dir = build_featurizers(
         config, rootpath, collection, capfile)
     spec = build_spec(config, vis_feature_dims(rootpath, collection, config),
-                      txt_dims, gru_spec)
+                      txt_dims, gru_spec, frame_feature_dims(rootpath, collection, config))
     we = gru_init_we(config, gru_vocab, w2v_dir, np.random.default_rng(seed))
     model = seeded_model(spec, seed, we)
     opt = {"config_name": config_name, "parm_adjust_config": parm_adjust_config,
@@ -342,9 +353,9 @@ class Options:
 
 # option, the values the port runs, the ROADMAP item that brings the others
 _NOT_PORTED = (
-    ("data_parallel", lambda v: v in (0, 1), "data_parallel (ROADMAP Queue 1 item 8)"),
-    ("task3_caption", lambda v: v == "no_task3_caption", "task3 (ROADMAP Queue 1 item 5)"),
-    ("task2_intended", lambda v: v == 0, "task2 (ROADMAP Queue 1 item 5)"),
+    ("data_parallel", lambda v: v in (0, 1), "data_parallel (ROADMAP Queue 1 item 7)"),
+    ("task3_caption", lambda v: v == "no_task3_caption", "task3 (ROADMAP Queue 1 item 3)"),
+    ("task2_intended", lambda v: v == 0, "task2 (ROADMAP Queue 1 item 3)"),
 )
 
 
@@ -362,11 +373,11 @@ def check_options(opt: Options) -> None:
 
 def check_config(config) -> None:
     """Config features the training slice does not have yet."""
-    if getattr(config, "frame_feat_input", False):
-        raise NotImplementedError("frame features (FrameLAFF) are not ported yet: "
-                                  "ROADMAP Queue 1 item 5")
+    if getattr(config, "txt_fc_same_with_vis_fc", False):
+        raise NotImplementedError("txt_fc_same_with_vis_fc is not ported yet: "
+                                  "ROADMAP Queue 1 item 2")
     if "no" not in config.text_encoding["bert_encoding"]["name"]:
-        raise NotImplementedError("a BERT text tower is not ported yet: ROADMAP Queue 1 item 7")
+        raise NotImplementedError("a BERT text tower is not ported yet: ROADMAP Queue 1 item 6")
 
 
 def model_dir_for(opt) -> str:
@@ -399,6 +410,25 @@ class Prepared:
 
 def _vis_files(rootpath: str, collection: str, names) -> Dict[str, BigFile]:
     return {n: BigFile(os.path.join(rootpath, collection, "FeatureData", n)) for n in names}
+
+
+def open_frame_files(rootpath: str, collection: str, config) -> Dict[str, BigFile]:
+    """FrameLAFF's frame BigFiles, ``FeatureData/frame/<name>`` for each of
+    ``config.vid_frame_feats``; none without ``frame_feat_input``."""
+    if not getattr(config, "frame_feat_input", False):
+        return {}
+    return {n: BigFile(os.path.join(rootpath, collection, "FeatureData", "frame", n))
+            for n in config.vid_frame_feats}
+
+
+def vision_source(rootpath: str, collection: str, config, vis_ids=None) -> VisionSource:
+    """A collection's video features, and its frame features (capped at
+    ``config.max_frame``) when the config takes them."""
+    if vis_ids is None:
+        vis_ids = _video_set(rootpath, collection)
+    return VisionSource(_vis_files(rootpath, collection, config.vid_feats), vis_ids,
+                        frame_feat_files=open_frame_files(rootpath, collection, config),
+                        max_frame=config.max_frame)
 
 
 def _pair_feed(config, featurizers, tsource, vsource, batch_size, seed, dtf, dtf_w2v,
@@ -443,25 +473,26 @@ def prepare(opt: Options) -> Prepared:
     train_capfile = _captions_file(rootpath, train)
 
     # feature dims into the config, as the reference does (trainer.py:126-157)
-    train_vis = _vis_files(rootpath, train, config.vid_feats)
-    config.vis_fc_layers = [{n: f.ndims for n, f in train_vis.items()},
+    train_vsource = vision_source(rootpath, train, config)
+    config.vis_fc_layers = [{n: f.ndims for n, f in train_vsource.feat_files.items()},
                             int(config.vis_fc_layers[1])]
     vis_dims = dict(config.vis_fc_layers[0])
     if config.vis_feat_add_concat:
         config.vis_fc_layers[0]["vis_feat_add_concat"] = int(sum(vis_dims.values()))
+    frame_dims = {n: f.ndims for n, f in train_vsource.frame_feat_files.items()}
+    config.vis_fc_layers[0].update(frame_dims)
     vocab_collection = train if train2 == "None" else f"{train}_{train2}"
     featurizers, txt_dims, gru_spec, gru_vocab, w2v_dir = build_featurizers(
         config, rootpath, vocab_collection, train_capfile)
     if isinstance(config.txt_fc_layers, str):
         config.txt_fc_layers = [0, int(config.txt_fc_layers.split("-")[1])]
     config.txt_fc_layers[0] = int(sum(txt_dims.values()))
-    spec = build_spec(config, vis_dims, txt_dims, gru_spec)
+    spec = build_spec(config, vis_dims, txt_dims, gru_spec, frame_dims)
     # the legacy RandomState seeded like laff_tpu's np.random.seed(random_seed)
     we = gru_init_we(config, gru_vocab, w2v_dir, np.random.RandomState(opt.random_seed))
 
     train_tsource = TextSource(train_capfile,
                                precomputed=text_precomputed(config, train_capfile))
-    train_vsource = VisionSource(train_vis, _video_set(rootpath, train))
     train2_tsource = None
     if train2 != "None":
         capfile2 = _captions_file(rootpath, train2)
@@ -486,8 +517,7 @@ def prepare(opt: Options) -> Prepared:
                             opt.random_seed, dtf, dtf_w2v, cap_ids=train_caps)
     train2_feed = None
     if train2_tsource is not None:
-        train2_vsource = VisionSource(_vis_files(rootpath, train2, config.vid_feats),
-                                      _video_set(rootpath, train2))
+        train2_vsource = vision_source(rootpath, train2, config)
         train2_feed = _pair_feed(config, featurizers, train2_tsource, train2_vsource,
                                  opt.batch_size, opt.random_seed + 1, dtf, dtf_w2v)
 
@@ -500,7 +530,7 @@ def prepare(opt: Options) -> Prepared:
         val_capfile = _captions_file(rootpath, val, val_set)
         val_tsource = TextSource(val_capfile, precomputed=text_precomputed(config, val_capfile))
         val_ids = _video_set(rootpath, val)
-        val_vsource = VisionSource(_vis_files(rootpath, val, config.vid_feats), val_ids)
+        val_vsource = vision_source(rootpath, val, config, val_ids)
     return Prepared(
         config=config, spec=spec, model_path=model_path, train_feed=train_feed,
         val_txt_source=val_tsource,

@@ -35,16 +35,21 @@
   card after the first pass), the LR controller, the best-model checkpoint
   dance, mean_last, early stop, and a full resume (optimizer state, LR
   controller and counters).
+* Checkpoints are written by ``AsyncSaver`` (``laff_tpu``'s one-slot
+  background writer): the epoch loop takes a host copy of every tensor
+  of the payload, which the next step's in-place updates cannot reach,
+  and hands only the pickling and the disk write to the thread.
 
-Left for later slices (ROADMAP Queue 1): task2 and task3, FrameLAFF,
-data_parallel, the BERT lr/20 mask, the 'hist' measure, and TensorBoard
-(``scalars.tsv`` only).
+Left for later slices (ROADMAP Queue 1): task2 and task3, data_parallel,
+the BERT lr/20 mask, the 'hist' measure, and TensorBoard (``scalars.tsv``
+only).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Union
 
@@ -87,7 +92,8 @@ def make_loss_fn(spec):
     ``multi_space`` one criterion per head, summed; else the criterion on
     the head-mean score matrix (rows videos, columns captions)."""
     if spec.measure != "cosine":
-        raise NotImplementedError(f"measure {spec.measure!r} is not ported yet")
+        raise NotImplementedError(f"measure {spec.measure!r} is not ported yet: "
+                                  f"ROADMAP Queue 1 item 2")
     kwargs = dict(margin=spec.margin, direction=spec.direction,
                   max_violation=spec.max_violation, cost_style=spec.cost_style)
 
@@ -414,6 +420,55 @@ def train_one_epoch(step, feed: PairFeed, epoch: int, device: torch.device,
     return meter.avg, n
 
 
+def host_copy(tensors) -> Dict[str, torch.Tensor]:
+    """(name, tensor) pairs -> a dict of CPU copies, which in-place updates
+    of the originals cannot reach (``.cpu()`` of a CPU tensor would be the
+    tensor itself)."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors}
+
+
+class AsyncSaver:
+    """One-slot background checkpoint writer (``laff_tpu``'s
+    ``_AsyncSaver``): ``submit`` joins the write in flight, then runs
+    ``fn(*args)`` in a thread, so writes keep their order and at most one
+    is in flight; ``join`` waits for it and raises what it raised. The
+    caller hands over host copies: the parameters and the optimizer state
+    change in place from the next step on (``OptaxChain.step``, a graph's
+    replays)."""
+
+    def __init__(self) -> None:
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def submit(self, fn, *args, **kwargs) -> None:
+        self.join()
+
+        def run() -> None:
+            try:
+                fn(*args, **kwargs)
+            except BaseException as e:  # re-raised by join in the epoch loop
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def join(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
+    def join_quietly(self) -> None:
+        """``join`` for a loop already unwinding from its own error: a
+        failed write is logged, so the loop's error stays the one raised."""
+        try:
+            self.join()
+        except BaseException as e:
+            logger.error("a background checkpoint write failed: %r", e)
+
+
 def _check_fits(what: str, nbytes: int, device: torch.device) -> None:
     """A cache the caller forced on must fit the card's free memory."""
     if device.type == "cuda":
@@ -547,8 +602,9 @@ def main(opt: Options, prepared: Optional[Prepared] = None) -> Dict:
     opt_dict = dataclasses.asdict(opt)
 
     def ckpt_payload(epoch: int) -> Dict:
-        payload = checkpoint_payload(model.state_dict(), spec, config, prepared.featurizers,
-                                     opt_dict)
+        """The checkpoint with host copies of the weights, taken now."""
+        payload = checkpoint_payload(host_copy(model.state_dict().items()), spec, config,
+                                     prepared.featurizers, opt_dict)
         payload.update(epoch=epoch + 1, best_perf=best_perf)
         return payload
 
@@ -563,6 +619,7 @@ def main(opt: Options, prepared: Optional[Prepared] = None) -> Dict:
                   "steps_per_dispatch": dispatch["steps_per_dispatch"],
                   "graph": dispatch["multi_step"] is not None and device.type == "cuda",
                   "stage_val_features": bool(opt.stage_val_features)}}
+    saver = AsyncSaver()
     scalar_log = ScalarLogger(model_path)
     hist = open(os.path.join(model_path, "val_perf_hist.txt"), "a" if start_epoch else "w")
     try:
@@ -615,17 +672,17 @@ def main(opt: Options, prepared: Optional[Prepared] = None) -> Dict:
             is_best = cur_perf > best_perf
             best_perf = max(cur_perf, best_perf)
             if is_best:
-                save_checkpoint_dance(ckpt_payload(epoch), True, logdir=model_path,
-                                      filename=f"checkpoint_epoch_{epoch}.pth.tar")
+                saver.submit(save_checkpoint_dance, ckpt_payload(epoch), True,
+                             logdir=model_path, filename=f"checkpoint_epoch_{epoch}.pth.tar")
                 no_impr = 0
                 mean_last = []
             elif opt.save_mean_last == 1:
-                mean_last.append({k: v.detach().cpu().clone()
-                                  for k, v in model.named_parameters()})
+                mean_last.append(host_copy(model.named_parameters()))
                 if len(mean_last) > 1:
                     payload = ckpt_payload(epoch)
                     payload["state_dict"].update(average_states(mean_last))
-                    save_checkpoint(payload, os.path.join(model_path, "mean_last10.pth.tar"))
+                    saver.submit(save_checkpoint, payload,
+                                 os.path.join(model_path, "mean_last10.pth.tar"))
 
             no_impr += 1
             entry["wall_seconds"] = round(time.time() - t_epoch, 2)
@@ -633,15 +690,20 @@ def main(opt: Options, prepared: Optional[Prepared] = None) -> Dict:
                 payload = ckpt_payload(epoch)
                 payload.update(optimizer=optimizer.state_dict(), global_step=global_step,
                                lr_ctl=dict(lr_ctl.__dict__), no_impr=no_impr,
-                               mean_last=mean_last)
-                save_checkpoint(payload, resume_path)
+                               mean_last=list(mean_last))
+                saver.submit(save_checkpoint, payload, resume_path)
             if no_impr > opt.early_stop_patience or epoch == opt.num_epochs - 1:
+                saver.join()
                 save_checkpoint_dance(ckpt_payload(epoch), is_best=False, logdir=model_path,
                                       filename=f"checkpoint_epoch_{epoch}.pth.tar",
                                       only_best=True)
                 logger.info("Early stopping or finished at epoch %d.", epoch)
                 result["epochs"] = epoch + 1
                 break
+        saver.join()
+    except BaseException:
+        saver.join_quietly()
+        raise
     finally:
         hist.close()
         scalar_log.close()

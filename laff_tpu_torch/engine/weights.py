@@ -1,9 +1,12 @@
 """Carry ``laff_tpu`` variables over to a ``LAFFModel`` state dict.
 
 The port names its modules after the flax tree, so the bridge is a rename
-plus three layout changes:
+plus these layout changes:
 
   <...>.fc1.kernel (in, out)       -> <...>.fc1.weight (out, in), transposed
+  <...>.frame_fc_<f>.kernel        -> <...>.frame_fc_<f>.weight, transposed
+  <...>.frame_attn_<f>.gate.kernel (D, 1)
+                                   -> <...>.frame_attn_<f>.gate.weight (1, D)
   <...>.bn1.scale / bias           -> <...>.bn1.weight / bias
   batch_stats <...>.bn1.mean / var -> <...>.bn1.running_mean / running_var
   <...>.gru.we                     -> <...>.gru.we.weight
@@ -40,7 +43,7 @@ def _flatten(tree: Dict, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
 def _param_name(path: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
     head, _, leaf = path.rpartition(".")
     owner = head.rpartition(".")[2]
-    if owner == "fc1" and leaf == "kernel":
+    if leaf == "kernel" and (owner in ("fc1", "gate") or owner.startswith("frame_fc_")):
         return f"{head}.weight", value.T
     if owner == "bn1" and leaf == "scale":
         return f"{head}.weight", value

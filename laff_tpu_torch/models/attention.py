@@ -1,5 +1,7 @@
-"""The LAFF multi-head gate (``laff_tpu.models.attention``
-MultiHeadGateAttention) and the registry keys that build it.
+"""The LAFF gates of ``laff_tpu.models.attention`` and the registry keys
+that build them: ``MultiHeadGateAttention`` (kinds 12-15) and the
+single-head ``GateAttention`` (kinds 0, 1, 7, 9), which FrameLAFF pools
+frames with.
 
 (B, L, D) -> (B, H, d): split D into H heads (or repeat when
 ``split_head=False``), gate each head independently over L, weighted-sum,
@@ -16,6 +18,12 @@ card, grad is off and the options lie in the kernel's subset (split heads,
 no mask, no pre-LN, no per-head l2norm, no distinct fc, no fusion mix,
 ave_style 'one'), whatever the input's float type: the kernel computes and
 returns f32. Every other case runs the plain tensor code below.
+
+``GateAttention`` (B, L, D) -> (B, D) has no kernel in either package: a
+softmax gate over L with an optional (B, L) validity mask, optional gating
+on ``local * mean`` (mul) and mean residual (with_ave). Like flax's Dense,
+whose parameters promote bf16 inputs, it takes the mean (and the mul) in
+the input's type and the gate, the weighted sum and the residual in f32.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels import fused_gate_attention
@@ -166,6 +175,67 @@ class MultiHeadGateAttention(nn.Module):
         return l2norm(out, dim=-1, eps=0.0)
 
 
+class GateAttention(nn.Module):
+    """Attention_1 (reference ``Attention.py:40-105``): one gate ``Linear(D,
+    1)`` over the L axis. Masked positions get logit -1e30; the mean and
+    the residual count only valid positions, the count clamped at 1."""
+
+    def __init__(self, dim: int, with_ave: bool = True, mul: bool = False) -> None:
+        super().__init__()
+        self.dim = dim
+        self.with_ave = with_ave
+        self.mul = mul
+        self.gate = nn.Linear(dim, 1)
+        if with_ave:
+            self.register_buffer("global_emb_weight", torch.ones(()))
+        else:
+            self.global_emb_weight = None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        torch_linear_init_(self.gate.weight, self.dim, generator)
+        torch_linear_init_(self.gate.bias, self.dim, generator)
+        if self.global_emb_weight is not None:
+            self.global_emb_weight.fill_(1.0)
+
+    def forward(
+        self,
+        local_embs: torch.Tensor,  # (B, L, D)
+        raw_global_emb: Optional[torch.Tensor] = None,  # (B, D)
+        mask: Optional[torch.Tensor] = None,  # (B, L) 1 = valid
+    ) -> torch.Tensor:
+        x = local_embs
+        if raw_global_emb is None:
+            if mask is None:
+                raw_global_emb = x.mean(dim=1)
+            else:
+                m = mask.to(x.dtype)
+                raw_global_emb = (torch.sum(x * m[:, :, None], dim=1)
+                                  / torch.clamp(torch.sum(m, dim=1), min=1.0)[:, None])
+        common = x * raw_global_emb[:, None, :] if self.mul else x
+        logits = F.linear(common.float(), self.gate.weight, self.gate.bias)[..., 0]  # (B, L)
+        if mask is not None:
+            logits = torch.where(mask > 0, logits, torch.full_like(logits, _NEG_INF))
+        weights = torch.softmax(logits, dim=1)
+        out = torch.sum(weights[..., None] * x.float(), dim=1)
+        if self.with_ave:
+            # the reference adds g * mean at every position before the sum
+            # over L (Attention.py:99-101): residual = g * count * mean
+            if mask is None:
+                count = float(x.shape[1])
+            else:
+                count = torch.clamp(torch.sum(mask.float(), dim=1), min=1.0)[:, None]
+            out = out + self.global_emb_weight * raw_global_emb.float() * count
+        return l2norm(out, dim=-1, eps=0.0)
+
+
+# registry key -> (with_ave, mul) of the single-head gate
+_SINGLE_HEAD_KINDS = {
+    "attention_noAverageMul_Ave": (True, False),  # 0
+    "average_AverageMul_noAve": (False, True),  # 1
+    "attention_noAveNoAverageMul": (False, False),  # 7
+    "attention_averageMul": (True, True),  # 9
+}
+
 _MULTI_HEAD_KINDS = {
     "Multi_head_MyApply_Attention": {},
     "Multi_head_MyApply_FusionAttention": {"fusion_mix": True},
@@ -175,11 +245,15 @@ _MULTI_HEAD_KINDS = {
 
 
 def get_attention_layer(kind: str, dim: int, spec: AttentionSpec) -> nn.Module:
-    """Build a fusion-attention module by registry key. The LAFF
-    multi-head gate family is ported; the other kinds of
-    ``laff_tpu.models.attention`` come in a later slice of the port."""
+    """Build a fusion-attention module by registry key: the single-head
+    gate and the LAFF multi-head gate family. The other kinds of
+    ``laff_tpu.models.attention`` raise until ROADMAP Queue 1 item 2."""
+    if kind in _SINGLE_HEAD_KINDS:
+        with_ave, mul = _SINGLE_HEAD_KINDS[kind]
+        return GateAttention(dim, with_ave=with_ave, mul=mul)
     if kind not in _MULTI_HEAD_KINDS:
-        raise NotImplementedError(f"attention kind {kind!r} is not ported yet")
+        raise NotImplementedError(f"attention kind {kind!r} is not ported yet: "
+                                  f"ROADMAP Queue 1 item 2")
     extra = _MULTI_HEAD_KINDS[kind]
     if extra.get("fusion_mix"):
         return MultiHeadGateAttention(dim, spec.heads, split_head=spec.split_head,

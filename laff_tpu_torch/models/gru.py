@@ -10,7 +10,11 @@ reverse one over each caption's valid prefix reversed by a per-row gather
 (padding stays behind it), its outputs gathered back. All of it stays on
 the card: no host sync and no data-dependent shape, so a CUDA graph can
 hold it. Outputs at padding steps differ from ``laff_tpu``'s (which holds
-the state there) and are masked out of every pooling.
+the state there) and are masked out of every pooling. On the card each
+direction's four weight tensors share one cuDNN weight buffer of their own
+(``_PerDirectionGRU``), so the one-direction cuDNN calls read them in
+place; with ``nn.GRU``'s one buffer for the whole module cuDNN copies the
+reverse direction's weights into a new buffer at every call.
 """
 
 from __future__ import annotations
@@ -21,13 +25,41 @@ from torch import nn
 from .initializers import normal_, torch_linear_init_
 from .spec import GruSpec
 
+_GATE_TENSORS = ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
+
+
+class _PerDirectionGRU(nn.GRU):
+    """``nn.GRU`` whose bidirectional weights are laid out, whenever the
+    module moves to the card (``flatten_parameters``), as one cuDNN buffer
+    per layer and direction: the buffer a one-layer, one-direction cuDNN
+    call takes in place. Parameter names and values are ``nn.GRU``'s."""
+
+    def flatten_parameters(self) -> None:
+        if not self.bidirectional:
+            return super().flatten_parameters()
+        weights = self._flat_weights
+        if (len(weights) != len(self._flat_weights_names)
+                or not torch._use_cudnn_rnn_flatten_weight()
+                or not all(isinstance(w, torch.Tensor) and w.is_cuda
+                           and torch.backends.cudnn.is_acceptable(w) for w in weights)):
+            return
+        from torch.backends.cudnn import rnn
+
+        with torch.cuda.device_of(weights[0]), torch.no_grad():
+            for layer in range(self.num_layers):
+                for suffix in ("", "_reverse"):
+                    group = [getattr(self, f"{k}_l{layer}{suffix}") for k in _GATE_TENSORS]
+                    torch._cudnn_rnn_flatten_weight(
+                        group, len(group), group[0].shape[1], rnn.get_cudnn_mode(self.mode),
+                        self.hidden_size, 0, 1, self.batch_first, False)
+
 
 class GruEncoder(nn.Module):
     def __init__(self, spec: GruSpec) -> None:
         super().__init__()
         self.spec = spec
         self.we = nn.Embedding(spec.vocab_size, spec.we_dim)
-        self.rnn = nn.GRU(spec.we_dim, spec.rnn_size, num_layers=spec.rnn_layer,
+        self.rnn = _PerDirectionGRU(spec.we_dim, spec.rnn_size, num_layers=spec.rnn_layer,
                           batch_first=True, bidirectional=spec.bidirectional)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -64,8 +96,7 @@ class GruEncoder(nn.Module):
     def _direction(self, x: torch.Tensor, layer: int, suffix: str) -> torch.Tensor:
         """One direction of one layer over x (B, T, D), left to right, with
         that direction's weights of ``self.rnn``."""
-        weights = [getattr(self.rnn, f"{kind}_l{layer}{suffix}")
-                   for kind in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+        weights = [getattr(self.rnn, f"{kind}_l{layer}{suffix}") for kind in _GATE_TENSORS]
         h0 = x.new_zeros((1, x.shape[0], self.spec.rnn_size))
         return torch._VF.gru(x, h0, weights, True, 1, 0.0, self.training, False, True)[0]
 

@@ -15,9 +15,20 @@ The eval forward and the training forward (``module.training``) of the
 video-level LAFF towers. In training, a visual feature batch that is zero
 everywhere is replaced by standard normal noise (reference
 ``model/model.py:1819-1821``), drawn, like the dropout masks, from the
-``generator`` the trainer passes. FrameLAFF pooling, 'concat' fusion,
-cross-tower tied transforms, live BERT/NetVLAD features and the task2
-concept heads come with later slices and raise here.
+``generator`` the trainer passes.
+
+FrameLAFF (``laff_tpu.models.laff`` ``VisMutiTransformNetPlusFrameFeat``):
+each frame feature arrives padded as '<name>@frames' (B, T, D) with its
+'<name>@mask' (B, T), goes through the optional xavier ``frame_fc_<name>``
+and is pooled over T by the frame attention ``frame_attn_<name>`` (a
+multi-head one is flattened) under each sample's own mask (the
+reference's loop reads sample 0's mask for every sample; neither package
+copies that). The pooled vector then enters the feature list like a
+video-level feature, after the video features or, without
+``frame_feat_with_video_feat``, in their place. The frame gate runs the
+plain tensor code: it has a mask, and no package has a kernel for it.
+'concat' fusion, cross-tower tied transforms, live BERT/NetVLAD features
+and the task2 concept heads come with later slices and raise here.
 """
 
 from __future__ import annotations
@@ -28,9 +39,9 @@ import torch
 from torch import nn
 
 from ..ops.norms import l2norm
-from .attention import get_attention_layer
+from .attention import MultiHeadGateAttention, get_attention_layer
 from .gru import GruEncoder
-from .initializers import normal_
+from .initializers import normal_, xavier_uniform_
 from .layers import TransformNet
 from .spec import LAFFSpec, TowerSpec, TransformSpec
 
@@ -75,16 +86,23 @@ class FusionTower(nn.Module):
 
     def __init__(self, spec: TowerSpec, is_visual: bool = False) -> None:
         super().__init__()
-        if spec.frame_features:
-            raise NotImplementedError("FrameLAFF towers are not ported yet")
         if spec.attention.kind == "concat":
-            raise NotImplementedError("'concat' fusion is not ported yet")
+            raise NotImplementedError("'concat' fusion is not ported yet: ROADMAP Queue 1 item 2")
         self.spec = spec
         self.is_visual = is_visual
         self.features = list(spec.features)
+        for fname, fdim in spec.frame_features:
+            if spec.frame_add_fc:
+                self.add_module(f"frame_fc_{safe_name(fname)}", nn.Linear(fdim, fdim))
+            self.add_module(f"frame_attn_{safe_name(fname)}", get_attention_layer(
+                spec.frame_attention.kind, fdim, spec.frame_attention))
+        if spec.frame_features:
+            video = self.features if spec.frame_feat_with_video_feat else []
+            self.features = video + list(spec.frame_features)
         for name, dim in self.features:
             if name in ("bert", "netvlad"):
-                raise NotImplementedError(f"text feature {name!r} is not ported yet")
+                raise NotImplementedError(f"text feature {name!r} is not ported yet: "
+                                          f"ROADMAP Queue 1 item {6 if name == 'bert' else 2}")
             tspec = transform_spec_for(spec, name, dim)
             self.add_module(f"transform_{safe_name(name)}", TransformNet(
                 dim if tspec.fc else spec.common_dim, tspec.dim_out, fc=tspec.fc,
@@ -104,10 +122,31 @@ class FusionTower(nn.Module):
                                              spec.attention)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        for module in self.children():
-            module.reset_parameters(generator)
+        for name, module in self.named_children():
+            if name.startswith("frame_fc_"):  # flax Dense, xavier kernel, zero bias
+                xavier_uniform_(module.weight, generator)
+                nn.init.zeros_(module.bias)
+            else:
+                module.reset_parameters(generator)
         if self.expert_embedding is not None:
             normal_(self.expert_embedding, generator)
+
+    def _pool_frames(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """'<name>@frames' (B, T, D) under '<name>@mask' -> pooled (B, D). The
+        fc and a multi-head frame gate take the frames in f32, as flax's
+        Dense and einsum promote bf16 frames against f32 parameters."""
+        pooled = {}
+        for fname, _ in self.spec.frame_features:
+            frames = inputs[f"{fname}@frames"]
+            mask = inputs.get(f"{fname}@mask")
+            attention = getattr(self, f"frame_attn_{safe_name(fname)}")
+            if self.spec.frame_add_fc:
+                frames = getattr(self, f"frame_fc_{safe_name(fname)}")(frames.float())
+            elif isinstance(attention, MultiHeadGateAttention):
+                frames = frames.float()
+            out = attention(frames, mask=mask)
+            pooled[fname] = out.reshape(out.shape[0], -1)  # multi-head: flattened
+        return pooled
 
     def _raw_feature(self, name: str, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
         if name == "rnn":
@@ -119,6 +158,8 @@ class FusionTower(nn.Module):
         spec = self.spec
         if "bow_ids" in inputs:
             inputs = densify_bow(inputs, dict(self.features)["bow"])
+        if spec.frame_features:
+            inputs = {**inputs, **self._pool_frames(inputs)}
         locals_ = []
         for name, dim in self.features:
             feat = self._raw_feature(name, inputs)
@@ -149,9 +190,11 @@ class LAFFModel(nn.Module):
     def __init__(self, spec: LAFFSpec) -> None:
         super().__init__()
         if spec.tied_transforms:
-            raise NotImplementedError("tied cross-tower transforms are not ported yet")
+            raise NotImplementedError("tied cross-tower transforms are not ported yet: "
+                                      "ROADMAP Queue 1 item 2")
         if spec.task2 is not None:
-            raise NotImplementedError("task2 concept heads are not ported yet")
+            raise NotImplementedError("task2 concept heads are not ported yet: "
+                                      "ROADMAP Queue 1 item 3")
         self.spec = spec
         self.txt_net = FusionTower(spec.txt)
         self.vis_net = FusionTower(spec.vis, is_visual=True)

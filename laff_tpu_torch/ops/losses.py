@@ -60,7 +60,7 @@ def _cosine_scores(vis: torch.Tensor, txt: torch.Tensor) -> torch.Tensor:
 
 def _check_measure(measure: str) -> None:
     if measure != "cosine":
-        raise NotImplementedError(f"measure {measure!r} is not ported yet")
+        raise NotImplementedError(f"measure {measure!r} is not ported yet: ROADMAP Queue 1 item 2")
 
 
 def triplet_loss(txt_embs: torch.Tensor, vis_embs: torch.Tensor, margin: float = 0.2,

@@ -5,6 +5,11 @@ The key design change is batching: the reference encodes one caption at a time *
 torch forward pass*; here every featurizer also exposes ``encode_batch``
 producing a fixed-shape (B, D) array in one shot, so featurization lives in
 the input pipeline and the device graph only sees dense arrays.
+
+``BowVec.encode_batch`` (norm 0, clean) and ``IndexVec.encode_batch_padded``
+(clean, ``<unk>`` in the vocabulary) run in the native featurizer
+(``laff_tpu_torch.native``) when it is built, under ``laff_tpu``'s
+conditions, with the same arrays as the Python path.
 """
 
 from __future__ import annotations
@@ -14,9 +19,10 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
+from .. import native
 from ..store import BigFile
 from ..utils import get_logger
-from .textlib import TextTool, Vocabulary
+from .textlib import ENGLISH_STOP_WORDS, TextTool, Vocabulary
 
 logger = get_logger(__name__)
 
@@ -95,6 +101,16 @@ class BowVec(Txt2Vec):
             if idx >= 0:
                 vec[idx] += 1
         return vec
+
+    def encode_batch(self, queries: Sequence[str]) -> np.ndarray:
+        ff = native.get_fastfeat()
+        if ff is not None and self.norm == 0 and self.clean:
+            out = np.zeros((len(queries), self.ndims), dtype=np.float32)
+            stop = ENGLISH_STOP_WORDS if self._remove_stopword else None
+            ff.encode_bow(list(queries), self.vocab.word2idx, stop, out)
+            native.count("encode_bow")
+            return out
+        return super().encode_batch(queries)
 
     def encode_batch_indexed(self, queries: Sequence[str], max_tokens: int = 77):
         """Sparse form of ``encode_batch`` for densifying on the card: ids
@@ -200,6 +216,13 @@ class IndexVec(Txt2Vec):
         """Fixed-shape (B, max_len) int32 ids + (B,) lengths."""
         ids = np.zeros((len(queries), max_len), dtype=np.int32)
         lengths = np.zeros((len(queries),), dtype=np.int32)
+        ff = native.get_fastfeat()
+        w2i = self.vocab.word2idx
+        if ff is not None and self.clean and "<unk>" in w2i:
+            ff.encode_idx(list(queries), w2i, w2i["<unk>"], w2i["<start>"], w2i["<end>"],
+                          ids, lengths)
+            native.count("encode_idx")
+            return ids, lengths
         for i, q in enumerate(queries):
             seq = self.encoding(q)[:max_len]
             ids[i, : len(seq)] = seq

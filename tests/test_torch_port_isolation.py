@@ -22,8 +22,13 @@ import chip_smoke
 bad = sorted(k for k in sys.modules
              if k in ("jax", "jaxlib", "flax", "laff_tpu")
              or k.startswith(("jax.", "jaxlib.", "flax.", "laff_tpu.")))
-print(len(names), "modules;", "forbidden:", bad)
+covered = all(n in names for n in {required!r})
+print(len(names), "modules;", "forbidden:", bad, covered)
 """
+
+# modules the walk must reach: the native featurizer and the FrameLAFF configs
+REQUIRED = ("laff_tpu_torch.native", "laff_tpu_torch.configs.frame_rehearsal",
+            "laff_tpu_torch.configs.FrameLaff_NoFrameFc_StrongCLIP_adjust")
 
 
 def _run(args, cwd):
@@ -34,11 +39,12 @@ def _run(args, cwd):
 
 
 def test_port_imports_no_jax_and_no_laff_tpu():
-    proc = _run([sys.executable, "-c", _IMPORT_ALL.format(root=ROOT)], ROOT)
+    proc = _run([sys.executable, "-c", _IMPORT_ALL.format(root=ROOT, required=REQUIRED)],
+                ROOT)
     assert proc.returncode == 0, proc.stderr
     count, _, rest = proc.stdout.strip().partition(" modules;")
-    assert int(count) >= 41  # every module was walked, the trainer's included
-    assert rest.strip() == "forbidden: []", proc.stdout
+    assert int(count) >= 44  # every module was walked, the trainer's included
+    assert rest.strip() == "forbidden: [] True", proc.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True])
