@@ -90,6 +90,27 @@ Phases, each asserting; any failure exits non-zero before the last line:
    at the default dispatch with the same checks, one step on the card
    against the CPU, and the trained checkpoint through ``predictor.main``
    (rank_path 'kernel'), timed by phase.
+6. The single-space models and checkpoint interchange at full width.
+   (a) W2VVPP (configs/concat_rehearsal.py): 'concat' fusion on both
+   towers tied by txt_fc_same_with_vis_fc (the '__concat__' tie), bow, w2v
+   and GRU text against the four video features, on ctrain -> ctest (the
+   shape of rtrain -> rtest over a 3,852-word vocabulary, which makes the
+   two concatenations equally wide): the caches and 16 graphed steps
+   against eager ones, two epochs of trainer.main at the default dispatch
+   (each validation one wide rank launch, no gate), the trained checkpoint
+   through predictor.main with rank_path 'kernel' and 'flat', the kernel
+   ranks held against the plain version. (b) The rest of the attention
+   zoo (kinds 2, 4, 5, 6, 10, 11, 16 at the rehearsal's parm
+   0_<k>_0_<k>_1_0_0): one step on the card against the CPU each, and for
+   kind 5 (its QKV dropout on) 16 graphed steps against 16 eager ones. (c)
+   One validation of phase 4's trained model with measure 'hist': no rank
+   kernel launch, its ranks equal the same embeddings' on the card and,
+   for every 29th caption, on the CPU. (d) Phase 4's trained checkpoint
+   written in the reference layout (save_torch_checkpoint) and read back:
+   the same spec and state dict, predictor.main on the .pth.tar gives the
+   port file's rows, ranks and launches, --pretrained_file_path from
+   either file the same first-step loss; the export and the load and
+   convert timed.
 
 Prints the kernels JSON line (launches: each main path counted from 0
 around its run, summed, and by path; rbig for the tiled kernel), then
@@ -528,12 +549,14 @@ def reembed_and_check(torch, K, P, root, coll, ckpt, res_kernel, res_flat):
     emb = Embedder(model, torch.device("cuda"))
     txt, txt_ids = emb.embed_txt(txt_feed)
     vis, vis_ids = emb.embed_vis(vis_feed)
-    heads = txt.shape[1]
-    check(txt.shape == (len(txt_ids), heads, 512) and vis.shape == (len(vis_ids), heads, 512),
+    heads = txt.shape[1] if txt.ndim == 3 else 1
+    width = (heads, 512) if txt.ndim == 3 else (4096,)  # LAFF-ml heads, or one space
+    check(txt.shape == (len(txt_ids), *width) and vis.shape == (len(vis_ids), *width),
           f"embedding shapes {tuple(txt.shape)} {tuple(vis.shape)}")
     check(bool(torch.isfinite(txt).all() and torch.isfinite(vis).all()), "non-finite embeddings")
-    norms = torch.cat([txt.norm(dim=-1).flatten(), vis.norm(dim=-1).flatten()])
-    check(float((norms - 1).abs().max()) < 1e-4, "gate outputs are not unit per head")
+    if txt.ndim == 3:
+        norms = torch.cat([txt.norm(dim=-1).flatten(), vis.norm(dim=-1).flatten()])
+        check(float((norms - 1).abs().max()) < 1e-4, "gate outputs are not unit per head")
 
     vid_index = {v: i for i, v in enumerate(vis_ids)}
     gt = torch.as_tensor([vid_index[t.split("#")[0]] for t in txt_ids], device="cuda")
@@ -659,10 +682,9 @@ class Counting:
 
 
 def dropout_off(model):
-    from laff_tpu_torch.models.layers import TransformNet
-
+    """Every dropout of the model off: the TransformNets' and the zoo's."""
     for m in model.modules():
-        if isinstance(m, TransformNet):
+        if isinstance(getattr(m, "dropout", None), float):
             m.dropout = 0.0
 
 
@@ -748,12 +770,13 @@ def log_profile(what, device_ms, host_ms, n_kernels, prof_wall, step_ms, steps=1
     return busy
 
 
-def cache_and_graph_checks(torch, K, T, opt, prepared, smi, what):
+def cache_and_graph_checks(torch, K, T, opt, prepared, smi, what, timings=True):
     """(a) the caches' gathered batches against the fed path's, bit for bit
     (FrameLAFF's padded frames and masks included); (b) 16 graphed cached
     steps (K 8) against 16 eager fed steps from the same weights, optimizer
-    state and epoch generator, dropout on; then the graphed step's and the
-    eager step's timings and profiles. ``what`` names the path in the log."""
+    state and epoch generator, dropout on; then, with ``timings``, the
+    graphed step's and the eager step's timings and profiles. ``what``
+    names the path in the log."""
     from laff_tpu_torch.engine.prepare import seeded_model
 
     device = torch.device("cuda")
@@ -817,6 +840,8 @@ def cache_and_graph_checks(torch, K, T, opt, prepared, smi, what):
         f"{multi.capture_seconds:.2f} s "
         f"with {T.GRAPH_WARMUP} warm-up steps; no host sync, no kernel of the port; losses "
         f"{[round(float(v), 4) for v in g_losses[:4]]}...")
+    if not timings:
+        return init
 
     # (d) timings: the graphed step against the eager step
     group = idx[:8]
@@ -1156,12 +1181,12 @@ def bigru_check(torch, smi):
         "own vs one buffer for the module: bigru_timing " + json.dumps({**times, "smi": smi}))
 
 
-def run_main(torch, K, T, opt, prepared, smi, what):
+def run_main(torch, K, T, opt, prepared, smi, what, gate_calls=VAL_GATE_CALLS):
     """(c) ``trainer.main`` for two epochs at the default dispatch, every
     window of graphed steps between two loss reads under sync debug mode
     'error'. It must take both caches, K 8 as a graph and staged validation;
     each validation launches the wide rank kernel once and the gate
-    VAL_GATE_CALLS times (the steps none), the second one replays the
+    ``gate_calls`` times (the steps none), the second one replays the
     batches staged by the first and its metrics equal an unstaged validate of
     the same weights; the process's default CUDA generator is left alone.
     Returns (the result, the launches, the unstaged metrics)."""
@@ -1199,10 +1224,10 @@ def run_main(torch, K, T, opt, prepared, smi, what):
     check(hist[1]["loss"] < hist[0]["loss"], f"[{what}] the training loss did not fall")
     check(hist[1]["r1"] > 100.0 / 2990,
           f"[{what}] validation R@1 {hist[1]['r1']} is not above chance")
-    expect = {"sim_rank_wide": 2, "sim_rank_tiled": 0, "gate_attention": 2 * VAL_GATE_CALLS,
+    expect = {"sim_rank_wide": 2, "sim_rank_tiled": 0, "gate_attention": 2 * gate_calls,
               "gate_attention_simple": 0}
     check(launches == expect, f"[{what}] training run launches {launches}, expected one rank "
-          f"and {VAL_GATE_CALLS} gate launches per validation and none in the steps: {expect}")
+          f"and {gate_calls} gate launches per validation and none in the steps: {expect}")
     calls = counting[0].calls + counting[1].calls
     check(calls == VAL_GATE_CALLS, f"[{what}] the validation batchers ran {calls} times in "
           f"two validations; the second should replay the {VAL_GATE_CALLS} staged batches")
@@ -1223,7 +1248,8 @@ def run_main(torch, K, T, opt, prepared, smi, what):
     return res, launches, {k: unstaged[k] for k in T.METRICS}
 
 
-def trained_checkpoint_prediction(torch, K, P, root, res, rank_paths, what):
+def trained_checkpoint_prediction(torch, K, P, root, res, rank_paths, what, gate_run=GATE_RUN,
+                                  coll="rtest"):
     """(f) the trained best checkpoint through ``predictor.main`` on rtest, for
     each rank path; the kernel path's mir must be the trainer's validation
     mir of that epoch. Returns the checkpoint path, the results and the
@@ -1232,14 +1258,14 @@ def trained_checkpoint_prediction(torch, K, P, root, res, rank_paths, what):
 
     ckpt_path = os.path.join(res["model_path"], "model_best.pth.tar")
     ck = load_checkpoint(ckpt_path)
-    out = {path: run_predictor(torch, K, P, root, "rtest", ckpt_path, path)
+    out = {path: run_predictor(torch, K, P, root, coll, ckpt_path, path)
            for path in rank_paths}
     res_k, launches = out["kernel"]
     val_mir = res["history"][int(ck["epoch"]) - 1]["mir"]
     check(abs(res_k["t2v"][5] - val_mir) < 1e-6,
           f"[{what}] the predictor's kernel-path mir {res_k['t2v'][5]} is not the trainer's "
           f"validation mir {val_mir}")
-    check(launches["sim_rank_wide"] == 1 and launches["gate_attention"] == GATE_RUN
+    check(launches["sim_rank_wide"] == 1 and launches["gate_attention"] == gate_run
           and launches["gate_attention_simple"] == 0,
           f"[{what}] the kernel prediction pass launched {launches}")
     return ckpt_path, {p: r for p, (r, _) in out.items()}, launches
@@ -1251,7 +1277,9 @@ def train_phase(torch, K, P, root, smi):
     host featurizer and the checkpoint writer timed, the replayed validation
     against an unstaged one, the indexed text feed, and the trained
     checkpoint through the predictor. Returns the launches of the training
-    run and of the trained checkpoint's kernel prediction pass."""
+    run and of the trained checkpoint's kernel prediction pass, and what
+    phase 6 reuses: the options, the prepared run, the trained checkpoint
+    and its kernel prediction pass."""
     from laff_tpu_torch.data.synth import build_world
     from laff_tpu_torch.engine import trainer as T
     from laff_tpu_torch.engine.checkpoint import load_checkpoint
@@ -1284,7 +1312,9 @@ def train_phase(torch, K, P, root, smi):
     ckpt_path, out, launches_p = trained_checkpoint_prediction(
         torch, K, P, root, res, ("kernel", "flat"), "laff")
     reembed_and_check(torch, K, P, root, "rtest", ckpt_path, out["kernel"], out["flat"])
-    return launches, launches_p
+    trained = {"opt": opt, "prepared": prepared, "ckpt_path": ckpt_path,
+               "predict": out["kernel"], "predict_launches": launches_p}
+    return launches, launches_p, trained
 
 
 def frame_phase(torch, K, P, root, smi):
@@ -1332,6 +1362,216 @@ def frame_phase(torch, K, P, root, smi):
         "vis_cache_s": res["dispatch"]["vis_cache_seconds"],
         "predict_seconds": secs, "predict_total_s": sum(secs.values()), "smi": smi}))
     return launches, launches_p
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the single-space models and checkpoint interchange
+# ---------------------------------------------------------------------------
+
+# the '__concat__' tie needs the text concatenation as wide as the video one:
+# bow + w2v 500 + GRU 1024 = 512 + 768 + 2048 + 2048 -> a 3,852-word bow
+CONCAT_VOCAB = 5376 - 500 - 1024
+ZOO_KINDS = (2, 4, 5, 6, 10, 11, 16)  # the rest of the zoo (3 builds what 2 builds)
+ZOO_QKV_DROPOUT = 0.1  # kind 5's own dropout in the graphed-vs-eager check
+HIST_CPU_STRIDE = 29  # the CPU recounts every 29th caption's 'hist' rank (2,063 rows)
+
+
+def concat_phase(torch, K, P, smi):
+    """6(a). W2VVPP (configs/concat_rehearsal.py): 'concat' fusion on both
+    towers tied by txt_fc_same_with_vis_fc (the '__concat__' tie), on
+    ctrain -> ctest (rtrain's and rtest's shape over a 3,852-word
+    vocabulary): the caches and the graph against the fed eager path, two
+    epochs of trainer.main at the default dispatch (each validation one
+    wide rank launch and no gate), and the trained checkpoint through the
+    predictor with rank_path 'kernel' and 'flat', the kernel ranks held
+    against the plain version. Returns the launches of the training run and
+    of the kernel prediction pass."""
+    from laff_tpu_torch.data.synth import build_world
+    from laff_tpu_torch.engine import trainer as T
+    from laff_tpu_torch.engine.prepare import Options, prepare
+
+    root = os.path.join(WORK, "world_concat")
+    t0 = time.perf_counter()
+    worlds = [build_world(root, coll, n, 20, CONCAT_VOCAB, SEED + seed)
+              for coll, n, seed in (("ctrain", 1500, 3), ("ctest", 2990, 4))]
+    log(f"[concat] worlds: {worlds} in {time.perf_counter() - t0:.1f} s")
+    opt = Options(trainCollection="ctrain", valCollection="ctest", rootpath=root, val_set="no",
+                  config_name="concat_rehearsal", num_epochs=2, batch_size=128, device="cuda",
+                  rank_path="kernel", sync_debug=1, random_seed=SEED,
+                  model_prefix="smoke_concat")
+    t0 = time.perf_counter()
+    prepared = prepare(opt)
+    spec = prepared.spec
+    widths = (sum(d for _, d in spec.txt.features), sum(d for _, d in spec.vis.features))
+    log(f"[concat] trainer prepare: {time.perf_counter() - t0:.1f} s; text "
+        f"{spec.txt.features}, video {spec.vis.features}, tied {spec.tied_transforms}")
+    check(spec.txt.attention.kind == spec.vis.attention.kind == "concat"
+          and spec.tied_transforms == (("__concat__", "__concat__"),)
+          and widths == (5376, 5376) and spec.txt.common_dim == 4096,
+          f"[concat] the spec is not W2VVPP tied at full width: {spec}")
+    cache_and_graph_checks(torch, K, T, opt, prepared, smi, "concat", timings=False)
+    res, launches, _ = run_main(torch, K, T, opt, prepared, smi, "concat", gate_calls=0)
+    del res["model"]
+    ckpt_path, out, launches_p = trained_checkpoint_prediction(
+        torch, K, P, root, res, ("kernel", "flat"), "concat", gate_run=0, coll="ctest")
+    reembed_and_check(torch, K, P, root, "ctest", ckpt_path, out["kernel"], out["flat"])
+    return launches, launches_p
+
+
+def zoo_phase(torch, K, trained, smi):
+    """6(b). The rest of the attention zoo at full width: for each kind k of
+    ZOO_KINDS, the rehearsal at parm 0_<k>_0_<k>_1_0_0 (kind k on both
+    towers, with_ave) with its seeded weights: one train step on the card
+    against the CPU, dropout off; for kind 5 (its QKV dropout at
+    ZOO_QKV_DROPOUT) also the caches and 16 graphed steps against 16 eager
+    ones, dropout on."""
+    import dataclasses
+
+    from laff_tpu_torch.engine import trainer as T
+    from laff_tpu_torch.engine.prepare import build_spec, load_config, seeded_model
+
+    prepared, base = trained["prepared"], trained["prepared"].spec
+    for k in ZOO_KINDS:
+        t0 = time.perf_counter()
+        parm = f"0_{k}_0_{k}_1_0_0"
+        config = load_config("rehearsal", parm)
+        if k == 5:
+            config.multi_head_attention = dict(config.multi_head_attention,
+                                               dropout=ZOO_QKV_DROPOUT)
+        spec = build_spec(config, dict(base.vis.features), dict(base.txt.features),
+                          base.txt.gru)
+        check(spec.txt.attention.kind == spec.vis.attention.kind == config.txt_attentions[k],
+              f"[zoo {k}] parm {parm} built {spec.txt.attention.kind}")
+        run = dataclasses.replace(prepared, config=config, spec=spec)
+        state = seeded_model(spec, SEED, prepared.we).state_dict()
+        n_params = sum(v.numel() for n, v in state.items() if "running" not in n
+                       and "num_batches" not in n and "global_emb" not in n)
+        log(f"[zoo {k}] {spec.txt.attention.kind} on both towers (parm {parm}): {n_params} "
+            f"parameters")
+        card_vs_cpu_step(torch, T, run, state, f"zoo {k}")
+        if k == 5:
+            cache_and_graph_checks(torch, K, T, dataclasses.replace(
+                trained["opt"], parm_adjust_config=parm), run, smi, "zoo 5", timings=False)
+        log(f"  [zoo {k}] {time.perf_counter() - t0:.1f} s")
+
+
+def hist_phase(torch, K, trained, smi):
+    """6(c). One validation of the trained LAFF model on rtest with measure
+    'hist' and rank_path 'kernel': the rank kernel must not launch (the
+    blocked plain path takes 'hist'), the ranks equal those of the same
+    embeddings on the card again, and every HIST_CPU_STRIDE-th caption's
+    rank equals the CPU's. Returns the validation's launches."""
+    import numpy as np
+
+    from laff_tpu_torch.data import EvalFeed
+    from laff_tpu_torch.engine.checkpoint import load_checkpoint
+    from laff_tpu_torch.engine.evaluator import Embedder, t2v_ranks, validate
+    from laff_tpu_torch.models import LAFFModel
+
+    prepared = trained["prepared"]
+    device = torch.device("cuda")
+    model = LAFFModel(prepared.spec)
+    model.load_state_dict(load_checkpoint(trained["ckpt_path"])["state_dict"])
+    model.to(device).eval()
+    batch = prepared.config.eval_batch_size
+    txt_feed = EvalFeed(prepared.val_txt_source.cap_ids, prepared.val_txt_batcher, batch)
+    vis_feed = EvalFeed(prepared.val_vis_ids, prepared.val_vis_batcher, batch)
+    emb = Embedder(model, device)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    metrics = validate(emb, txt_feed, vis_feed, measure="hist", rank_path="kernel")
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    check(launches["sim_rank_wide"] == launches["sim_rank_tiled"] == 0
+          and launches["gate_attention"] == VAL_GATE_CALLS,
+          f"[hist] the 'hist' validation launched {launches}: no rank kernel may run")
+    with torch.no_grad():
+        txt, txt_ids = emb.embed_txt(txt_feed)
+        vis, vis_ids = emb.embed_vis(vis_feed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = t2v_ranks(txt, vis, txt_ids, vis_ids, measure="hist")
+    rank_s = time.perf_counter() - t0
+    check(np.array_equal(card, metrics["ranks"]),
+          "[hist] validation ranks differ from the same embeddings' ranks on the card")
+    rows = list(range(0, len(txt_ids), HIST_CPU_STRIDE))
+    t0 = time.perf_counter()
+    cpu = t2v_ranks(txt[rows].cpu(), vis.cpu(), [txt_ids[i] for i in rows], vis_ids,
+                    measure="hist")
+    cpu_s = time.perf_counter() - t0
+    check(np.array_equal(cpu, card[rows]), f"[hist] CPU ranks differ on "
+          f"{int((cpu != card[rows]).sum())} of {len(rows)} rows")
+    log(f"[hist] validation on rtest with measure 'hist': {wall:.2f} s wall, launches "
+        f"{launches} (no rank kernel); r1 {metrics['r1']:.3f} medr {metrics['medr']:.0f} mir "
+        f"{metrics['mir']:.5f}; the ranks of {len(txt_ids)} captions x {len(vis_ids)} videos "
+        f"on the card in {rank_s:.3f} s, equal to the validation's; {len(rows)} of them "
+        f"recounted on the CPU in {cpu_s:.2f} s: equal [{smi}]")
+    return launches
+
+
+def interchange_phase(torch, K, P, root, trained, smi):
+    """6(d). The trained LAFF-ml rehearsal checkpoint written in the
+    reference layout by save_torch_checkpoint and read back: the imported
+    spec and state dict equal the port file's, predictor.main on the
+    .pth.tar (rank_path 'kernel') gives the rows and ranks of the port
+    file's pass in phase 4 with the same launches (one wide rank, 62 gate),
+    and --pretrained_file_path from each file gives the same first-step
+    loss; the save, the load and convert, and the port file's load timed.
+    Returns the reference pass's launches."""
+    import numpy as np
+
+    from laff_tpu_torch.engine import trainer as T
+    from laff_tpu_torch.engine.checkpoint import load_checkpoint
+    from laff_tpu_torch.engine.optim import make_optimizer
+    from laff_tpu_torch.engine.prepare import seeded_model
+    from laff_tpu_torch.engine.torch_export import save_torch_checkpoint
+
+    port_path = trained["ckpt_path"]
+    ref_path = os.path.join(WORK, "laff_model_best_reference.pth.tar")
+    times = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    port = timed("port_load_s", lambda: load_checkpoint(port_path))
+    timed("export_s", lambda: save_torch_checkpoint(port, ref_path))
+    ref = timed("reference_load_convert_s", lambda: load_checkpoint(ref_path))
+    check(ref.get("imported_from") == "reference" and ref["spec"] == port["spec"],
+          "[interchange] the .pth.tar did not import as a reference file of the same spec")
+    check(set(ref["state_dict"]) == set(port["state_dict"]) and all(
+        torch.equal(v, ref["state_dict"][k]) for k, v in port["state_dict"].items()),
+        "[interchange] the imported state dict differs from the port checkpoint's")
+    res, launches = run_predictor(torch, K, P, root, "rtest", ref_path, "kernel")
+    want, want_launches = trained["predict"], trained["predict_launches"]
+    check(tuple(res["t2v"]) == tuple(want["t2v"]) and tuple(res["v2t"]) == tuple(want["v2t"])
+          and np.array_equal(res["t2v_ranks"], want["t2v_ranks"]),
+          f"[interchange] rows from the .pth.tar {res['t2v']} {res['v2t']} differ from the "
+          f"port file's {want['t2v']} {want['v2t']}")
+    check(launches == want_launches, f"[interchange] launches {launches}, the port file's "
+          f"pass launched {want_launches}")
+
+    prepared = trained["prepared"]
+    device = torch.device("cuda")
+    txt, vis = device_batches(T, prepared.train_feed, device, 1, cast=True)[0]
+    losses = []
+    for path in (port_path, ref_path):
+        model = seeded_model(prepared.spec, SEED + 5, prepared.we)
+        T.warm_start(model, path)
+        model.to(device)
+        step = T.TrainStep(model, make_optimizer(prepared.config, model, bf16=True),
+                           prepared.spec)
+        losses.append(float(step(txt, vis, T.epoch_generator(device, SEED, 0))))
+    check(losses[0] == losses[1], f"[interchange] first-step losses warm-started from the port "
+          f"file and the .pth.tar differ: {losses}")
+    size = os.path.getsize(ref_path)
+    log(f"[interchange] {port_path} -> {ref_path} ({size} bytes): rows and ranks equal, "
+        f"launches {launches}; first-step loss {losses[0]:.6f} from both files")
+    log("interchange_timing " + json.dumps({**times, "reference_bytes": size,
+                                            "predict_seconds": res["seconds"], "card": smi}))
+    return launches
 
 
 def gate_worker(torch, root):
@@ -1489,18 +1729,28 @@ def main(argv):
         check(launches_b["sim_rank_wide"] == 0, "the large-gallery run took the wide kernel")
 
         t0 = time.perf_counter()
-        launches_t, launches_tp = train_phase(torch, K, P, root, smi_line)
+        launches_t, launches_tp, trained = train_phase(torch, K, P, root, smi_line)
         log(f"training phase: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         launches_f, launches_fp = frame_phase(torch, K, P, root, smi_line)
         log(f"FrameLAFF phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches_c, launches_cp = concat_phase(torch, K, P, smi_line)
+        zoo_phase(torch, K, trained, smi_line)
+        launches_h = hist_phase(torch, K, trained, smi_line)
+        launches_r = interchange_phase(torch, K, P, root, trained, smi_line)
+        log(f"single-space and interchange phase: {time.perf_counter() - t0:.1f} s")
 
         # launches of the main paths, each counted from 0 around its run:
         # the rtest prediction pass, the LAFF training run's validations and
-        # its checkpoint's pass, FrameLAFF's (rbig for the tiled kernel)
+        # its checkpoint's pass, FrameLAFF's, W2VVPP's, the 'hist'
+        # validation's and the reference file's pass (rbig for the tiled
+        # kernel)
         by_path = {"laff_predict": launches_k, "laff_train": launches_t,
                    "laff_trained_predict": launches_tp, "frames_train": launches_f,
-                   "frames_trained_predict": launches_fp}
+                   "frames_trained_predict": launches_fp, "concat_train": launches_c,
+                   "concat_trained_predict": launches_cp, "hist_validate": launches_h,
+                   "reference_predict": launches_r}
         main_path = {k: sum(p[k] for p in by_path.values()) for k in launches_k}
         rows["gate_attention"]["at_l5"] = gate_l5
         meta = {

@@ -17,7 +17,8 @@ from laff_tpu_torch.utils import ROOT_PATH
 def parse_args(argv=None) -> PredictOptions:
     parser = argparse.ArgumentParser("LAFF predictor (PyTorch/CUDA port)")
     parser.add_argument("testCollection", type=str)
-    parser.add_argument("model_path", type=str, help="port checkpoint to load")
+    parser.add_argument("model_path", type=str,
+                        help="port checkpoint, or reference .pth.tar, to load")
     parser.add_argument("sim_name", type=str,
                         help="sub-folder where the rank dump is saved")
     parser.add_argument("--rootpath", type=str, default=ROOT_PATH)

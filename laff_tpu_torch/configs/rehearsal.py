@@ -5,6 +5,10 @@
 # built by laff_tpu_torch.data.synth (same layout and widths as
 # shell/make_rehearsal_world.py): CLIP text rows are precomputed in
 # TextData/clip_synth like the reference's dumps (data_provider.py:565-574).
+# adjust_parm decodes the `laff` config's sweep string,
+# <vid_feats>_<vis_attn>_<txt_enc>_<txt_attn>_<with_ave>_<mul>_<split_head>,
+# over the world's names: parm 0_<k>_0_<k>_1_0_0 puts attention kind k on
+# both towers (the single-space models of the attention zoo).
 
 from . import base_config as BaseConfig
 
@@ -45,3 +49,18 @@ class config(BaseConfig.config):
     vis_attention = BaseConfig.ATTENTION_TYPES[12]
     w2v_dir = 'word2vec/synth500'
     eval_batch_size = 1024
+
+    def adjust_parm(self, value):
+        vid_feats_iterlist = [['clip_ft', 'timesformer', 'x3d', 'ircsn']]
+        text_encodings = [
+            ['bow_nsw', 'w2v_nsw', 'gru_mean', 'noBert', 'ViT-B/32', 'noNetVLAD'],
+        ]
+        a = [int(x) for x in value.split('_')]
+        self.vid_feats = list(vid_feats_iterlist[a[0]])
+        self.vis_attention = self.vis_attentions[a[1]]
+        for i, key in enumerate(self.text_encoding):
+            self.text_encoding[key]['name'] = text_encodings[a[2]][i]
+        self.txt_attention = self.txt_attentions[a[3]]
+        self.attention_param_each_head['with_ave'] = a[4] == 1
+        self.attention_param_each_head['mul'] = a[5] == 1
+        self.attention_param_each_head['split_head'] = a[6] == 1

@@ -48,6 +48,10 @@ class TextBatcher:
       'w2v_ids' (B, max_txtlength) rows of the featurizer's
       ``build_row_index`` table and 'w2v_len' (B,), mean-pooled in the step
       'rnn': IndexVec -> 'rnn_ids' (B, max_txtlength) + 'rnn_len' (B,)
+      'netvlad': W2Vec -> 'netvlad_tokens' (B, max_txtlength, D), each
+      caption's per-token vectors, + 'netvlad_mask' (B, max_txtlength);
+      ``laff_tpu`` pads to the batch's longest caption, the port to
+      max_txtlength, so every batch has one shape (masked tokens add zero)
       'clip' / 'bert': taken from TextSource.precomputed ('CLIP_encoding',
       'bert_encoding' BigFiles) -> (B, D)
     """
@@ -79,10 +83,13 @@ class TextBatcher:
                 ids, lengths = t2v.encode_batch_padded(captions, self.max_txtlength)
                 batch["rnn_ids"] = ids
                 batch["rnn_len"] = lengths
+            elif name == "netvlad":
+                batch["netvlad_tokens"], batch["netvlad_mask"] = t2v.encode_tokens_padded(
+                    captions, self.max_txtlength)
             elif name in self._PRECOMPUTED_KEYS:
                 if t2v is not None:
                     raise NotImplementedError(
-                        f"live '{name}' text towers are not ported yet: ROADMAP Queue 1 item 6")
+                        f"live '{name}' text towers are not ported yet: ROADMAP Queue 1 item 4")
                 if precomputed is None:
                     precomputed = self.source.gather_precomputed(cap_ids)
                 batch[name] = precomputed[self._PRECOMPUTED_KEYS[name]]

@@ -16,11 +16,18 @@ The trainer adds ``epoch`` and ``best_perf``, and its resume file
 and early-stop counters and the mean-last window, all tensors or plain
 data. ``save_checkpoint_dance`` keeps the reference's best-model file
 names, so the predictor loads the trainer's ``model_best.pth.tar`` as it is.
+
+``load_checkpoint`` tells the formats apart by the payload, not by the
+file (both are ``torch.save`` zips): ``format`` equal to FORMAT is the
+port's own, loaded with ``weights_only=True``; ``model`` and ``config``
+keys mark a reference checkpoint (``laff_tpu``'s exported ones too), read
+by ``engine.torch_import`` into the same payload; anything else raises.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import shutil
 import types
 from typing import Dict, List
@@ -137,12 +144,23 @@ def average_states(states: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Ten
 
 
 def load_checkpoint(path: str) -> Dict:
-    """Load a port checkpoint; ``spec`` comes back as a LAFFSpec and
-    ``config`` as an attribute namespace."""
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    if not isinstance(payload, dict) or payload.get("format") != FORMAT:
-        raise ValueError(f"{path}: not a laff_tpu_torch checkpoint")
-    payload = dict(payload)
-    payload["spec"] = spec_from_dict(payload["spec"])
-    payload["config"] = types.SimpleNamespace(**payload["config"])
-    return payload
+    """Load a port checkpoint, or import a reference one; ``spec`` comes
+    back as a LAFFSpec and ``config`` as an attribute namespace (a
+    reference file's own config object)."""
+    try:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:  # classes a weights-only load refuses: a reference pickle
+        payload = None
+    if isinstance(payload, dict) and payload.get("format") == FORMAT:
+        payload = dict(payload)
+        payload["spec"] = spec_from_dict(payload["spec"])
+        payload["config"] = types.SimpleNamespace(**payload["config"])
+        return payload
+    from . import torch_import
+
+    if payload is None:
+        payload = torch_import.read_reference(path)
+    if isinstance(payload, dict) and "model" in payload and "config" in payload:
+        return torch_import.load_torch_checkpoint(path, payload)
+    raise ValueError(f"{path}: neither a laff_tpu_torch checkpoint nor a reference one (no "
+                     f"'format' {FORMAT!r}, no 'model' and 'config')")

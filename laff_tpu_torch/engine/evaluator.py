@@ -23,6 +23,13 @@ Rank paths (``rank_path``), with the rule of ``laff_tpu.engine.evaluator``:
              card above the budget, so f32 towers keep full precision.
              Asking for it explicitly opts f32 embeddings into the bf16 cast
              (the counterpart of ``LAFF_TPU_RANK_PATH=pallas``).
+
+Measure 'hist' (generalized Jaccard, per-head mean for multi-space
+embeddings) never goes to the rank kernel: whatever ``rank_path`` asks,
+its scores come from ``ops.hist_scores`` (f64) in text blocks of at most
+``HIST_BLOCK_BUDGET`` bytes of (H, block, V) intermediates, and its ranks
+are counted on them with the same tie rule. Rows are independent, so the
+block moves no value.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import torch
 
 from ..data import EvalFeed, Prefetcher, host_cast_bf16
 from ..eval.metrics import metrics_from_ranks, ranks_from_scores
-from ..ops import cosine_sim, flatten_heads, fused_sim_rank, multi_head_cosine_sim
+from ..ops import cosine_sim, flatten_heads, fused_sim_rank, hist_scores, multi_head_cosine_sim
 from ..utils import get_logger
 
 logger = get_logger(__name__)
@@ -44,6 +51,9 @@ RANK_PATHS = ("auto", "flat", "kernel", "blockwise")
 
 # bytes of one materialized f32 score block on the flat rank path
 FLAT_SCORE_BUDGET = 2 * 1024**3
+
+# bytes of one text block's f64 (H, block, V) 'hist' intermediates
+HIST_BLOCK_BUDGET = 1024**3
 
 # galleries above this are streamed by the reference (model/model.py:1020);
 # the streaming evaluator comes in a later slice of the port
@@ -135,14 +145,25 @@ class Embedder:
         return self._embed(self.model.encode_vis, feed, self._vis_bf16)
 
 
+def hist_block(heads: int, v: int) -> int:
+    """Text rows per 'hist' block: three f64 (H, block, V) tensors within
+    HIST_BLOCK_BUDGET."""
+    return max(1, HIST_BLOCK_BUDGET // (3 * 8 * heads * v))
+
+
 @torch.no_grad()
 def score_matrix(txt_embs: torch.Tensor, vis_embs: torch.Tensor, block: int = 8192,
                  measure: str = "cosine") -> np.ndarray:
     """Full (T, V) f32 similarity matrix on the host, computed on the
     embeddings' device in text blocks."""
-    if measure != "cosine":
-        raise NotImplementedError(f"measure {measure!r} is not ported yet: ROADMAP Queue 1 item 2")
-    fn = multi_head_cosine_sim if txt_embs.ndim == 3 else cosine_sim
+    if measure == "hist":
+        fn = hist_scores
+        heads = txt_embs.shape[1] if txt_embs.ndim == 3 else 1
+        block = min(block, hist_block(heads, vis_embs.shape[0]))
+    elif measure == "cosine":
+        fn = multi_head_cosine_sim if txt_embs.ndim == 3 else cosine_sim
+    else:
+        raise ValueError(f"measure {measure!r} is not 'cosine' or 'hist'")
     n = txt_embs.shape[0]
     out = np.empty((n, vis_embs.shape[0]), dtype=np.float32)
     for start in range(0, n, block):
@@ -152,10 +173,13 @@ def score_matrix(txt_embs: torch.Tensor, vis_embs: torch.Tensor, block: int = 81
 
 
 def rank_path_for(t_block: int, v: int, dtype: torch.dtype, device_type: str,
-                  rank_path: str = "auto") -> str:
-    """Pick the rank path for a (t_block x v) score regime."""
+                  rank_path: str = "auto", measure: str = "cosine") -> str:
+    """Pick the rank path for a (t_block x v) score regime; 'hist' always
+    takes the blocked plain path."""
     if rank_path not in RANK_PATHS:
         raise ValueError(f"rank_path={rank_path!r} is not one of {'|'.join(RANK_PATHS)}")
+    if measure == "hist":
+        return "blockwise"
     if rank_path != "auto":
         return rank_path
     if t_block * v * 4 <= FLAT_SCORE_BUDGET:
@@ -170,28 +194,37 @@ def t2v_ranks(txt_embs: torch.Tensor, vis_embs: torch.Tensor, txt_ids: List[str]
               vis_ids: List[str], block: int = 8192, measure: str = "cosine",
               rank_path: str = "auto") -> np.ndarray:
     """1-based ranks of each caption's ground-truth video, computed on the
-    embeddings' device. Embeddings are per-head normalized and flattened
-    once (the H-head mean of cosines is one flat dot / H). Exact duplicate
-    scores rank the larger gallery index first on every path."""
-    if measure != "cosine":
-        raise NotImplementedError(f"measure {measure!r} is not ported yet: ROADMAP Queue 1 item 2")
+    embeddings' device. For 'cosine' the embeddings are per-head normalized
+    and flattened once (the H-head mean of cosines is one flat dot / H).
+    Exact duplicate scores rank the larger gallery index first on every
+    path."""
+    if measure not in ("cosine", "hist"):
+        raise ValueError(f"measure {measure!r} is not 'cosine' or 'hist'")
     vid_index = {v: i for i, v in enumerate(vis_ids)}
     gt = torch.as_tensor([vid_index[t.split("#")[0]] for t in txt_ids],
                          dtype=torch.int32, device=txt_embs.device)
+    n, v = txt_embs.shape[0], vis_embs.shape[0]
     heads = txt_embs.shape[1] if txt_embs.ndim == 3 else 1
-    tn = flatten_heads(txt_embs)
-    vn = flatten_heads(vis_embs)
-    n, v = tn.shape[0], vn.shape[0]
-    path = rank_path_for(min(block, n), v, tn.dtype, tn.device.type, rank_path)
+    if measure == "hist":
+        rows = hist_block(heads, v)
+
+        def scores(start, stop):
+            return hist_scores(txt_embs[start:stop], vis_embs)
+    else:
+        tn, vn = flatten_heads(txt_embs), flatten_heads(vis_embs)
+        rows = max(256, (FLAT_SCORE_BUDGET // (v * 4)) // 256 * 256)
+
+        def scores(start, stop):
+            return (tn[start:stop] @ vn.T) / heads
+    path = rank_path_for(min(block, n), v, txt_embs.dtype, txt_embs.device.type, rank_path,
+                         measure)
     if path == "kernel":
         return fused_sim_rank(tn, vn, gt, prenormalized=True).cpu().numpy()
-    rows = max(256, (FLAT_SCORE_BUDGET // (v * 4)) // 256 * 256)
     block = min(n, max(block, rows)) if path == "flat" else min(block, rows)
     ranks = np.empty((n,), dtype=np.int32)
     for start in range(0, n, block):
         stop = min(start + block, n)
-        scores = (tn[start:stop] @ vn.T) / heads
-        ranks[start:stop] = ranks_from_scores(scores, gt[start:stop]).cpu().numpy()
+        ranks[start:stop] = ranks_from_scores(scores(start, stop), gt[start:stop]).cpu().numpy()
     return ranks
 
 

@@ -1,7 +1,8 @@
 """Prediction driver for benchmark collections (``laff_tpu.engine.predictor``
 main, benchmark branch).
 
-Loads a port checkpoint, rebuilds the model and the text featurizers,
+Loads a port checkpoint, or a reference ``.pth.tar`` (imported by
+``engine.torch_import``), rebuilds the model and the text featurizers,
 embeds the test collection once, and per query set:
 
 * t2v ranks on the device (``rank_path``: auto | flat | kernel |
@@ -31,7 +32,7 @@ from ..text.txt2vec import BowVec, BowVecNSW, IndexVec, get_txt2vec
 from ..utils import ROOT_PATH, check_to_skip, get_logger, makedirs
 from .checkpoint import load_checkpoint, vocab_from_dict
 from .evaluator import LARGE_GALLERY, Embedder, score_matrix, t2v_ranks
-from .prepare import text_precomputed, vision_source, w2v_dir_for
+from .prepare import build_featurizers, text_precomputed, vision_source, w2v_dir_for
 
 logger = get_logger(__name__)
 
@@ -75,9 +76,16 @@ def rebuild_model(ckpt: Dict, device: torch.device) -> LAFFModel:
 
 def rebuild_featurizers(ckpt: Dict, rootpath: str) -> Dict:
     """The text featurizer bank from the checkpoint's vocabularies (w2v
-    vectors come from the word2vec dump under ``rootpath``)."""
+    vectors come from the word2vec dump under ``rootpath``). A reference
+    checkpoint without its pickled vocabularies gets them rebuilt from its
+    train collection's captions (``opt['trainCollection']``), as
+    ``laff_tpu``'s predictor does."""
     config = ckpt["config"]
-    vocab = ckpt["vocab"]
+    vocab = ckpt.get("vocab")
+    if vocab is None:
+        train = ckpt.get("opt", {}).get("trainCollection", "")
+        capfile = os.path.join(rootpath, train, "TextData", f"{train}.caption.txt")
+        return build_featurizers(config, rootpath, train, capfile)[0]
     te = config.text_encoding
     featurizers: Dict[str, object] = {}
     if te["rnn_encoding"]["name"].split("_", 1)[0] in ("gru", "bigru"):
@@ -92,6 +100,8 @@ def rebuild_featurizers(ckpt: Dict, rootpath: str) -> Dict:
             w2v_dir_for(rootpath, config))
     if "no" not in te["CLIP_encoding"]["name"]:
         featurizers["clip"] = None
+    if "no" not in te.get("NetVLAD_encoding", {"name": "no"})["name"]:
+        featurizers["netvlad"] = get_txt2vec("w2v_nsw")(w2v_dir_for(rootpath, config))
     return featurizers
 
 
@@ -164,7 +174,7 @@ def main(opt: PredictOptions) -> Dict:
 
     for query_set in opt.query_sets.split(","):
         if coll in AVS_COLLECTIONS or query_set == "simple_query.txt":
-            raise NotImplementedError("AVS score files are not ported yet: ROADMAP Queue 1 item 5")
+            raise NotImplementedError("AVS score files are not ported yet: ROADMAP Queue 1 item 3")
         output_dir = os.path.join(opt.rootpath, coll, "SimilarityIndex", query_set,
                                   opt.sim_name)
         if check_to_skip(os.path.join(output_dir, "id.sent.score.txt"), opt.overwrite):
@@ -184,7 +194,7 @@ def main(opt: PredictOptions) -> Dict:
         if len(vis_ids) > LARGE_GALLERY:
             raise NotImplementedError(
                 f"gallery of {len(vis_ids)} videos: large-gallery streaming is not ported yet: "
-                f"ROADMAP Queue 1 item 5")
+                f"ROADMAP Queue 1 item 3")
         txt_embs, txt_ids = embedder.embed_txt(txt_feed)
         lap("embed_txt")
         if vis_embs is None:  # cached across query sets

@@ -32,6 +32,7 @@ import torch
 
 from ..data import PairFeed, TextBatcher, TextSource, VisBatcher, VisionSource, read_video_set
 from ..models.laff import LAFFModel
+from ..models.registry import END2END_NOT_PORTED
 from ..models.spec import AttentionSpec, GruSpec, LAFFSpec, TowerSpec, TransformSpec
 from ..store import BigFile
 from ..text import build_vocab, get_txt2vec
@@ -118,7 +119,8 @@ def text_precomputed(config, capfile: str) -> Dict[str, BigFile]:
 
 
 def build_featurizers(config, rootpath: str, vocab_collection: str, train_capfile: str):
-    """Text featurizer bank for the feed and the text-tower feature dims.
+    """Text featurizer bank for the feed and the text-tower feature dims,
+    in the reference's encoder order (rnn, bert, bow, w2v, clip, netvlad).
     Returns (featurizers, txt_dims, gru_spec, gru_vocab, w2v_dir)."""
     txt_dims: Dict[str, int] = {}
     featurizers: Dict[str, object] = {}
@@ -127,7 +129,6 @@ def build_featurizers(config, rootpath: str, vocab_collection: str, train_capfil
     rnn_encoding, pooling = te["rnn_encoding"]["name"].split("_", 1)
     w2v_dir = w2v_dir_for(rootpath, config)
 
-    # order matters: rnn, bert, bow, w2v, clip (reference insertion order)
     if rnn_encoding in ("gru", "bigru"):
         gru_vocab = _ensure_vocab(rootpath, vocab_collection, "gru",
                                   config.threshold, train_capfile)
@@ -157,8 +158,9 @@ def build_featurizers(config, rootpath: str, vocab_collection: str, train_capfil
         txt_dims["clip"] = config.clip_opt["size"]
         featurizers["clip"] = None  # precomputed via TextSource
     if "no" not in te["NetVLAD_encoding"]["name"]:
-        raise NotImplementedError("NetVLAD text encoding is not ported yet: "
-                                  "ROADMAP Queue 1 item 2")
+        # per-token w2v vectors, pooled by the tower's NetVLAD
+        featurizers["netvlad"] = get_txt2vec("w2v_nsw")(w2v_dir)
+        txt_dims["netvlad"] = featurizers["netvlad"].ndims * config.NetVLAD_opt["num_clusters"]
     return featurizers, txt_dims, gru_spec, gru_vocab, w2v_dir
 
 
@@ -178,15 +180,43 @@ def _no_transform_keys(names) -> Tuple[str, ...]:
     return tuple(_ENCODER_ALIASES.get(n, n) for n in names)
 
 
+def tied_transforms(config, txt_dims: Dict[str, int],
+                    vis_dims: Dict[str, int]) -> Tuple[Tuple[str, str], ...]:
+    """``txt_fc_same_with_vis_fc`` / ``_dict`` as (txt feature, vis feature)
+    tie pairs (``laff_tpu.engine.prepare._tied_transforms``). Dict keys are
+    reference encoder names ('w2v_encoding', 'CLIP_encoder', ...), values
+    vis feature names; an empty dict with 'concat' fusion on both towers
+    ties the whole concat transform ('__concat__')."""
+    if not getattr(config, "txt_fc_same_with_vis_fc", False):
+        return ()
+    tie_dict = getattr(config, "txt_fc_same_with_vis_fc_dict", {}) or {}
+    if not tie_dict:
+        if config.txt_attention == "concat" and config.vis_attention == "concat":
+            return (("__concat__", "__concat__"),)
+        raise ValueError("txt_fc_same_with_vis_fc=True needs txt_fc_same_with_vis_fc_dict "
+                         "entries (or concat fusion on both towers)")
+    pairs = []
+    for enc_key, vis_name in tie_dict.items():
+        txt_name = enc_key.split("_")[0].lower()
+        if txt_name in ("gru", "bigru"):
+            txt_name = "rnn"
+        if txt_name not in txt_dims or vis_name not in vis_dims:
+            raise ValueError(
+                f"txt_fc_same_with_vis_fc is not matching encoder_name_list: ({enc_key} -> "
+                f"{txt_name!r}, {vis_name!r}); active txt features {sorted(txt_dims)}, vis "
+                f"features {sorted(vis_dims)}")
+        pairs.append((txt_name, vis_name))
+    return tuple(pairs)
+
+
 def build_spec(config, vis_dims: Dict[str, int], txt_dims: Dict[str, int],
                gru_spec: Optional[GruSpec],
                frame_dims: Optional[Dict[str, int]] = None) -> LAFFSpec:
     """config + discovered feature dims (``frame_dims``: FrameLAFF's frame
     features) -> frozen LAFFSpec (``laff_tpu.engine.prepare.build_spec``
-    without task2, task3 and a live BERT)."""
-    if getattr(config, "txt_fc_same_with_vis_fc", False):
-        raise NotImplementedError("txt_fc_same_with_vis_fc is not ported yet: "
-                                  "ROADMAP Queue 1 item 2")
+    without task2, task3 and a live BERT). The NetVLAD cluster count is the
+    config's (``NetVLAD_opt``), whose product with the w2v width is the
+    'netvlad' feature's."""
     frame_dims = frame_dims or {}
     if isinstance(config.txt_fc_layers, str):
         txt_common = int(config.txt_fc_layers.split("-")[1])
@@ -220,6 +250,7 @@ def build_spec(config, vis_dims: Dict[str, int], txt_dims: Dict[str, int],
         expert_l2norm=config.txt_expert_embedding["l2norm"],
         dropout=config.dropout, batch_norm=config.batch_norm,
         activation=config.activation, gru=gru_spec, compute_dtype=compute_dtype,
+        netvlad_clusters=int(config.NetVLAD_opt["num_clusters"]),
     )
     vis = TowerSpec(
         features=tuple(vis_dims.items()), common_dim=vis_common,
@@ -236,7 +267,8 @@ def build_spec(config, vis_dims: Dict[str, int], txt_dims: Dict[str, int],
         feat_add_concat=config.vis_feat_add_concat, compute_dtype=compute_dtype,
     )
     return LAFFSpec(
-        txt=txt, vis=vis, multi_space=config.multi_space, measure=config.measure,
+        txt=txt, vis=vis, tied_transforms=tied_transforms(config, txt_dims, vis_dims),
+        multi_space=config.multi_space, measure=config.measure,
         margin=config.margin, direction=config.direction,
         max_violation=config.max_violation, cost_style=config.cost_style,
         loss=config.loss,
@@ -353,9 +385,9 @@ class Options:
 
 # option, the values the port runs, the ROADMAP item that brings the others
 _NOT_PORTED = (
-    ("data_parallel", lambda v: v in (0, 1), "data_parallel (ROADMAP Queue 1 item 7)"),
-    ("task3_caption", lambda v: v == "no_task3_caption", "task3 (ROADMAP Queue 1 item 3)"),
-    ("task2_intended", lambda v: v == 0, "task2 (ROADMAP Queue 1 item 3)"),
+    ("data_parallel", lambda v: v in (0, 1), "data_parallel (ROADMAP Queue 1 item 5)"),
+    ("task3_caption", lambda v: v == "no_task3_caption", "task3 (ROADMAP Queue 1 item 1)"),
+    ("task2_intended", lambda v: v == 0, "task2 (ROADMAP Queue 1 item 1)"),
 )
 
 
@@ -373,11 +405,10 @@ def check_options(opt: Options) -> None:
 
 def check_config(config) -> None:
     """Config features the training slice does not have yet."""
-    if getattr(config, "txt_fc_same_with_vis_fc", False):
-        raise NotImplementedError("txt_fc_same_with_vis_fc is not ported yet: "
-                                  "ROADMAP Queue 1 item 2")
+    if getattr(config, "model_name", "") == "End2EndClip":
+        raise NotImplementedError(END2END_NOT_PORTED)
     if "no" not in config.text_encoding["bert_encoding"]["name"]:
-        raise NotImplementedError("a BERT text tower is not ported yet: ROADMAP Queue 1 item 6")
+        raise NotImplementedError("a BERT text tower is not ported yet: ROADMAP Queue 1 item 4")
 
 
 def model_dir_for(opt) -> str:

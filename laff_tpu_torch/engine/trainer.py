@@ -41,8 +41,7 @@
   and hands only the pickling and the disk write to the thread.
 
 Left for later slices (ROADMAP Queue 1): task2 and task3, data_parallel,
-the BERT lr/20 mask, the 'hist' measure, and TensorBoard (``scalars.tsv``
-only).
+the BERT lr/20 mask, and TensorBoard (``scalars.tsv`` only).
 """
 
 from __future__ import annotations
@@ -57,7 +56,7 @@ import numpy as np
 import torch
 
 from ..data import EvalFeed, PairFeed, Prefetcher, host_cast_bf16
-from ..ops import multi_head_cosine_sim
+from ..ops import hist_sim, multi_head_cosine_sim
 from ..ops.losses import (
     cross_entropy_loss,
     cross_entropy_loss_from_scores,
@@ -90,27 +89,33 @@ Batch = Union[torch.Tensor, Dict[str, torch.Tensor]]  # arrays, or cache row ind
 def make_loss_fn(spec):
     """(txt_embs, vis_embs) -> scalar loss, as ``laff_tpu``'s: with
     ``multi_space`` one criterion per head, summed; else the criterion on
-    the head-mean score matrix (rows videos, columns captions)."""
-    if spec.measure != "cosine":
-        raise NotImplementedError(f"measure {spec.measure!r} is not ported yet: "
-                                  f"ROADMAP Queue 1 item 2")
+    the head-mean score matrix (rows videos, columns captions). The triplet
+    losses and the head-mean scores take ``spec.measure`` ('cosine' or
+    'hist'); DSL and CE per head are cosine, as in ``laff_tpu``."""
+    if spec.measure not in ("cosine", "hist"):
+        raise ValueError(f"measure {spec.measure!r} is not 'cosine' or 'hist'")
     kwargs = dict(margin=spec.margin, direction=spec.direction,
                   max_violation=spec.max_violation, cost_style=spec.cost_style)
+
+    def head_mean_scores(txt_embs: torch.Tensor, vis_embs: torch.Tensor) -> torch.Tensor:
+        if spec.measure == "hist":
+            return hist_sim(vis_embs.transpose(0, 1), txt_embs.transpose(0, 1)).mean(dim=0)
+        return multi_head_cosine_sim(vis_embs, txt_embs)
 
     def loss_fn(txt_embs: torch.Tensor, vis_embs: torch.Tensor) -> torch.Tensor:
         multi_head = txt_embs.ndim == 3
         if spec.loss in ("dsl", "CELoss"):
             if multi_head and not spec.multi_space:
-                scores = multi_head_cosine_sim(vis_embs, txt_embs)
+                scores = head_mean_scores(txt_embs, vis_embs)
                 return (dual_softmax_loss_from_scores(scores) if spec.loss == "dsl"
                         else cross_entropy_loss_from_scores(scores))
             fn = dual_softmax_loss if spec.loss == "dsl" else cross_entropy_loss
             return fn(txt_embs, vis_embs).sum()  # per head (H,) -> summed
         if multi_head and spec.multi_space:
-            return triplet_loss_multi_space(txt_embs, vis_embs, **kwargs)
+            return triplet_loss_multi_space(txt_embs, vis_embs, measure=spec.measure, **kwargs)
         if multi_head:
-            return triplet_loss_from_scores(multi_head_cosine_sim(vis_embs, txt_embs), **kwargs)
-        return triplet_loss(txt_embs, vis_embs, **kwargs)
+            return triplet_loss_from_scores(head_mean_scores(txt_embs, vis_embs), **kwargs)
+        return triplet_loss(txt_embs, vis_embs, measure=spec.measure, **kwargs)
 
     return loss_fn
 
@@ -544,6 +549,17 @@ def setup_dispatch(opt: Options, prepared: Prepared, base: TrainStep, device: to
             "prefetch_depth": prefetch_depth}
 
 
+def warm_start(model: torch.nn.Module, path: str) -> Dict:
+    """``--pretrained_file_path``: the parameters, BatchNorm statistics and
+    residual weights of a port checkpoint or a reference ``.pth.tar``
+    (``laff_tpu/engine/trainer.py:836-845``) into ``model``, strictly.
+    Returns the loaded checkpoint."""
+    ckpt = load_checkpoint(path)
+    model.load_state_dict(ckpt["state_dict"])
+    logger.info("warm-started from %s (epoch %s)", path, ckpt.get("epoch"))
+    return ckpt
+
+
 def main(opt: Options, prepared: Optional[Prepared] = None) -> Dict:
     """A full training run (reference ``trainer.main``). Returns
     {best_perf, epochs, prepare_seconds, history (one entry per epoch:
@@ -559,8 +575,7 @@ def main(opt: Options, prepared: Optional[Prepared] = None) -> Dict:
 
     model = seeded_model(spec, opt.random_seed, prepared.we)
     if opt.pretrained_file_path != "None":
-        model.load_state_dict(load_checkpoint(opt.pretrained_file_path)["state_dict"])
-        logger.info("warm-started from %s", opt.pretrained_file_path)
+        warm_start(model, opt.pretrained_file_path)
     model.to(device)
     bf16 = "bfloat16" in (spec.txt.compute_dtype, spec.vis.compute_dtype)
     optimizer = make_optimizer(config, model, bf16=bf16)

@@ -3,11 +3,15 @@
 The port names its modules after the flax tree, so the bridge is a rename
 plus these layout changes:
 
-  <...>.fc1.kernel (in, out)       -> <...>.fc1.weight (out, in), transposed
-  <...>.frame_fc_<f>.kernel        -> <...>.frame_fc_<f>.weight, transposed
-  <...>.frame_attn_<f>.gate.kernel (D, 1)
-                                   -> <...>.frame_attn_<f>.gate.weight (1, D)
+  <...>.<dense>.kernel (in, out)   -> <...>.<dense>.weight (out, in), transposed,
+                                      for every flax Dense: fc1, the gates'
+                                      'gate', frame_fc_<f>, tied_fc_<t>_<v>
+                                      (the cross-tower linear, once), the zoo's
+                                      q_<i> / k_<i> / v_<i> / out / concat_fc
   <...>.bn1.scale / bias           -> <...>.bn1.weight / bias
+  <...>.ln.scale                   -> <...>.ln.weight (the zoo's LayerNorms)
+  <...>.mha.out_proj_{weight,bias} -> <...>.mha.out_proj.{weight,bias}
+                                      (torch layout in both)
   batch_stats <...>.bn1.mean / var -> <...>.bn1.running_mean / running_var
   <...>.gru.we                     -> <...>.gru.we.weight
   <...>.gru.{w,b}_{ih,hh}_l<k>     -> <...>.gru.rnn.{weight,bias}_{ih,hh}_l<k>
@@ -15,8 +19,10 @@ plus these layout changes:
                                       '_reverse')
   schedule <...>.global_emb_weight -> the attention's buffer of that name
 
-``gate_kernel`` (H, dh), ``gate_bias`` (H,), the pre-LN parameters and the
-expert embedding keep their names and shapes. Inputs are nested dicts of
+``gate_kernel`` (H, dh), ``gate_bias`` (H,), the pre-LN parameters, the
+expert embedding, LinearCombine's ``kernel`` (L, 1) and ``bias``, the MHA's
+packed ``in_proj_weight`` / ``in_proj_bias``, ``cls_embedding`` and the
+NetVLAD ``assign`` / ``centroids`` keep their names and shapes. Inputs are nested dicts of
 numpy arrays (flax variable collections after ``np.asarray``).
 """
 
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 _GRU_PARAM = re.compile(r"^(w|b)_(ih|hh)_l(\d+)(_rev)?$")
+_DENSE = re.compile(r"^(fc1|gate|out|concat_fc|[qkv]_\d+|frame_fc_.+|tied_fc_.+)$")
 
 
 def _flatten(tree: Dict, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
@@ -43,10 +50,12 @@ def _flatten(tree: Dict, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
 def _param_name(path: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
     head, _, leaf = path.rpartition(".")
     owner = head.rpartition(".")[2]
-    if leaf == "kernel" and (owner in ("fc1", "gate") or owner.startswith("frame_fc_")):
+    if leaf == "kernel" and _DENSE.match(owner):
         return f"{head}.weight", value.T
-    if owner == "bn1" and leaf == "scale":
+    if owner in ("bn1", "ln") and leaf == "scale":
         return f"{head}.weight", value
+    if owner == "mha" and leaf.startswith("out_proj_"):
+        return f"{head}.out_proj.{leaf[len('out_proj_'):]}", value
     if owner == "gru" and leaf == "we":
         return f"{head}.we.weight", value
     m = _GRU_PARAM.match(leaf)

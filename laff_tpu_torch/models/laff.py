@@ -27,8 +27,18 @@ copies that). The pooled vector then enters the feature list like a
 video-level feature, after the video features or, without
 ``frame_feat_with_video_feat``, in their place. The frame gate runs the
 plain tensor code: it has a mask, and no package has a kernel for it.
-'concat' fusion, cross-tower tied transforms, live BERT/NetVLAD features
-and the task2 concept heads come with later slices and raise here.
+
+'concat' fusion (W2VVPP, the single-space models): the raw features,
+concatenated, go through one ``transform`` into the common space (B, D),
+with no attention and no zero-feature noise. Cross-tower tying
+(``spec.tied_transforms``, ``txt_fc_same_with_vis_fc``): ``LAFFModel``
+owns one ``tied_fc_<txt>_<vis>`` linear per pair, and both towers'
+TransformNets use it as their fc, each with its own dropout and
+BatchNorm; the pair ('__concat__', '__concat__') ties the concat
+transform. The 'netvlad' text feature pools the caption's per-token w2v
+vectors ('netvlad_tokens' (B, T, D) under 'netvlad_mask' (B, T)) with
+``NetVLAD`` inside the tower. A live BERT tower and the task2 concept
+heads come with later slices and raise here.
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ import torch
 from torch import nn
 
 from ..ops.norms import l2norm
-from .attention import MultiHeadGateAttention, get_attention_layer
+from .attention import GateAttention, NetVLAD, get_attention_layer
 from .gru import GruEncoder
 from .initializers import normal_, xavier_uniform_
 from .layers import TransformNet
@@ -81,45 +91,78 @@ def transform_spec_for(spec: TowerSpec, name: str, dim_in: int) -> TransformSpec
                          batch_norm=spec.batch_norm)
 
 
-class FusionTower(nn.Module):
-    """feature dict -> (B, H, d) multi-space embedding."""
+def _pooled_frame_dim(spec: TowerSpec, fdim: int) -> int:
+    """The width of a frame feature after its frame attention: a multi-head
+    gate over repeated (not split) heads flattens H copies."""
+    fa = spec.frame_attention
+    if fa.kind.startswith("Multi_head") and not fa.split_head:
+        return fa.heads * fdim
+    return fdim
 
-    def __init__(self, spec: TowerSpec, is_visual: bool = False) -> None:
+
+def _tower_features(spec: TowerSpec):
+    """(name, input width) of every local the tower fuses, frame features
+    at their pooled width."""
+    frames = [(n, _pooled_frame_dim(spec, d)) for n, d in spec.frame_features]
+    if not spec.frame_features:
+        return list(spec.features)
+    return (list(spec.features) if spec.frame_feat_with_video_feat else []) + frames
+
+
+class FusionTower(nn.Module):
+    """feature dict -> (B, H, d) multi-space embedding, or (B, D) for the
+    single-space attention kinds and 'concat'. ``tied`` maps a feature name
+    (or '__concat__') to a linear owned by the parent LAFFModel."""
+
+    def __init__(self, spec: TowerSpec, is_visual: bool = False,
+                 tied: Optional[Dict[str, nn.Linear]] = None) -> None:
         super().__init__()
-        if spec.attention.kind == "concat":
-            raise NotImplementedError("'concat' fusion is not ported yet: ROADMAP Queue 1 item 2")
+        tied = tied or {}
         self.spec = spec
         self.is_visual = is_visual
-        self.features = list(spec.features)
+        self.concat = spec.attention.kind == "concat"
         for fname, fdim in spec.frame_features:
             if spec.frame_add_fc:
                 self.add_module(f"frame_fc_{safe_name(fname)}", nn.Linear(fdim, fdim))
             self.add_module(f"frame_attn_{safe_name(fname)}", get_attention_layer(
                 spec.frame_attention.kind, fdim, spec.frame_attention))
-        if spec.frame_features:
-            video = self.features if spec.frame_feat_with_video_feat else []
-            self.features = video + list(spec.frame_features)
+        self.features = _tower_features(spec)
+        dims = dict(self.features)
+        if "bert" in dims:
+            raise NotImplementedError("text feature 'bert' is not ported yet: "
+                                      "ROADMAP Queue 1 item 4")
+        self.expert_embedding = None
+        if self.concat:
+            self._raw_encoders(dims)
+            self.transform = TransformNet(
+                sum(dims.values()), spec.common_dim, activation=spec.activation,
+                dropout=spec.dropout, batch_norm=spec.batch_norm,
+                compute_dtype=_dtype_of(spec), shared_fc=tied.get("__concat__"))
+            return
         for name, dim in self.features:
-            if name in ("bert", "netvlad"):
-                raise NotImplementedError(f"text feature {name!r} is not ported yet: "
-                                          f"ROADMAP Queue 1 item {6 if name == 'bert' else 2}")
             tspec = transform_spec_for(spec, name, dim)
             self.add_module(f"transform_{safe_name(name)}", TransformNet(
                 dim if tspec.fc else spec.common_dim, tspec.dim_out, fc=tspec.fc,
                 activation=tspec.activation, dropout=tspec.dropout,
-                batch_norm=tspec.batch_norm, compute_dtype=_dtype_of(spec)))
+                batch_norm=tspec.batch_norm, compute_dtype=_dtype_of(spec),
+                shared_fc=tied.get(name)))
         if spec.feat_add_concat:
             self.transform_feat_add_concat = TransformNet(
-                sum(d for _, d in self.features), spec.common_dim,
+                sum(dims.values()), spec.common_dim,
                 activation=spec.activation, dropout=spec.dropout,
                 batch_norm=spec.batch_norm, compute_dtype=_dtype_of(spec))
-        self.gru = GruEncoder(spec.gru) if "rnn" in dict(self.features) else None
+        self._raw_encoders(dims)
         n_locals = len(self.features) + int(spec.feat_add_concat)
-        self.expert_embedding = (
-            nn.Parameter(torch.empty(n_locals, spec.common_dim))
-            if spec.expert_embedding else None)
+        if spec.expert_embedding:
+            self.expert_embedding = nn.Parameter(torch.empty(n_locals, spec.common_dim))
         self.attention = get_attention_layer(spec.attention.kind, spec.common_dim,
-                                             spec.attention)
+                                             spec.attention, n_locals)
+
+    def _raw_encoders(self, dims: Dict[str, int]) -> None:
+        spec = self.spec
+        self.gru = GruEncoder(spec.gru) if "rnn" in dims else None
+        self.netvlad = (NetVLAD(dims["netvlad"] // spec.netvlad_clusters,
+                                spec.netvlad_clusters) if "netvlad" in dims else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for name, module in self.named_children():
@@ -142,7 +185,7 @@ class FusionTower(nn.Module):
             attention = getattr(self, f"frame_attn_{safe_name(fname)}")
             if self.spec.frame_add_fc:
                 frames = getattr(self, f"frame_fc_{safe_name(fname)}")(frames.float())
-            elif isinstance(attention, MultiHeadGateAttention):
+            elif not isinstance(attention, GateAttention):
                 frames = frames.float()
             out = attention(frames, mask=mask)
             pooled[fname] = out.reshape(out.shape[0], -1)  # multi-head: flattened
@@ -151,6 +194,8 @@ class FusionTower(nn.Module):
     def _raw_feature(self, name: str, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
         if name == "rnn":
             return self.gru(inputs["rnn_ids"], inputs["rnn_len"])
+        if name == "netvlad":
+            return self.netvlad(inputs["netvlad_tokens"], inputs.get("netvlad_mask"))
         return inputs[name]
 
     def forward(self, inputs: Dict[str, torch.Tensor],
@@ -160,6 +205,9 @@ class FusionTower(nn.Module):
             inputs = densify_bow(inputs, dict(self.features)["bow"])
         if spec.frame_features:
             inputs = {**inputs, **self._pool_frames(inputs)}
+        if self.concat:
+            cat = torch.cat([self._raw_feature(n, inputs) for n, _ in self.features], dim=1)
+            return self.transform(cat, generator)
         locals_ = []
         for name, dim in self.features:
             feat = self._raw_feature(name, inputs)
@@ -169,7 +217,8 @@ class FusionTower(nn.Module):
                 noise = torch.randn(feat.shape, generator=generator, device=feat.device)
                 feat = torch.where(feat.abs().sum() == 0, noise, feat.float())
             transform = getattr(self, f"transform_{safe_name(name)}")
-            if name in spec.no_transform and transform.fc1 is None:
+            if name in spec.no_transform and transform.fc1 is None \
+                    and transform.shared_fc is None:
                 feat = feat.repeat(1, spec.common_dim // feat.shape[-1])
             locals_.append(transform(feat, generator))
         if spec.feat_add_concat:
@@ -180,7 +229,7 @@ class FusionTower(nn.Module):
             local_embs = local_embs + self.expert_embedding[None]
         if spec.expert_l2norm:
             local_embs = l2norm(local_embs, dim=2)
-        return self.attention(local_embs)
+        return self.attention(local_embs, generator=generator)
 
 
 class LAFFModel(nn.Module):
@@ -189,21 +238,49 @@ class LAFFModel(nn.Module):
 
     def __init__(self, spec: LAFFSpec) -> None:
         super().__init__()
-        if spec.tied_transforms:
-            raise NotImplementedError("tied cross-tower transforms are not ported yet: "
-                                      "ROADMAP Queue 1 item 2")
         if spec.task2 is not None:
             raise NotImplementedError("task2 concept heads are not ported yet: "
-                                      "ROADMAP Queue 1 item 3")
+                                      "ROADMAP Queue 1 item 1")
         self.spec = spec
-        self.txt_net = FusionTower(spec.txt)
-        self.vis_net = FusionTower(spec.vis, is_visual=True)
+        txt_tied, vis_tied = self._build_tied_transforms()
+        self.txt_net = FusionTower(spec.txt, tied=txt_tied)
+        self.vis_net = FusionTower(spec.vis, is_visual=True, tied=vis_tied)
+
+    def _build_tied_transforms(self):
+        """One ``tied_fc_<txt>_<vis>`` linear per tied pair, owned here
+        (``laff_tpu``'s ``_build_tied_transforms``, with its checks)."""
+        spec = self.spec
+        txt_tied: Dict[str, nn.Linear] = {}
+        vis_tied: Dict[str, nn.Linear] = {}
+        for txt_name, vis_name in spec.tied_transforms:
+            if txt_name == "__concat__":
+                if spec.txt.attention.kind != "concat" or spec.vis.attention.kind != "concat":
+                    raise ValueError("__concat__ tying needs 'concat' fusion on both towers")
+                dim_in = sum(d for _, d in spec.txt.features)
+                vis_in = sum(d for _, d in spec.vis.features)
+            else:
+                dim_in = dict(spec.txt.features)[txt_name]
+                vis_in = dict(spec.vis.features)[vis_name]
+                if not transform_spec_for(spec.vis, vis_name, vis_in).fc:
+                    raise ValueError(f"txt_fc_same_with_vis_fc: vis feature {vis_name!r} has "
+                                     f"no fc to tie (no_transform)")
+            if dim_in != vis_in or spec.txt.common_dim != spec.vis.common_dim:
+                raise ValueError(
+                    f"txt_fc_same_with_vis_fc: tied pair ({txt_name}, {vis_name}) dims do not "
+                    f"match ({dim_in}/{spec.txt.common_dim} vs {vis_in}/{spec.vis.common_dim})")
+            fc = nn.Linear(dim_in, spec.vis.common_dim)
+            self.add_module(f"tied_fc_{safe_name(txt_name)}_{safe_name(vis_name)}", fc)
+            txt_tied[txt_name] = vis_tied[vis_name] = fc
+        return txt_tied, vis_tied
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init with the JAX package's distributions."""
+        for name, module in self.named_children():
+            if name.startswith("tied_fc_"):  # flax Dense: xavier kernel, zero bias
+                xavier_uniform_(module.weight, generator)
+                nn.init.zeros_(module.bias)
         self.txt_net.reset_parameters(generator)
         self.vis_net.reset_parameters(generator)
-
     def encode_txt(self, inputs: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.txt_net(inputs, generator)

@@ -14,6 +14,12 @@ caller passes (the trainer's, one per epoch), so a run repeats exactly.
 With a ``compute_dtype`` (bf16 for the headline) the input, the linear map
 and the activation run in that type, BatchNorm normalizes in f32 and rounds
 back, and the output is cast to f32, as ``laff_tpu.models.layers`` does.
+
+``shared_fc`` replaces ``fc1`` by a linear owned elsewhere (cross-tower
+weight tying, ``txt_fc_same_with_vis_fc``): the map is shared, dropout and
+BatchNorm stay per tower. The module only refers to it; its owner
+(``LAFFModel``) registers, initializes and moves it, so it is one set of
+parameters in the state dict and the optimizer.
 """
 
 from __future__ import annotations
@@ -39,9 +45,12 @@ class TransformNet(nn.Module):
         dropout: float = 0.2,
         batch_norm: bool = False,
         compute_dtype: Optional[torch.dtype] = None,
+        shared_fc: Optional[nn.Linear] = None,
     ) -> None:
         super().__init__()
-        self.fc1 = nn.Linear(dim_in, dim_out) if fc else None
+        self.fc1 = nn.Linear(dim_in, dim_out) if fc and shared_fc is None else None
+        # a plain attribute, not a submodule: the owner holds the parameters
+        object.__setattr__(self, "shared_fc", shared_fc if fc else None)
         self.activation = activation if activation in _ACTIVATIONS else None
         self.dropout = dropout if dropout and dropout > 1e-3 else 0.0
         self.bn1 = (nn.BatchNorm1d(dim_out, eps=1e-5, momentum=0.1)
@@ -72,9 +81,9 @@ class TransformNet(nn.Module):
         dtype = self.compute_dtype
         if dtype is not None:
             x = x.to(dtype)
-        if self.fc1 is not None:
-            w, b = self.fc1.weight, self.fc1.bias
-            x = F.linear(x, w.to(x.dtype), b.to(x.dtype))
+        fc = self.fc1 if self.fc1 is not None else self.shared_fc
+        if fc is not None:
+            x = F.linear(x, fc.weight.to(x.dtype), fc.bias.to(x.dtype))
         if self.activation is not None:
             x = _ACTIVATIONS[self.activation](x)
         if self.dropout and self.training:

@@ -8,7 +8,7 @@ from .kernels import (
     reset_launches,
 )
 from .norms import l1norm, l2norm
-from .similarity import cosine_sim, flatten_heads, multi_head_cosine_sim
+from .similarity import cosine_sim, flatten_heads, hist_scores, hist_sim, multi_head_cosine_sim
 
 __all__ = [
     "LAUNCHES",
@@ -22,5 +22,7 @@ __all__ = [
     "l2norm",
     "cosine_sim",
     "flatten_heads",
+    "hist_scores",
+    "hist_sim",
     "multi_head_cosine_sim",
 ]

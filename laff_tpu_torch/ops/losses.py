@@ -8,7 +8,8 @@
   cross_entropy_loss        -sum(diag(sim))
 
 Layout as in the JAX package: rows index videos, columns index captions
-(``scores = sim(vis, txt)``). Direction 't2i' compares each diagonal entry
+(``scores = sim(vis, txt)``); ``measure`` is 'cosine' or 'hist' (the
+generalized Jaccard of ``ops.similarity.hist_sim``). Direction 't2i' compares each diagonal entry
 with its column (video retrieval), 'i2t' with its row, 'bidir' both;
 ``max_violation`` keeps the hardest negative only. Score matrices may carry
 leading batch dimensions (one per head); the losses reduce the last two.
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from .norms import l2norm
+from .similarity import hist_sim
 
 
 def _triplet(scores: torch.Tensor, margin: float, direction: str, max_violation: bool,
@@ -58,17 +60,22 @@ def _cosine_scores(vis: torch.Tensor, txt: torch.Tensor) -> torch.Tensor:
     return l2norm(vis) @ l2norm(txt).T
 
 
-def _check_measure(measure: str) -> None:
-    if measure != "cosine":
-        raise NotImplementedError(f"measure {measure!r} is not ported yet: ROADMAP Queue 1 item 2")
+def _scores(vis: torch.Tensor, txt: torch.Tensor, measure: str) -> torch.Tensor:
+    """(B, D) pairs -> (B, B); (B, H, d) pairs -> (H, B, B), per head."""
+    if measure == "cosine":
+        return _cosine_scores(vis, txt)
+    if measure != "hist":
+        raise ValueError(f"measure {measure!r} is not 'cosine' or 'hist'")
+    if vis.ndim == 3:
+        return hist_sim(vis.transpose(0, 1), txt.transpose(0, 1))
+    return hist_sim(vis, txt)
 
 
 def triplet_loss(txt_embs: torch.Tensor, vis_embs: torch.Tensor, margin: float = 0.2,
                  measure: str = "cosine", direction: str = "t2i", max_violation: bool = True,
                  cost_style: str = "sum") -> torch.Tensor:
     """MarginRankingLoss on (B, D) embedding pairs."""
-    _check_measure(measure)
-    return _triplet(_cosine_scores(vis_embs, txt_embs), margin, direction, max_violation,
+    return _triplet(_scores(vis_embs, txt_embs, measure), margin, direction, max_violation,
                     cost_style)
 
 
@@ -78,8 +85,7 @@ def triplet_loss_multi_space(txt_embs: torch.Tensor, vis_embs: torch.Tensor, mar
     """LAFF-ml: one triplet loss per head of (B, H, d) embeddings, summed
     (not averaged) over the heads; the H score matrices are one batched
     product."""
-    _check_measure(measure)
-    per_head = _triplet(_cosine_scores(vis_embs, txt_embs), margin, direction, max_violation,
+    per_head = _triplet(_scores(vis_embs, txt_embs, measure), margin, direction, max_violation,
                         cost_style)
     return per_head.sum()
 

@@ -156,6 +156,26 @@ class W2Vec(Txt2Vec):
             return vectors.mean(axis=0)
         return np.zeros(self.ndims, dtype=np.float32)
 
+    def raw_encoding(self, query: str) -> np.ndarray:
+        """Per-token vectors (T, D) for NetVLAD; zeros when no word has a
+        vector."""
+        words = self._preprocess(query)
+        _, vectors = self.w2v.gather(words)
+        if vectors.shape[0] > 0:
+            return vectors
+        return np.zeros((max(len(words), 1), self.ndims), dtype=np.float32)
+
+    def encode_tokens_padded(self, queries: Sequence[str], max_tokens: int = 77):
+        """(tokens (B, max_tokens, D) float32, mask (B, max_tokens) float32):
+        each caption's ``raw_encoding`` cut and padded to ``max_tokens``."""
+        tokens = np.zeros((len(queries), max_tokens, self.ndims), np.float32)
+        mask = np.zeros((len(queries), max_tokens), np.float32)
+        for i, q in enumerate(queries):
+            rows = self.raw_encoding(q)[:max_tokens]
+            tokens[i, :rows.shape[0]] = rows
+            mask[i, :rows.shape[0]] = 1.0
+        return tokens, mask
+
     def build_row_index(self, captions: Sequence[str]) -> np.ndarray:
         """Restrict the w2v vocabulary to the words of ``captions`` and build
         the gather table for pooling on the card: (K+1, D) float32 with a

@@ -26,9 +26,14 @@ covered = all(n in names for n in {required!r})
 print(len(names), "modules;", "forbidden:", bad, covered)
 """
 
-# modules the walk must reach: the native featurizer and the FrameLAFF configs
+# modules the walk must reach: the native featurizer, the FrameLAFF configs,
+# the checkpoint interchange, the registry and the configs that reference
+# checkpoints name
 REQUIRED = ("laff_tpu_torch.native", "laff_tpu_torch.configs.frame_rehearsal",
-            "laff_tpu_torch.configs.FrameLaff_NoFrameFc_StrongCLIP_adjust")
+            "laff_tpu_torch.configs.FrameLaff_NoFrameFc_StrongCLIP_adjust",
+            "laff_tpu_torch.engine.torch_import", "laff_tpu_torch.engine.torch_export",
+            "laff_tpu_torch.models.registry", "laff_tpu_torch.configs.tiny",
+            "laff_tpu_torch.configs.tiny_tied", "laff_tpu_torch.configs.concat_rehearsal")
 
 
 def _run(args, cwd):
@@ -43,7 +48,7 @@ def test_port_imports_no_jax_and_no_laff_tpu():
                 ROOT)
     assert proc.returncode == 0, proc.stderr
     count, _, rest = proc.stdout.strip().partition(" modules;")
-    assert int(count) >= 44  # every module was walked, the trainer's included
+    assert int(count) >= 50  # every module was walked, the interchange's included
     assert rest.strip() == "forbidden: [] True", proc.stdout
 
 

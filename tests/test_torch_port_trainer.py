@@ -498,7 +498,7 @@ def test_dispatch_defaults_equal_laff_tpu(option, where):
 
 
 @pytest.mark.parametrize("change", [
-    {"txt_fc_same_with_vis_fc": True},
+    {"model_name": "End2EndClip"},
     {"text_encoding": dict(port_rehearsal.config.text_encoding,
                            bert_encoding={"name": "bert-base-uncased"})}])
 def test_config_features_not_ported_raise(world, monkeypatch, change):
