@@ -112,9 +112,33 @@ Phases, each asserting; any failure exits non-zero before the last line:
    either file the same first-step loss; the export and the load and
    convert timed.
 
-Prints the kernels JSON line (launches: each main path counted from 0
-around its run, summed, and by path; rbig for the tiled kernel), then
-``{"ok": true, "device": ...}`` last.
+7. Negation-aware retrieval, task2 and the prediction post-processing at
+   the rehearsal's full width, on t3train (rtrain's shape, with a
+   false-caption set and per-video object captions) -> t3test (rtest's
+   shape, a third of the captions with a negation cue, and its negation
+   set). (a) task3: two epochs of trainer.main with --task3_caption: the
+   visual cache, no text cache, K 1 eager; the loss falls, R@1 above
+   chance, 1 wide rank and 62 gate launches per validation, the task3_*
+   metrics and task3val scalars written; one step card vs CPU (loss and
+   BatchNorm statistics within 1e-2, dropout off), the eager step timed
+   with and without its false caption and profiled. (b) task2
+   (--task2_intended 1, a few hundred concepts over the 5,376-wide video
+   concat): the labels in the visual cache, 16 graphed steps against 16
+   eager ones, one epoch of trainer.main at the default dispatch (both
+   caches, K 8 graphed), one step card vs CPU. (c) predictor.main with
+   --task3_caption on t3test under (a)'s checkpoint: the negated queries
+   counted, 180 gate launches (the queries and both clauses) and no rank
+   kernel, its t2v row against eval_t2v of the plain path's adjusted
+   scores from the same card embeddings. (d) On vtest (1,500 videos x 10
+   captions, the VATEX test shape, with a concept pkl): --rerank
+   kreciprocal, tkb and concept and --each_head 1 under (a)'s checkpoint,
+   each re-rank's wall time, each re-ranked t2v row against the port's host
+   function on the same embeddings moved to the CPU, the 8 per-head score
+   files and perf.txt checked (and deleted).
+
+Prints the kernels JSON line (all three kernels; launches: each main path
+counted from 0 around its run, summed, and by path; rbig for the tiled
+kernel), then ``{"ok": true, "device": ...}`` last.
 Everything it writes goes under build/ in the repository.
 
 ``--gate-timing`` runs only the gate: each DIR (a checkout, e.g. the parent
@@ -694,7 +718,7 @@ def first_batches(feed, n, featurize=True):
     from laff_tpu_torch.data import PairFeed
 
     copy = PairFeed(feed.text_batcher, feed.vis_batcher, feed.batch_size, feed.seed,
-                    cap_ids=feed.cap_ids)
+                    cap_ids=feed.cap_ids, task3_source=feed.task3_source)
     copy.featurize_txt = copy.featurize_vis = featurize
     return list(itertools.islice(copy.epoch(0), n))
 
@@ -1181,11 +1205,20 @@ def bigru_check(torch, smi):
         "own vs one buffer for the module: bigru_timing " + json.dumps({**times, "smi": smi}))
 
 
-def run_main(torch, K, T, opt, prepared, smi, what, gate_calls=VAL_GATE_CALLS):
-    """(c) ``trainer.main`` for two epochs at the default dispatch, every
-    window of graphed steps between two loss reads under sync debug mode
-    'error'. It must take both caches, K 8 as a graph and staged validation;
-    each validation launches the wide rank kernel once and the gate
+def default_dispatch(chose):
+    """The default dispatch of a deterministic train feed: both caches, K 8
+    as a CUDA graph, staged validation."""
+    return (chose["vis_cache_bytes"] and chose["txt_cache_bytes"] and chose["graph"]
+            and chose["steps_per_dispatch"] == 8 and chose["stage_val_features"])
+
+
+def run_main(torch, K, T, opt, prepared, smi, what, gate_calls=VAL_GATE_CALLS,
+             dispatch_ok=default_dispatch, epochs=2):
+    """(c) ``trainer.main`` for ``epochs`` epochs at the default dispatch,
+    every window of graphed steps between two loss reads under sync debug
+    mode 'error'. Its choice must pass ``dispatch_ok`` (by default both
+    caches, K 8 as a graph and staged validation); each validation launches
+    the wide rank kernel once and the gate
     ``gate_calls`` times (the steps none), the second one replays the
     batches staged by the first and its metrics equal an unstaged validate of
     the same weights; the process's default CUDA generator is left alone.
@@ -1216,35 +1249,35 @@ def run_main(torch, K, T, opt, prepared, smi, what, gate_calls=VAL_GATE_CALLS):
             f"r5 {e['r5']:.3f} r10 {e['r10']:.3f} medr {e['medr']:.0f} mir {e['mir']:.5f} [{smi}]")
     log(f"[{what}] trainer.main: {len(hist)} epochs in {wall:.1f} s (prepare in the call "
         f"{res['prepare_seconds']} s); launches {launches} [{smi}]")
-    check(chose["vis_cache_bytes"] and chose["txt_cache_bytes"] and chose["graph"]
-          and chose["steps_per_dispatch"] == 8 and chose["stage_val_features"],
-          f"[{what}] the default dispatch did not take both caches, K 8 as a CUDA graph and "
-          f"staged validation: {chose}")
-    check(len(hist) == 2, f"[{what}] trainer ran {len(hist)} epochs, not 2")
-    check(hist[1]["loss"] < hist[0]["loss"], f"[{what}] the training loss did not fall")
-    check(hist[1]["r1"] > 100.0 / 2990,
-          f"[{what}] validation R@1 {hist[1]['r1']} is not above chance")
-    expect = {"sim_rank_wide": 2, "sim_rank_tiled": 0, "gate_attention": 2 * gate_calls,
+    check(dispatch_ok(chose), f"[{what}] the dispatch is not the expected one "
+          f"({dispatch_ok.__doc__.strip()}): {chose}")
+    check(len(hist) == epochs, f"[{what}] trainer ran {len(hist)} epochs, not {epochs}")
+    check(epochs == 1 or hist[-1]["loss"] < hist[0]["loss"],
+          f"[{what}] the training loss did not fall")
+    check(hist[-1]["r1"] > 100.0 / 2990,
+          f"[{what}] validation R@1 {hist[-1]['r1']} is not above chance")
+    expect = {"sim_rank_wide": epochs, "sim_rank_tiled": 0, "gate_attention": epochs * gate_calls,
               "gate_attention_simple": 0}
     check(launches == expect, f"[{what}] training run launches {launches}, expected one rank "
           f"and {gate_calls} gate launches per validation and none in the steps: {expect}")
     calls = counting[0].calls + counting[1].calls
     check(calls == VAL_GATE_CALLS, f"[{what}] the validation batchers ran {calls} times in "
-          f"two validations; the second should replay the {VAL_GATE_CALLS} staged batches")
+          f"{epochs} validations; the later ones should replay the {VAL_GATE_CALLS} staged "
+          f"batches")
     device = torch.device("cuda")
     eval_batch = prepared.config.eval_batch_size
     unstaged = validate(Embedder(res["model"], device),
                         EvalFeed(prepared.val_txt_source.cap_ids, txt_batcher, eval_batch),
                         EvalFeed(prepared.val_vis_ids, vis_batcher, eval_batch),
                         rank_path="kernel")
-    diff = {k: (hist[1][k], unstaged[k]) for k in T.METRICS if hist[1][k] != unstaged[k]}
-    check(not diff, f"[{what}] replayed validation vs unstaged, same weights: {diff}")
-    log(f"  [{what}] the second validation replayed the staged batches; its metrics equal an "
+    diff = {k: (hist[-1][k], unstaged[k]) for k in T.METRICS if hist[-1][k] != unstaged[k]}
+    check(not diff, f"[{what}] the last validation vs unstaged, same weights: {diff}")
+    log(f"  [{what}] the last validation ({'replayed' if epochs > 1 else 'staging'}) equals an "
         f"unstaged validate of the same weights exactly; validation wall: "
-        f"{hist[0]['val_seconds']:.2f} s staging, {hist[1]['val_seconds']:.2f} s replayed; "
-        f"epoch train wall {hist[0]['train_seconds']:.2f} s (capture included) / "
-        f"{hist[1]['train_seconds']:.2f} s; the default CUDA generator untouched; epoch wall "
-        f"minus train minus validation {epoch_remainder(hist)} s (background saver) [{smi}]")
+        f"{[e['val_seconds'] for e in hist]} s (staging, then replayed); epoch train wall "
+        f"{[e['train_seconds'] for e in hist]} s (capture included in the first); the default "
+        f"CUDA generator untouched; epoch wall minus train minus validation "
+        f"{epoch_remainder(hist)} s (background saver) [{smi}]")
     return res, launches, {k: unstaged[k] for k in T.METRICS}
 
 
@@ -1574,6 +1607,317 @@ def interchange_phase(torch, K, P, root, trained, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: negation-aware retrieval, task2 and the prediction post-processing
+# ---------------------------------------------------------------------------
+
+TASK3_TIMED_STEPS = 20  # eager task3 steps timed on one batch on the card
+# a negation-scored rtest pass: the queries, then their positive and negated
+# clauses (59 text batches each), and the gallery (3)
+NEGATION_GATE_CALLS = 3 * 59 + 3
+VTEST = ("vtest", 1500, 10)  # the VATEX test shape: 1,500 videos x 10 captions
+VTEST_GATE_CALLS = 15 + 2  # 15 text batches and 2 gallery batches of 1,024
+POSTPROCESSING = (("kreciprocal", {"rerank": "kreciprocal"}), ("tkb", {"rerank": "tkb"}),
+                  ("concept", {"rerank": "concept"}), ("each_head", {"each_head": 1}))
+
+
+def task3_dispatch(chose):
+    """task3's dispatch: the visual cache, no text cache (the captions are
+    drawn anew each epoch), K 1 eager, staged validation"""
+    return (chose["vis_cache_bytes"] and chose["txt_cache_bytes"] is None
+            and chose["steps_per_dispatch"] == 1 and not chose["graph"]
+            and chose["stage_val_features"])
+
+
+def aux_options(root, prefix, **kw):
+    from laff_tpu_torch.engine.prepare import Options
+
+    return Options(trainCollection="t3train", valCollection="t3test", rootpath=root,
+                   val_set="no", config_name="rehearsal", batch_size=128, device="cuda",
+                   rank_path="kernel", sync_debug=1, random_seed=SEED, model_prefix=prefix,
+                   **kw)
+
+
+def task3_step_check(torch, T, prepared, state_dict, smi):
+    """(a) One task3 step (the caption, its false caption and the mask of the
+    feed's first batch) on the card and on the CPU from the same weights,
+    dropout off: losses and the BatchNorm running statistics after it
+    within STEP_LOSS_RTOL. Then the eager step on the card timed against
+    the same step without the false caption, and profiled."""
+    device = torch.device("cuda")
+    batch = first_batches(prepared.train_feed, 1)[0]
+    check("false_txt" in batch and (batch["task3_mask"] == 1).any()
+          and (batch["task3_mask"] == -1).any(), "the task3 feed gave no false captions")
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        s = new_step(T, prepared.config, prepared.spec, state_dict, dev)
+        dropout_off(s.model)
+        s.set_epoch(0)
+        hb = T.host_batch(batch, False, True, True)
+        txt = {k: v.to(dev) for k, v in hb["txt"].items()}
+        vis = {k: v.to(dev) for k, v in hb["vis"].items()}
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        loss = float(s(txt, vis, g))
+        stats = {k: v.float().cpu() for k, v in s.model.state_dict().items() if "running" in k}
+        runs[dev.type] = (loss, stats, s, txt, vis, g)
+    (lc, sc, step, txt, vis, g), (lp, sp) = runs["cuda"], runs["cpu"][:2]
+    rel = abs(lc - lp) / abs(lp)
+    stat_rel = max(float((sc[k] - sp[k]).abs().max()) / max(float(sp[k].abs().max()), 1e-12)
+                   for k in sp)
+    check(rel <= STEP_LOSS_RTOL and stat_rel <= STEP_LOSS_RTOL,
+          f"[task3] card vs CPU step: loss {lc} vs {lp}, BN statistics rel diff {stat_rel}")
+    log(f"  [task3] card vs CPU, one step with false captions from the same weights and batch, "
+        f"dropout off: loss {lc:.6f} vs {lp:.6f} (rel diff {rel:.3g}), BatchNorm running "
+        f"statistics max rel diff {stat_rel:.3g} (<= {STEP_LOSS_RTOL})")
+
+    main, _, _ = T.split_task3(txt)
+    ms = {}
+    for what, t in (("task3", txt), ("no false caption", main)):
+        times = []
+        for _ in range(TASK3_TIMED_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(t, vis, g)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[what] = statistics.median(times[1:])
+    busy = log_profile("[task3] eager step", *profiled(torch, lambda: step(txt, vis, g)),
+                       ms["task3"])
+    log("task3_step_timing " + json.dumps({
+        "eager_ms": ms["task3"], "eager_without_false_ms": ms["no false caption"],
+        "device_ms": busy, "idle": None if busy is None else max(0.0, 1 - busy / ms["task3"]),
+        "card": smi}))
+
+
+def task3_phase(torch, K, P, root, smi):
+    """7(a). task3 training at full width on t3train -> t3test: two epochs
+    of trainer.main with the false-caption set, its dispatch, launches and
+    task3 metrics; one step card vs CPU and its timing. Returns the
+    launches and the best checkpoint."""
+    from laff_tpu_torch.engine import trainer as T
+    from laff_tpu_torch.engine.checkpoint import load_checkpoint
+    from laff_tpu_torch.engine.prepare import prepare
+    from laff_tpu_torch.models import LAFFModel
+
+    opt = aux_options(root, "smoke_task3", num_epochs=2, task3_caption="false")
+    t0 = time.perf_counter()
+    prepared = prepare(opt)
+    n_params = sum(p.numel() for p in LAFFModel(prepared.spec).parameters())
+    log(f"[task3] prepare: {time.perf_counter() - t0:.1f} s; {n_params} parameters; "
+        f"{len(prepared.train_feed.task3_source.cap_ids)} captions with a false-caption entry; "
+        f"{prepared.spec.task3}")
+    check(n_params == 84_925_644, f"[task3] the rehearsal model has {n_params} parameters")
+    res, launches, _ = run_main(torch, K, T, opt, prepared, smi, "task3",
+                                dispatch_ok=task3_dispatch)
+    keys = [f"task3_{k}" for k in T.METRICS]
+    check(all(k in e for e in res["history"] for k in keys),
+          f"[task3] no task3_* metrics in {res['history'][0].keys()}")
+    tags = {line.split("\t")[1] for line in open(os.path.join(res["model_path"], "scalars.tsv"))}
+    check({"task3val/r1", "task3val/mir"} <= tags, f"[task3] scalars.tsv tags {tags}")
+    log("[task3] negation subset per epoch: " + "; ".join(
+        f"r1 {e['task3_r1']:.3f} mir {e['task3_mir']:.5f}" for e in res["history"]))
+    del res["model"]
+    ckpt_path = os.path.join(res["model_path"], "model_best.pth.tar")
+    task3_step_check(torch, T, prepared, load_checkpoint(ckpt_path)["state_dict"], smi)
+    return launches, ckpt_path
+
+
+def task2_phase(torch, K, root, smi):
+    """7(b). task2 (--task2_intended 1) at full width on t3train -> t3test:
+    the concept labels in the visual cache, 16 graphed steps against 16
+    eager ones, one epoch of trainer.main at the default dispatch, one step
+    card vs CPU. Returns the launches."""
+    from laff_tpu_torch.engine import trainer as T
+    from laff_tpu_torch.engine.checkpoint import load_checkpoint
+    from laff_tpu_torch.engine.prepare import prepare
+
+    opt = aux_options(root, "smoke_task2", num_epochs=1, task2_caption="obj",
+                      task2_intended=1)
+    prepared = prepare(opt)
+    t2 = prepared.spec.task2
+    check(t2 is not None and t2.vis_dim_in == 5376 and t2.n_concepts >= 100,
+          f"[task2] spec {t2}")
+    log(f"[task2] {t2}")
+    cache_and_graph_checks(torch, K, T, opt, prepared, smi, "task2", timings=False)
+    res, launches, _ = run_main(torch, K, T, opt, prepared, smi, "task2", epochs=1)
+    del res["model"]
+    ck = load_checkpoint(os.path.join(res["model_path"], "model_best.pth.tar"))
+    check(any(k.startswith("task2_vis_head.") for k in ck["state_dict"]),
+          "[task2] the checkpoint has no concept head")
+    card_vs_cpu_step(torch, T, prepared, ck["state_dict"], "task2")
+    return launches
+
+
+def predict_options(P, root, coll, ckpt, name, **kw):
+    return P.PredictOptions(testCollection=coll, model_path=ckpt, sim_name=f"smoke_{name}",
+                            rootpath=root, query_sets=f"{coll}.caption.txt", overwrite=1,
+                            device="cuda", rank_path="kernel",
+                            predict_result_file=os.path.join(root, "result_log", f"{name}.txt"),
+                            **kw)
+
+
+def timed_predict(torch, K, P, opt, what, smi):
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = P.main(opt)[opt.query_sets]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    secs = {k: round(v, 2) for k, v in res["seconds"].items()}
+    log(f"[{what}] predictor {opt.testCollection}: {wall:.1f} s wall {secs}; launches "
+        f"{launches}; t2v {[round(float(x), 4) for x in res['t2v']]} [{smi}]")
+    return res, launches, wall
+
+
+def card_embeddings(torch, P, opt):
+    """The test collection embedded on the card by the checkpoint's model,
+    as the predictor embeds it: (model inputs, txt embs, ids, vis embs,
+    ids)."""
+    ckpt = P.load_checkpoint(opt.model_path)
+    device = torch.device("cuda")
+    feats = P.rebuild_featurizers(ckpt, opt.rootpath)
+    vis_feed, txt_feed, tsrc, vis_ids = P.build_test_feeds(opt, ckpt["config"], opt.query_sets,
+                                                           feats)
+    embedder = P.Embedder(P.rebuild_model(ckpt, device), device)
+    txt_embs, txt_ids = embedder.embed_txt(txt_feed)
+    vis_embs, vis_ids = embedder.embed_vis(vis_feed)
+    return (embedder, txt_feed, tsrc), txt_embs, txt_ids, vis_embs, vis_ids
+
+
+def negation_phase(torch, K, P, root, ckpt, negated, smi):
+    """7(c). predictor.main with --task3_caption on t3test under 7(a)'s
+    checkpoint: the queries with a negation counted, the gate over the
+    queries and both clauses, no rank kernel (t2v comes from the adjusted
+    scores); its t2v row against eval_t2v of scores recomputed by the
+    plain path from the same card embeddings."""
+    import numpy as np
+
+    from laff_tpu_torch.eval.metrics import eval_label_matrix, label_matrix_from_scores
+
+    opt = predict_options(P, root, "t3test", ckpt, "negation", task3_caption="negation")
+    res, launches, wall = timed_predict(torch, K, P, opt, "negation", smi)
+    check(res["negated_queries"] == negated,
+          f"[negation] {res['negated_queries']} queries counted with a negation, not {negated}")
+    expect = {"sim_rank_wide": 0, "sim_rank_tiled": 0, "gate_attention": NEGATION_GATE_CALLS,
+              "gate_attention_simple": 0}
+    check(launches == expect, f"[negation] launches {launches}, expected {expect}")
+    (embedder, txt_feed, tsrc), _, txt_ids, vis_embs, vis_ids = card_embeddings(torch, P, opt)
+    pos, neg, mask = P.embed_negation_split(embedder, txt_feed, tsrc, txt_ids)
+    scores = P.negation_adjusted_scores(P.score_matrix(pos, vis_embs),
+                                        P.score_matrix(neg, vis_embs), mask)
+    labels = label_matrix_from_scores(scores, txt_ids, vis_ids)
+    host_ranks = labels.argmax(axis=1) + 1
+    moved = np.flatnonzero(host_ranks != res["t2v_ranks"])
+    col = {v: i for i, v in enumerate(vis_ids)}
+    gt = scores[np.arange(len(txt_ids)), [col[t.split("#")[0]] for t in txt_ids]]
+    tied = [r for r in moved if (scores[r] == gt[r]).sum() > 1]
+    check(len(tied) == len(moved), f"[negation] {len(moved) - len(tied)} ranks differ from the "
+          f"host label matrix's without an exact tie")
+    ref = eval_label_matrix(labels)  # eval_t2v of the recomputed scores
+    check(moved.size or tuple(res["t2v"]) == tuple(ref),
+          f"[negation] t2v {res['t2v']} vs eval_t2v of the recomputed scores {ref}")
+    log(f"  [negation] {negated} of {len(txt_ids)} queries carry a negation; t2v equals eval_t2v "
+        f"of the plain path's adjusted scores from the same card embeddings "
+        f"({moved.size} ranks at exact ties); negation scoring {res['seconds']['negation']:.2f} s "
+        f"of {wall:.1f} s [{smi}]")
+    return launches
+
+
+def rerank_phase(torch, K, P, root, ckpt, smi):
+    """7(d). Re-ranking and per-head dumps on a VATEX-test-shaped world
+    under 7(a)'s checkpoint: --rerank kreciprocal, tkb and concept, and
+    --each_head 1; each re-ranked t2v row against the port's host function
+    on the same embeddings moved to the CPU. Returns the launches by
+    run."""
+    import numpy as np
+
+    from laff_tpu_torch.data.synth import build_world
+    from laff_tpu_torch.eval import rerank
+
+    coll, n_videos, caps = VTEST
+    t0 = time.perf_counter()
+    log(f"world: {build_world(root, coll, n_videos, caps, 11286, SEED + 3, concept_pkl=True)} "
+        f"in {time.perf_counter() - t0:.1f} s; disk free "
+        f"{shutil.disk_usage(root).free / 1e9:.1f} GB")
+    concept = dict(concept_pkl=os.path.join(root, coll, "TextData", "concept_sim.pkl"),
+                   concept_caption=os.path.join(root, coll, "TextData", f"{coll}.caption.txt"))
+    out, by_run = {}, {}
+    for name, extra in POSTPROCESSING:
+        opt = predict_options(P, root, coll, ckpt, name, **extra,
+                              **(concept if name == "concept" else {}))
+        res, launches, wall = timed_predict(torch, K, P, opt, name, smi)
+        expect = {"sim_rank_wide": int(name == "each_head"), "sim_rank_tiled": 0,
+                  "gate_attention": VTEST_GATE_CALLS, "gate_attention_simple": 0}
+        check(launches == expect, f"[{name}] launches {launches}, expected {expect}")
+        out[name], by_run[f"{name}_predict"] = (opt, res, wall), launches
+    log(f"  [concept] the lemmatizer took the {rerank.LEMMATIZER['branch']} branch")
+
+    (_, _, tsrc), txt_embs, txt_ids, vis_embs, vis_ids = card_embeddings(torch, P,
+                                                                         out["tkb"][0])
+    scores = P.score_matrix(txt_embs, vis_embs)
+    cpu = torch.device("cpu")
+    host = {}
+    for kind in ("kreciprocal", "tkb"):
+        t0 = time.perf_counter()
+        reranked = P.apply_rerank(kind, scores, txt_embs.cpu(), vis_embs.cpu())
+        host[kind] = (P.t2v_from_scores(reranked, txt_ids, vis_ids, cpu)[0],
+                      time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    reranked = P.concept_rerank_scores(out["concept"][0], scores, txt_ids, vis_ids, tsrc)
+    host["concept"] = (P.t2v_from_scores(reranked, txt_ids, vis_ids, cpu)[0],
+                       time.perf_counter() - t0)
+    for kind, (t2v, secs) in host.items():
+        _, res, wall = out[kind]
+        check(tuple(res["t2v"]) == tuple(t2v),
+              f"[{kind}] re-ranked t2v {res['t2v']} vs the host function's {t2v}")
+        log(f"  [{kind}] re-ranked t2v equals the host function's on the CPU copies of the "
+            f"same embeddings; re-rank {res['seconds']['rerank']:.2f} s in the pass "
+            f"({wall:.1f} s), {secs:.2f} s on the CPU copies [{smi}]")
+
+    opt, res, wall = out["each_head"]
+    sdir = os.path.join(root, coll, "SimilarityIndex", opt.query_sets, opt.sim_name)
+    heads = txt_embs.shape[1]
+    check(len(res["per_head"]) == heads, f"[each_head] {len(res['per_head'])} head rows")
+    for h in range(heads):
+        path = os.path.join(sdir, f"head{h}.id.sent.score.txt")
+        with open(path) as fh:
+            first = fh.readline().split()
+            n_lines = 1 + sum(1 for _ in fh)
+        check(n_lines == len(txt_ids) and len(first) == 1 + 2 * n_videos,
+              f"[each_head] {path}: {n_lines} lines, {len(first)} fields in the first")
+        check(first[0] == txt_ids[0] and np.isfinite(np.asarray(first[2::2], float)).all(),
+              f"[each_head] {path} first line {first[:5]}")
+        os.remove(path)
+    with open(os.path.join(sdir, "perf.txt")) as fh:
+        check(fh.read().count("Text to video head") == heads, "[each_head] perf.txt")
+    log(f"  [each_head] {heads} head{{h}}.id.sent.score.txt files of {len(txt_ids)} lines x "
+        f"{n_videos} videos and perf.txt written ({res['seconds']['each_head']:.1f} s of "
+        f"{wall:.1f} s); per-head r1 {[round(float(m[0]), 3) for m in res['per_head']]} [{smi}]")
+    timing = {name: {"wall_s": wall, "seconds": res["seconds"]}
+              for name, (_, res, wall) in out.items()}
+    timing.update(host_rerank_s={k: s for k, (_, s) in host.items()}, card=smi)
+    log("postprocessing_timing " + json.dumps(timing))
+    return by_run
+
+
+def aux_phase(torch, K, P, root, smi):
+    """7. task3 and task2 training, negation scoring, re-ranking and
+    per-head dumps at full width. Returns the launches by path."""
+    from laff_tpu_torch.data.synth import build_world
+
+    t0 = time.perf_counter()
+    train = build_world(root, "t3train", 1500, 20, 11286, SEED + 2, false_captions=True,
+                        objects=True)
+    test = build_world(root, "t3test", 2990, 20, 11286, SEED, negations=True)
+    log(f"worlds: {train} and {test} in {time.perf_counter() - t0:.1f} s")
+    launches_t3, ckpt = task3_phase(torch, K, P, root, smi)
+    by_path = {"task3_train": launches_t3, "task2_train": task2_phase(torch, K, root, smi),
+               "negation_predict": negation_phase(torch, K, P, root, ckpt,
+                                                  test["negated_captions"], smi)}
+    by_path.update(rerank_phase(torch, K, P, root, ckpt, smi))
+    return by_path
+
+
 def gate_worker(torch, root):
     """Times the gate of the checkout at ``root`` (its own wrapper, sources
     and build) at the headline's (L 4, H 8, dh 512) for each of GATE_BATCHES
@@ -1740,17 +2084,21 @@ def main(argv):
         launches_h = hist_phase(torch, K, trained, smi_line)
         launches_r = interchange_phase(torch, K, P, root, trained, smi_line)
         log(f"single-space and interchange phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        by_path_aux = aux_phase(torch, K, P, root, smi_line)
+        log(f"task3, task2 and post-processing phase: {time.perf_counter() - t0:.1f} s")
 
         # launches of the main paths, each counted from 0 around its run:
         # the rtest prediction pass, the LAFF training run's validations and
         # its checkpoint's pass, FrameLAFF's, W2VVPP's, the 'hist'
-        # validation's and the reference file's pass (rbig for the tiled
-        # kernel)
+        # validation's, the reference file's pass, task3's and task2's
+        # validations, the negation-scored pass and the post-processing
+        # passes (rbig for the tiled kernel)
         by_path = {"laff_predict": launches_k, "laff_train": launches_t,
                    "laff_trained_predict": launches_tp, "frames_train": launches_f,
                    "frames_trained_predict": launches_fp, "concat_train": launches_c,
                    "concat_trained_predict": launches_cp, "hist_validate": launches_h,
-                   "reference_predict": launches_r}
+                   "reference_predict": launches_r, **by_path_aux}
         main_path = {k: sum(p[k] for p in by_path.values()) for k in launches_k}
         rows["gate_attention"]["at_l5"] = gate_l5
         meta = {

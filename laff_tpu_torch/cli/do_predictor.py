@@ -3,7 +3,8 @@
 ``laff_tpu.cli.do_predictor`` where the port implements the option.
 
   python -m laff_tpu_torch.cli.do_predictor <testCollection> <checkpoint> \
-      <sim_name> --rootpath <root> --query_sets <capfile> [--rank_path kernel]
+      <sim_name> --rootpath <root> --query_sets <capfile> [--rank_path kernel] \
+      [--task3_caption negation] [--rerank kreciprocal|tkb|concept] [--each_head 1]
 """
 
 import argparse
@@ -33,6 +34,23 @@ def parse_args(argv=None) -> PredictOptions:
                         help="torch device; 'cpu' runs the plain versions of the kernels")
     parser.add_argument("--rank_path", default="auto", choices=list(RANK_PATHS),
                         help="t2v rank path; 'kernel' forces the fused CUDA rank kernel")
+    parser.add_argument("--task3_caption", type=str, default="no_task3_caption",
+                        help="any other value enables boolean negation scoring of the queries")
+    parser.add_argument("--neg_method", type=str, default="sub", choices=["sub", "mul"],
+                        help="negation score adjustment method")
+    parser.add_argument("--each_head", type=int, default=0, choices=[0, 1],
+                        help="also write per-head metrics, score files and perf.txt")
+    parser.add_argument("--rerank", type=str, default="none",
+                        choices=["none", "kreciprocal", "tkb", "concept"],
+                        help="post-processing re-ranking of the score matrix")
+    parser.add_argument("--concept_pkl", type=str, default="",
+                        help="video <-> concept similarity pkl (rerank=concept)")
+    parser.add_argument("--concept_weight", type=float, default=2.0)
+    parser.add_argument("--concept_topk", type=int, default=1000)
+    parser.add_argument("--concept_bow_counts", type=str, default="",
+                        help="vocabulary count file ('word count' per line) for the idf")
+    parser.add_argument("--concept_caption", type=str, default="",
+                        help="caption file for the idf's substring-count fallback")
     return PredictOptions(**vars(parser.parse_args(argv)))
 
 

@@ -27,9 +27,13 @@ def parse_args(argv=None) -> Options:
     parser.add_argument("valCollection", type=str, help="validation collection")
     parser.add_argument("--rootpath", type=str, default=ROOT_PATH)
     parser.add_argument("--trainCollection2", type=str, default="None")
-    parser.add_argument("--task2_caption", type=str, default="no_task2_caption")
-    parser.add_argument("--task2_intended", default=0, type=int, choices=[0, 1])
-    parser.add_argument("--task3_caption", type=str, default="no_task3_caption")
+    parser.add_argument("--task2_caption", type=str, default="no_task2_caption",
+                        help="object-caption file suffix of the task2 concept labels")
+    parser.add_argument("--task2_intended", default=0, type=int, choices=[0, 1],
+                        help="opt-in concept-space task2 loss (the reference's task2 is "
+                             "dead code; 0 keeps --task2_caption inert)")
+    parser.add_argument("--task3_caption", type=str, default="no_task3_caption",
+                        help="false-caption file suffix of the task3 negation loss")
     parser.add_argument("--train_strategy", type=str, default="usual")
     parser.add_argument("--overwrite", type=int, default=0, choices=[0, 1])
     parser.add_argument("--val_set", type=str, default="setA")

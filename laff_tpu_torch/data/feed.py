@@ -15,8 +15,9 @@ evaluation.
 from __future__ import annotations
 
 import queue
+import random
 import threading
-from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -73,7 +74,12 @@ class TextBatcher:
         self.indexed_w2v = indexed_w2v
 
     def __call__(self, cap_ids: Sequence[str]) -> Dict[str, np.ndarray]:
-        captions = self.source.captions_for(cap_ids)
+        return self.encode_captions(self.source.captions_for(cap_ids), cap_ids)
+
+    def encode_captions(self, captions: Sequence[str],
+                        cap_ids: Sequence[str]) -> Dict[str, np.ndarray]:
+        """Arrays for ``captions``; precomputed features are the rows of
+        ``cap_ids`` (a false caption keeps its true caption's rows)."""
         batch: Dict[str, np.ndarray] = {}
         precomputed = None
         for name, t2v in self.featurizers.items():
@@ -107,14 +113,27 @@ class TextBatcher:
 class VisBatcher:
     """vis_ids -> model-ready visual arrays: the video-level features and
     each of the source's frame features padded to its ``max_frame`` with
-    its mask (one shape for every batch)."""
+    its mask (one shape for every batch). ``task2_labels`` (vis_id ->
+    multi-hot concept row) rides the batch as 'task2_labels', so the
+    device cache carries it like any other per-video array; a video
+    without an object caption gets a zero row."""
 
-    def __init__(self, source: VisionSource) -> None:
+    def __init__(self, source: VisionSource,
+                 task2_labels: Optional[Dict[str, np.ndarray]] = None) -> None:
         self.source = source
+        self.task2_labels = task2_labels
+        if task2_labels is not None:
+            if not task2_labels:
+                raise ValueError("task2_labels is empty: no object captions were parsed "
+                                 "from the task2 caption file")
+            self._task2_zero = np.zeros((len(next(iter(task2_labels.values()))),), np.float32)
 
     def __call__(self, vis_ids: Sequence[str]) -> Dict[str, np.ndarray]:
         batch = self.source.gather(vis_ids)
         batch.update(self.source.gather_frames(vis_ids))
+        if self.task2_labels is not None:
+            batch["task2_labels"] = np.stack(
+                [self.task2_labels.get(v, self._task2_zero) for v in vis_ids])
         return batch
 
 
@@ -125,16 +144,29 @@ class PairFeed:
     ids and the trailing partial batch is dropped, as in
     ``laff_tpu.data.PairFeed``, so both packages see the same batches in
     the same order. ``cap_ids`` restricts the feed to a subset of the
-    captions. (The task3 negation captions come with task3.)"""
+    captions.
+
+    With a ``task3_source`` (the negation caption set, reference
+    ``data_provider.py:649-684``) each batch also carries 'false_txt' (the
+    features of a false caption drawn for each caption, an empty caption
+    where it has none) and 'task3_mask' (1 positive pair, 0 negative, -1
+    no entry); a caption with a positive entry is swapped for one of its
+    negation-augmented variants. The draws come from
+    ``random.Random(seed * 1000 + epoch)`` in ``laff_tpu``'s order, so a
+    seeded epoch gives both packages the same false captions.
+    """
 
     def __init__(self, text_batcher: TextBatcher, vis_batcher: VisBatcher,
                  batch_size: int = 128, seed: int = 0,
-                 cap_ids: Optional[Sequence[str]] = None) -> None:
+                 cap_ids: Optional[Sequence[str]] = None,
+                 task3_source: Optional[TextSource] = None) -> None:
         self.text_batcher = text_batcher
         self.vis_batcher = vis_batcher
         self.batch_size = batch_size
         self.seed = seed
         self.cap_ids = list(text_batcher.source.cap_ids if cap_ids is None else cap_ids)
+        self.task3_source = task3_source
+        self._augmented = task3_source.negation_augmented() if task3_source is not None else {}
         self.featurize_txt = True
         self.featurize_vis = True
 
@@ -144,15 +176,32 @@ class PairFeed:
     def epoch(self, epoch: int) -> Iterator[Dict]:
         order = np.random.default_rng(self.seed + epoch).permutation(len(self.cap_ids))
         shuffled = [self.cap_ids[i] for i in order]
+        pyrng = random.Random(self.seed * 1000 + epoch)
         for start in range(0, self.steps_per_epoch() * self.batch_size, self.batch_size):
             chunk = shuffled[start : start + self.batch_size]
             vis_ids = [vis_id_of(c) for c in chunk]
             batch = {"cap_ids": chunk, "vis_ids": vis_ids}
             if self.featurize_vis:
                 batch["vis"] = self.vis_batcher(vis_ids)
-            if self.featurize_txt:
+            if self.task3_source is not None:
+                batch.update(self._task3_text(chunk, pyrng))
+            elif self.featurize_txt:
                 batch["txt"] = self.text_batcher(chunk)
             yield batch
+
+    def _task3_text(self, chunk: List[str], pyrng: random.Random) -> Dict:
+        captions, false_captions = [], []
+        masks = np.full((len(chunk),), -1, dtype=np.int32)
+        for i, cap_id in enumerate(chunk):
+            caption = self.text_batcher.source.captions[cap_id]
+            false_cap, masks[i] = self.task3_source.false_caption(cap_id, pyrng)
+            if masks[i] == 1 and cap_id in self._augmented:
+                caption = pyrng.choice(self._augmented[cap_id])
+            captions.append(caption)
+            false_captions.append(false_cap or "")
+        return {"txt": self.text_batcher.encode_captions(captions, chunk),
+                "false_txt": self.text_batcher.encode_captions(false_captions, chunk),
+                "task3_mask": masks}
 
 
 class EvalFeed:

@@ -16,11 +16,13 @@ Collection layout (unchanged from the reference, so existing dumps work):
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import random
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..store import BigFile
+from ..text.textlib import negation_augmentation
 
 
 class VisionSource:
@@ -81,17 +83,39 @@ class VisionSource:
 
 class TextSource:
     """Caption file access, with optional precomputed text features
-    (CLIP/BERT BigFiles keyed by caption id)."""
+    (CLIP/BERT BigFiles keyed by caption id) and the negation ('task3')
+    caption set."""
 
-    def __init__(self, capfile: str, precomputed: Optional[Dict[str, BigFile]] = None) -> None:
+    def __init__(self, capfile: str, precomputed: Optional[Dict[str, BigFile]] = None,
+                 task3: bool = False, shuffle_seed: Optional[int] = None) -> None:
         self.capfile = capfile
         self.precomputed = precomputed or {}
+        self.task3 = task3
         self.captions: Dict[str, str] = {}
         self.cap_ids: List[str] = []
+        self.mask_task3: Dict[str, int] = {}
+        self.captions_multi: Dict[str, List[str]] = {}
         with open(capfile, "r") as fh:
-            for line in fh:
-                if not line.strip():
-                    continue
+            lines = [line for line in fh if line.strip()]
+        if task3:
+            # negation set: ids like 'video1#3F0p' / 'video1#3Fn', p for a
+            # positive pair (reference data_provider.py:529-549); the
+            # optional shuffle draws from the same random.Random stream as
+            # laff_tpu's
+            if shuffle_seed is not None:
+                random.Random(shuffle_seed).shuffle(lines)
+            for line in lines:
+                cap_idfull, caption = line.strip().split(None, 1)
+                base, tail = cap_idfull.split("#")
+                cap_id = base + "#" + tail.split("F")[0]
+                self.mask_task3[cap_id] = 1 if "p" in cap_idfull else 0
+                if cap_id not in self.captions_multi:
+                    self.captions_multi[cap_id] = [caption]
+                    self.cap_ids.append(cap_id)
+                else:
+                    self.captions_multi[cap_id].append(caption)
+        else:
+            for line in lines:
                 parts = line.strip().split(None, 1)
                 self.captions[parts[0]] = parts[1] if len(parts) == 2 else ""
                 self.cap_ids.append(parts[0])
@@ -113,6 +137,24 @@ class TextSource:
                 )
             out[name] = arr
         return out
+
+
+    def false_caption(self, cap_id: str, rng: random.Random) -> Tuple[Optional[str], int]:
+        """A random false caption and its mask for the negation loss
+        (reference ``data_provider.py:598-615``): 1 for a positive pair, 0
+        for a negative one, -1 (and no caption) for an id without an entry."""
+        if not self.task3 or cap_id not in self.captions_multi:
+            return None, -1
+        return rng.choice(self.captions_multi[cap_id]), self.mask_task3[cap_id]
+
+    def negation_augmented(self) -> Dict[str, List[str]]:
+        """Each positive id's captions with their contractions swapped
+        (``negation_augmentation``), for the vocabulary."""
+        return {
+            cap_id: [aug for cap in self.captions_multi[cap_id]
+                     for aug in negation_augmentation(cap)]
+            for cap_id, mask in self.mask_task3.items() if mask
+        }
 
 
 def vis_id_of(cap_id: str) -> str:

@@ -21,6 +21,25 @@ with 8-60 frames a video, so that a ``max_frame`` of 50 both cuts and
 pads; these are drawn after everything else, so the rest of the world is
 the one ``frame_feat=False`` builds.
 
+The auxiliary tasks' files, each from a generator of its own drawn after
+everything else (the rest of the world is the one the options off build):
+
+* ``false_captions`` (task3 training): ``<collection>.caption.false.txt``,
+  the negation caption set. A third of the captions get two positive
+  entries ``<cap>F0p`` / ``<cap>F1p``, the caption's first five words
+  with "does not" / "doesn't" and its sixth (a false statement about the
+  video), a third one negative entry ``<cap>Fn`` naming six words of
+  another video, the rest none.
+* ``negations`` (task3 evaluation): a third of the captions end in "not
+  <w>", a word of another video, and ``<collection>.caption.negationset.txt``
+  lists them.
+* ``objects`` (task2): ``<collection>.caption.obj.txt``, one line per video
+  naming the concepts ``c<k>`` (k the word's index modulo ``n_concepts``)
+  of its 8 words.
+* ``concept_pkl`` (concept re-ranking): ``TextData/concept_sim.pkl`` in the
+  reference layout, {'txt2video_cos_sim_matrix' (C, V), 'txt_ids' C
+  vocabulary words, 'vis_ids'}: 1 where the video has the word, plus noise.
+
 Each video draws 8 distinct words from the vocabulary (every word is used
 by some video, so the BoW vocabulary has ``n_vocab`` entries, 11,286 like
 the headline's); its features are a fixed projection of the summed word
@@ -31,6 +50,7 @@ learnable. Every number comes from ``seed``.
 from __future__ import annotations
 
 import os
+import pickle
 import zlib
 
 import numpy as np
@@ -44,6 +64,7 @@ FRAMES_PER_VIDEO = (8, 60)
 LATENT = 24
 CLIP_DIM = 512
 W2V_DIM = 500
+N_CONCEPTS = 300  # task2 concepts and concept re-ranking words of a world
 
 
 def _video_words(rng: np.random.Generator, n_videos: int, n_vocab: int) -> np.ndarray:
@@ -67,10 +88,67 @@ def _projection(name: str, dim: int) -> np.ndarray:
         (LATENT, dim)).astype(np.float32) * 0.3
 
 
+def _write_lines(path: str, lines) -> None:
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines))
+
+
+def _task_files(cdir: str, collection: str, vocab, words: np.ndarray, cap_words: np.ndarray,
+                lines, seed: int, false_captions: bool, negations: bool, objects: bool,
+                concept_pkl: bool) -> dict:
+    """The auxiliary tasks' files (module docstring); rewrites the caption
+    file when ``negations``."""
+    rng = np.random.default_rng(seed + 7919)
+    n_videos, caps = cap_words.shape[:2]
+    tdir = os.path.join(cdir, "TextData")
+    other = (np.arange(n_videos) + rng.integers(1, n_videos, n_videos)) % n_videos
+    summary = {}
+    if false_captions:
+        out = []
+        for i in range(n_videos):
+            for c in range(caps):
+                cap, w = f"{lines[i * caps + c].split(' ', 1)[0]}", cap_words[i, c]
+                kind = (i * caps + c) % 3
+                first = " ".join(vocab[x] for x in w[:5])
+                if kind == 0:
+                    out.append(f"{cap}F0p the {first} does not {vocab[w[5]]}")
+                    out.append(f"{cap}F1p the {first} doesn't {vocab[w[5]]}")
+                elif kind == 1:
+                    out.append(f"{cap}Fn the " + " ".join(vocab[x] for x in words[other[i], :6]))
+        _write_lines(os.path.join(tdir, f"{collection}.caption.false.txt"), out)
+        summary["false_captions"] = len(out)
+    if negations:
+        negated = []
+        for j in range(0, len(lines), 3):
+            lines[j] += f" not {vocab[words[other[j // caps], 7]]}"
+            negated.append(lines[j])
+        _write_lines(os.path.join(tdir, f"{collection}.caption.txt"), lines)
+        _write_lines(os.path.join(tdir, f"{collection}.caption.negationset.txt"), negated)
+        summary["negated_captions"] = len(negated)
+    vids = [lines[i * caps].split("#", 1)[0] for i in range(n_videos)]
+    if objects:
+        _write_lines(os.path.join(tdir, f"{collection}.caption.obj.txt"),
+                     [f"{v} " + " ".join(f"c{w % N_CONCEPTS:03d}" for w in words[i])
+                      for i, v in enumerate(vids)])
+        summary["concepts"] = N_CONCEPTS
+    if concept_pkl:
+        concept_words = rng.choice(len(vocab), min(N_CONCEPTS, len(vocab)), replace=False)
+        has = (words[:, :, None] == concept_words[None, None, :]).any(axis=1)  # (V, C)
+        sim = has.T.astype(np.float32) + 0.1 * rng.standard_normal(
+            has.T.shape).astype(np.float32)
+        with open(os.path.join(tdir, "concept_sim.pkl"), "wb") as fh:
+            pickle.dump({"txt2video_cos_sim_matrix": sim,
+                         "txt_ids": [vocab[w] for w in concept_words], "vis_ids": vids}, fh)
+    return summary
+
+
 def build_world(root: str, collection: str = "rtest", n_videos: int = 2990,
                 caps_per_video: int = 20, n_vocab: int = 11286, seed: int = 0,
-                frame_feat: bool = False) -> dict:
-    """Build the collection and its w2v table; returns a summary dict."""
+                frame_feat: bool = False, false_captions: bool = False,
+                negations: bool = False, objects: bool = False,
+                concept_pkl: bool = False) -> dict:
+    """Build the collection and its w2v table, and the auxiliary tasks'
+    files that the flags ask for; returns a summary dict."""
     rng = np.random.default_rng(seed)
     vocab = [f"w{i:05d}" for i in range(n_vocab)]
     word_codes = np.random.default_rng(99).standard_normal((n_vocab, LATENT)).astype(np.float32)
@@ -124,4 +202,6 @@ def build_world(root: str, collection: str = "rtest", n_videos: int = 2990,
         for where in (("frame", FRAME_NAME), (FRAME_NAME,)):
             write_bigfile(os.path.join(cdir, "FeatureData", *where), frame_ids, rows)
         summary["frames"] = len(frame_ids)
+    summary.update(_task_files(cdir, collection, vocab, words, cap_words, lines, seed,
+                               false_captions, negations, objects, concept_pkl))
     return summary

@@ -12,6 +12,8 @@ A FrameLAFF batcher's frame arrays and masks are cached as the feed makes
 them, padded to ``max_frame`` for every video ((V, max_frame, D) and
 (V, max_frame)): a gathered batch equals a fed one bit for bit and has the
 one shape a CUDA graph of the step needs, and the estimate counts them.
+task2's per-video concept labels ('task2_labels', a multi-hot row per
+video) are one more visual array, cached and gathered like the features.
 
 At the rehearsal world's scale (1,500 videos x 5,376 dims, 30,000
 captions with a dense bow row each) both caches together take under a GB

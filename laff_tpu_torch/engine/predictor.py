@@ -10,24 +10,48 @@ embeds the test collection once, and per query set:
 * the full score matrix -> v2t metrics and the top-500 ``t2v.pkl`` dump;
 * t2v and v2t rows appended to the result_log TSVs (reference format).
 
-AVS collections, re-ranking, negation scoring, large-gallery streaming,
-int8 galleries, StrongCLIP and per-head dumps come with later slices.
+The post-processing options of ``laff_tpu``'s predictor:
+
+* ``task3_caption`` (any value but the default): boolean negation scoring.
+  Each query is split on its negation cue (``split_negation``); the
+  positive and the negated clause go through the text tower, and
+  ``negation_adjusted_scores`` demotes the videos the negated clause
+  matches (``neg_method`` 'sub' or 'mul').
+* ``rerank``: 'kreciprocal' and 'tkb' (``eval.rerank``, host numpy; the
+  query-query and gallery-gallery products are taken on the embeddings'
+  device), or 'concept' with a concept pkl (``concept_*`` options).
+* ``each_head``: per-head score matrices, their metric rows, one
+  ``head<h>.id.sent.score.txt`` ('<txt_id> <vis_id> <score> ...', the top
+  2,000 of each query) per head and a ``perf.txt``.
+
+When the scores are adjusted or re-ranked, t2v comes from the score matrix
+(its ranks counted by ``ranks_from_scores`` on the device, ties
+larger-index-first), as ``laff_tpu`` takes ``eval_t2v`` of it, and not from
+the embeddings' rank kernel; v2t always comes from the score matrix.
+
+AVS collections, large-gallery streaming, int8 galleries and StrongCLIP
+come with later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import multiprocessing
 import os
 import pickle
 import time
+from concurrent.futures import ProcessPoolExecutor
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..data import EvalFeed, TextBatcher, TextSource, VisBatcher, read_video_set
-from ..eval.metrics import eval_v2t, metrics_from_ranks
+from ..eval.metrics import eval_t2v, eval_v2t, metrics_from_ranks, ranks_from_scores
+from ..eval.rerank import ConceptRerank, k_reciprocal_rerank, load_word_counts, tkb_rerank
 from ..models import LAFFModel
+from ..ops import flatten_heads, l2norm
+from ..text.textlib import split_negation
 from ..text.txt2vec import BowVec, BowVecNSW, IndexVec, get_txt2vec
 from ..utils import ROOT_PATH, check_to_skip, get_logger, makedirs
 from .checkpoint import load_checkpoint, vocab_from_dict
@@ -53,6 +77,16 @@ class PredictOptions:
     num_workers: int = 0
     device: str = "cuda"
     rank_path: str = "auto"
+    task3_caption: str = "no_task3_caption"  # any other value: negation scoring
+    neg_method: str = "sub"  # negation adjustment: sub | mul
+    each_head: int = 0  # also per-head metrics, score files and perf.txt
+    rerank: str = "none"  # none | kreciprocal | tkb | concept
+    # concept re-ranking (reference predict_concept_rerank, model/model.py:1352-1406)
+    concept_pkl: str = ""  # video <-> concept similarity pkl
+    concept_weight: float = 2.0
+    concept_topk: int = 1000
+    concept_bow_counts: str = ""  # vocabulary count file ('word count' lines)
+    concept_caption: str = ""  # caption file for the substring-count fallback
 
 
 def resolve_device(device: str) -> torch.device:
@@ -125,11 +159,12 @@ def write_rank_dump(pkl_path: str, scores: np.ndarray, txt_ids: List[str],
                     threshold: int = 500) -> None:
     """Per-query descending top-``threshold`` ranking pickled as
     {txt_id: {query, rank_list, sim_value}} (reference
-    ``txt2video_write_to_file``); the top-k runs on ``device``."""
-    k = min(threshold, len(vis_ids))
-    vals, idx = torch.topk(torch.from_numpy(scores).to(device), k, dim=1)
-    vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
-    vis_arr = np.asarray(vis_ids)
+    ``txt2video_write_to_file``); the top-k runs on ``device``. The rank
+    lists hold the gallery's own id strings (an object array indexes them),
+    so pickle writes each id once and refers to it after: the dump pickles
+    about 5x faster than with a fresh string per entry, and loads equal."""
+    vals, idx = score_rankings(scores, device, threshold)
+    vis_arr = np.asarray(vis_ids, dtype=object)
     shot_dict = {}
     for q, tid in enumerate(txt_ids):
         shot_dict[tid] = {
@@ -139,6 +174,43 @@ def write_rank_dump(pkl_path: str, scores: np.ndarray, txt_ids: List[str],
         }
     with open(pkl_path, "wb") as fh:
         pickle.dump(shot_dict, fh)
+
+
+def score_rankings(scores: np.ndarray, device: torch.device, threshold: int = 2000):
+    """Each query's top ``threshold`` videos (all when the gallery is
+    smaller), descending, ranked on ``device``: (values, indices) on the
+    host."""
+    vals, idx = torch.topk(torch.from_numpy(scores).to(device), min(threshold, scores.shape[1]),
+                           dim=1)
+    return vals.cpu().numpy(), idx.cpu().numpy()
+
+
+def _write_score_lines(path: str, vals: np.ndarray, idx: np.ndarray, txt_ids: List[str],
+                       vis_ids: List[str]) -> None:
+    vis_arr = np.asarray(vis_ids)
+    row = [""] * (2 * idx.shape[1])
+    with open(path, "w") as fout:
+        for q, tid in enumerate(txt_ids):
+            row[0::2] = vis_arr[idx[q]].tolist()
+            row[1::2] = vals[q].astype(str).tolist()
+            fout.write(f"{tid} {' '.join(row)}\n")
+
+
+def write_score_files(files, txt_ids: List[str], vis_ids: List[str]) -> None:
+    """The text branch of the reference's ``txt2video_write_to_file`` for
+    each (path, values, indices) of ``files`` (``score_rankings``): one
+    line per query, '<txt_id> <vis_id> <score> ...', scores in numpy's
+    shortest float32 form, as ``laff_tpu`` writes them. The formatting is
+    host-bound Python (about a microsecond a score), so several files are
+    written by as many processes at once."""
+    if len(files) == 1:
+        _write_score_lines(*files[0], txt_ids, vis_ids)
+        return
+    workers = min(len(files), os.cpu_count() or 1)
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        done = [pool.submit(_write_score_lines, *f, txt_ids, vis_ids) for f in files]
+        for d in done:
+            d.result()
 
 
 def append_result_row(path: str, model_tag: str, parm_adjust: str, result_tuple) -> None:
@@ -154,9 +226,165 @@ def append_result_row(path: str, model_tag: str, parm_adjust: str, result_tuple)
         fh.write("\n")
 
 
+@torch.no_grad()
+def per_head_scores(txt_embs: torch.Tensor, vis_embs: torch.Tensor) -> np.ndarray:
+    """(H, T, V) per-space cosine matrices on the host (reference
+    ``get_txt2vis_matrix_each_head``), one head at a time on the
+    embeddings' device."""
+    out = np.empty((txt_embs.shape[1], txt_embs.shape[0], vis_embs.shape[0]), np.float32)
+    for h in range(txt_embs.shape[1]):
+        out[h] = (l2norm(txt_embs[:, h]) @ l2norm(vis_embs[:, h]).T).float().cpu().numpy()
+    return out
+
+
+@torch.no_grad()
+def apply_rerank(kind: str, scores: np.ndarray, txt_embs: torch.Tensor,
+                 vis_embs: torch.Tensor) -> np.ndarray:
+    """'kreciprocal' (minus the re-ranked distance) or 'tkb' (scores plus
+    the popularity boost) of the score matrix (reference
+    ``predict_rerank``, model/model.py:1130-1406). The head-mean query-query
+    and gallery-gallery similarities are products on the embeddings'
+    device, in float64 and then rounded to float32, so the card and the CPU
+    give the re-rankers the same similarities (in float32 they would differ
+    in the last bits and move neighbour lists at near ties); the
+    re-rankers run on the host."""
+    if kind == "none":
+        return scores
+    tn, vn = flatten_heads(txt_embs).double(), flatten_heads(vis_embs).double()
+    h = txt_embs.shape[1] if txt_embs.ndim == 3 else 1
+    g_g = (torch.matmul(vn, vn.T) / h).float().cpu().numpy()
+    if kind == "kreciprocal":
+        q_q = (torch.matmul(tn, tn.T) / h).float().cpu().numpy()
+        return -k_reciprocal_rerank(scores, q_q, g_g)
+    if kind == "tkb":
+        return scores + tkb_rerank(scores, g_g)
+    raise ValueError(f"unknown rerank {kind!r}")
+
+
+def concept_rerank_scores(opt: PredictOptions, scores: np.ndarray, txt_ids: List[str],
+                          vis_ids: List[str], tsrc: TextSource) -> np.ndarray:
+    """Concept-space re-scoring (reference ``predict_concept_rerank``): this
+    gallery's columns of the concept pkl, ``scores + weight *
+    concept_sim``, rows l2-normalized."""
+    if not opt.concept_pkl:
+        raise ValueError("--rerank concept needs --concept_pkl")
+    with open(opt.concept_pkl, "rb") as fh:
+        blob = pickle.load(fh)
+    col_of = {v: i for i, v in enumerate(np.asarray(blob["vis_ids"]).tolist())}
+    missing = [v for v in vis_ids if v not in col_of]
+    if missing:
+        raise KeyError(f"gallery video {missing[0]!r} missing from concept pkl "
+                       f"{opt.concept_pkl} vis_ids")
+    word_counts = load_word_counts(opt.concept_bow_counts) if opt.concept_bow_counts else None
+    caption_text = ""
+    if opt.concept_caption:
+        with open(opt.concept_caption) as fh:
+            caption_text = fh.read()
+    rr = ConceptRerank(opt.concept_pkl, [col_of[v] for v in vis_ids], scores,
+                       [tsrc.captions[t] for t in txt_ids], topK=opt.concept_topk,
+                       word_counts=word_counts, caption_text=caption_text)
+    return rr.rerank(weight=opt.concept_weight)
+
+
+def negation_adjusted_scores(scores: np.ndarray, neg_scores: np.ndarray, neg_mask: np.ndarray,
+                             method: str = "sub") -> np.ndarray:
+    """Boolean negation scoring (reference ``predictneg_adhoc``,
+    model/model.py:1473-1565): cosines mapped to [0, 1], less (or scaled
+    down by) the negated clause's similarity, clipped at 0 first, for the
+    queries with a negation; the others lose a constant 0.5."""
+    s = (scores + 1.0) / 2.0
+    ns = (np.clip(neg_scores, 0.0, None) + 1.0) / 2.0
+    ns = ns * neg_mask[:, None] + 0.5 * (1.0 - neg_mask[:, None])
+    if method == "sub":
+        return s - ns
+    if method == "mul":
+        return s * (1.0 - ns)
+    raise ValueError(f"neg_method {method!r} is not 'sub' or 'mul'")
+
+
+def embed_negation_split(embedder: Embedder, txt_feed: EvalFeed, tsrc: TextSource,
+                         txt_ids: List[str]):
+    """Each query split on its negation cue, both halves through the text
+    tower: the positive clause (the reference scores it, not the full
+    query, model/model.py:1530) and the negated one. Returns (pos_embs,
+    neg_embs, mask), mask 1 where the query has a negation; (None, None,
+    mask) when none has. Precomputed text rows (CLIP/BERT BigFiles) are
+    keyed by caption id, so a clause reuses its query's rows there; the
+    signal comes from the live features (bow, w2v, GRU), and with none a
+    warning says the scoring is inert."""
+    batcher = txt_feed.batcher
+    pos_by_id: Dict[str, str] = {}
+    neg_by_id: Dict[str, str] = {}
+    mask = np.zeros(len(txt_ids), np.float32)
+    for i, tid in enumerate(txt_ids):
+        positive, negated, has_neg = split_negation(tsrc.captions[tid])
+        pos_by_id[tid], neg_by_id[tid] = positive, negated if has_neg else ""
+        mask[i] = 1.0 if has_neg else 0.0
+    if not mask.any():
+        return None, None, mask
+    if all(name in TextBatcher._PRECOMPUTED_KEYS for name in batcher.featurizers):
+        logger.warning(
+            "NEGATION SCORING IS INERT: every text modality (%s) is a precomputed feature "
+            "store keyed by cap_id, so the synthesized positive/negated clauses reuse the full "
+            "query's rows and the negation adjustment carries no signal. Add a live text "
+            "encoder (bow/w2v/gru) to make --task3_caption effective (the reference drops "
+            "precomputed CLIP in its task3 loaders, data_provider.py:517-518).",
+            ", ".join(sorted(batcher.featurizers)))
+
+    def clause_feed(clause_by_id):
+        return EvalFeed(list(txt_ids), lambda ids: batcher.encode_captions(
+            [clause_by_id[c] for c in ids], ids), batch_size=txt_feed.batch_size)
+
+    pos_embs, _ = embedder.embed_txt(clause_feed(pos_by_id))
+    neg_embs, _ = embedder.embed_txt(clause_feed(neg_by_id))
+    return pos_embs, neg_embs, mask
+
+
+def t2v_from_scores(scores: np.ndarray, txt_ids: List[str], vis_ids: List[str],
+                    device: torch.device):
+    """t2v metrics of an adjusted or re-ranked score matrix: each caption's
+    video ranked in its row on ``device`` (ties larger-index-first)."""
+    col = {v: i for i, v in enumerate(vis_ids)}
+    gt = torch.tensor([col[t.split("#", 1)[0]] for t in txt_ids])
+    ranks = ranks_from_scores(torch.from_numpy(scores).to(device), gt).cpu().numpy()
+    return metrics_from_ranks(ranks), ranks
+
+
+def each_head_outputs(opt: PredictOptions, output_dir: str, txt_embs: torch.Tensor,
+                      vis_embs: torch.Tensor, txt_ids: List[str], vis_ids: List[str],
+                      model_tag: str, parm_adjust: str, device: torch.device) -> List:
+    """``--each_head 1`` (reference ``get_multi_predict_file``,
+    predictor.py:290-405): each head's t2v row in ``head<h>_<result
+    file>``, its score file ``head<h>.id.sent.score.txt`` and its block of
+    ``perf.txt``. The reference overwrites one file per head, so only the
+    last head's survives; as in ``laff_tpu`` every file is named by its
+    head. Returns the heads' metric tuples."""
+    result_dir = os.path.dirname(opt.predict_result_file)
+    result_name = os.path.basename(opt.predict_result_file)
+    head_scores = per_head_scores(txt_embs, vis_embs)
+    per_head, blocks, files = [], [], []
+    for h in range(head_scores.shape[0]):
+        m = eval_t2v(head_scores[h], txt_ids, vis_ids)
+        per_head.append(m)
+        append_result_row(os.path.join(result_dir, "TextToVideo", f"head{h}_" + result_name),
+                          model_tag, parm_adjust, m)
+        r1, r5, r10, medr, meanr, mir, mAP = m
+        blocks.append(f" * Text to video head{h}:\n"
+                      f" * r_1_5_10: {[round(r1, 3), round(r5, 3), round(r10, 3)]}\n"
+                      f" * medr, meanr, mir: {[round(medr, 3), round(meanr, 3), round(mir, 3)]}"
+                      f"\n * mAP: {round(mAP, 3)}\n * " + "-" * 10)
+        files.append((os.path.join(output_dir, f"head{h}.id.sent.score.txt"),
+                      *score_rankings(head_scores[h], device)))
+    write_score_files(files, txt_ids, vis_ids)
+    with open(os.path.join(output_dir, "perf.txt"), "w") as fh:
+        fh.write("\n".join(blocks) + "\n")
+    return per_head
+
+
 def main(opt: PredictOptions) -> Dict:
     """Returns {query_set: {'t2v', 'v2t' metric tuples, 't2v_ranks',
-    'seconds' per phase}}."""
+    'seconds' per phase, 'negated_queries' (None without negation
+    scoring), and with each_head 'per_head'}}."""
     device = resolve_device(opt.device)
     ckpt = load_checkpoint(opt.model_path)
     config = ckpt["config"]
@@ -202,9 +430,35 @@ def main(opt: PredictOptions) -> Dict:
         lap("embed_vis")
         scores = score_matrix(txt_embs, vis_embs, measure=measure)
         lap("score_matrix")
-        ranks = t2v_ranks(txt_embs, vis_embs, txt_ids, vis_ids, measure=measure,
-                          rank_path=opt.rank_path)
-        t2v = metrics_from_ranks(ranks)
+        adjusted, negated = False, None
+        if opt.task3_caption != "no_task3_caption":
+            pos_embs, neg_embs, neg_mask = embed_negation_split(embedder, txt_feed, tsrc,
+                                                                txt_ids)
+            negated = int(neg_mask.sum())
+            if neg_embs is None:
+                logger.warning("task3_caption=%s set but no query contains a negation cue; "
+                               "scores unchanged", opt.task3_caption)
+            else:
+                adjusted = True
+                scores = negation_adjusted_scores(
+                    score_matrix(pos_embs, vis_embs, measure=measure),
+                    score_matrix(neg_embs, vis_embs, measure=measure), neg_mask,
+                    method=opt.neg_method)
+                logger.info("negation scoring (%s): %d/%d queries carry a negation",
+                            opt.neg_method, negated, len(txt_ids))
+            lap("negation")
+        if opt.rerank == "concept":
+            scores = concept_rerank_scores(opt, scores, txt_ids, vis_ids, tsrc)
+            lap("rerank")
+        elif opt.rerank != "none":
+            scores = apply_rerank(opt.rerank, scores, txt_embs, vis_embs)
+            lap("rerank")
+        if adjusted or opt.rerank != "none":
+            t2v, ranks = t2v_from_scores(scores, txt_ids, vis_ids, device)
+        else:
+            ranks = t2v_ranks(txt_embs, vis_embs, txt_ids, vis_ids, measure=measure,
+                              rank_path=opt.rank_path)
+            t2v = metrics_from_ranks(ranks)
         lap("t2v_ranks")
         append_result_row(os.path.join(result_dir, "TextToVideo", result_name),
                           model_tag, parm_adjust, t2v)
@@ -216,7 +470,12 @@ def main(opt: PredictOptions) -> Dict:
         append_result_row(os.path.join(result_dir, "VideoToText", result_name),
                           model_tag, parm_adjust, v2t)
         results[query_set] = {"t2v": t2v, "v2t": v2t, "t2v_ranks": ranks,
-                              "seconds": seconds}
+                              "seconds": seconds, "negated_queries": negated}
+        if opt.each_head and txt_embs.ndim == 3:
+            results[query_set]["per_head"] = each_head_outputs(
+                opt, output_dir, txt_embs, vis_embs, txt_ids, vis_ids, model_tag, parm_adjust,
+                device)
+            lap("each_head")
         logger.info("%s t2v r1=%.2f r5=%.2f r10=%.2f medr=%.0f mir=%.4f",
                     query_set, t2v[0], t2v[1], t2v[2], t2v[3], t2v[5])
     return results

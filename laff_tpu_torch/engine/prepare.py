@@ -14,6 +14,12 @@ FrameLAFF configs (``frame_feat_input``) open their frame BigFiles from
 ``FeatureData/frame/<name>`` of each collection (train, validation,
 ``trainCollection2``) and feed them padded to ``max_frame``.
 
+The auxiliary tasks: ``task3_caption`` opens the train collection's
+false-caption set ``<train>.caption.<task3_caption>.txt`` for the feed and
+names the validation negation set ``<val>.caption.negationset.txt``;
+``prepare_task2`` builds task2's concept labels and spec (inert without
+``task2_intended``).
+
 Options of ``laff_tpu`` that the port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them; none is
 silently ignored.
@@ -33,7 +39,8 @@ import torch
 from ..data import PairFeed, TextBatcher, TextSource, VisBatcher, VisionSource, read_video_set
 from ..models.laff import LAFFModel
 from ..models.registry import END2END_NOT_PORTED
-from ..models.spec import AttentionSpec, GruSpec, LAFFSpec, TowerSpec, TransformSpec
+from ..models.spec import (AttentionSpec, GruSpec, LAFFSpec, Task2Spec, Task3Spec, TowerSpec,
+                           TransformSpec)
 from ..store import BigFile
 from ..text import build_vocab, get_txt2vec
 from ..text.txt2vec import IndexVec, load_vocab_pickle
@@ -92,8 +99,8 @@ def get_we(vocab, w2v_dir: str, rng: np.random.Generator) -> np.ndarray:
     return we.astype(np.float32)
 
 
-def _ensure_vocab(rootpath, collection, encoding, threshold, capfile):
-    path = os.path.join(rootpath, collection, "TextData", "vocab",
+def _ensure_vocab(rootpath, collection, encoding, threshold, capfile, dirname="vocab"):
+    path = os.path.join(rootpath, collection, "TextData", dirname,
                         f"{encoding}_{threshold}.pkl")
     if os.path.exists(path):
         return load_vocab_pickle(path)
@@ -211,12 +218,14 @@ def tied_transforms(config, txt_dims: Dict[str, int],
 
 def build_spec(config, vis_dims: Dict[str, int], txt_dims: Dict[str, int],
                gru_spec: Optional[GruSpec],
-               frame_dims: Optional[Dict[str, int]] = None) -> LAFFSpec:
+               frame_dims: Optional[Dict[str, int]] = None, task3: bool = False,
+               task2: Optional[Task2Spec] = None) -> LAFFSpec:
     """config + discovered feature dims (``frame_dims``: FrameLAFF's frame
     features) -> frozen LAFFSpec (``laff_tpu.engine.prepare.build_spec``
-    without task2, task3 and a live BERT). The NetVLAD cluster count is the
-    config's (``NetVLAD_opt``), whose product with the w2v width is the
-    'netvlad' feature's."""
+    without a live BERT). ``task3`` adds the config's negation-loss knobs;
+    ``task2`` is the spec ``prepare_task2`` built. The NetVLAD cluster
+    count is the config's (``NetVLAD_opt``), whose product with the w2v
+    width is the 'netvlad' feature's."""
     frame_dims = frame_dims or {}
     if isinstance(config.txt_fc_layers, str):
         txt_common = int(config.txt_fc_layers.split("-")[1])
@@ -271,7 +280,14 @@ def build_spec(config, vis_dims: Dict[str, int], txt_dims: Dict[str, int],
         multi_space=config.multi_space, measure=config.measure,
         margin=config.margin, direction=config.direction,
         max_violation=config.max_violation, cost_style=config.cost_style,
-        loss=config.loss,
+        loss=config.loss, task2=task2,
+        task3=Task3Spec(
+            neg_weight=config.task3_neg_weight, bottom_margin=config.task3_bottommargin,
+            upper_margin=config.task3_uppermargin,
+            bottom_margin_t2t=config.task3_bottommargin_t2t,
+            upper_margin_t2t=config.task3_uppermargin_t2t,
+            retrieval_weight=config.task3_neg_retrival_weight,
+            end_epoch=config.task3_end) if task3 else None,
     )
 
 
@@ -378,16 +394,15 @@ class Options:
     device_text_cache: int = -1
     device_text_featurize: int = 0
     stage_val_features: int = 1
-    # options of laff_tpu that raise here until their ROADMAP item lands
-    data_parallel: int = 0
+    # opt in to the task2 concept loss; task2_caption alone is inert
     task2_intended: int = 0
+    # laff_tpu's option that raises here until its ROADMAP item lands
+    data_parallel: int = 0
 
 
 # option, the values the port runs, the ROADMAP item that brings the others
 _NOT_PORTED = (
     ("data_parallel", lambda v: v in (0, 1), "data_parallel (ROADMAP Queue 1 item 5)"),
-    ("task3_caption", lambda v: v == "no_task3_caption", "task3 (ROADMAP Queue 1 item 1)"),
-    ("task2_intended", lambda v: v == 0, "task2 (ROADMAP Queue 1 item 1)"),
 )
 
 
@@ -398,9 +413,6 @@ def check_options(opt: Options) -> None:
             raise NotImplementedError(f"{name}={value!r} is not ported yet: {later}")
     if opt.train_strategy not in ("usual", "subset"):
         raise ValueError(f"train_strategy {opt.train_strategy!r} is not 'usual' or 'subset'")
-    if opt.task2_caption != "no_task2_caption":
-        logger.warning("task2_caption=%s accepted but inert, as in laff_tpu without "
-                       "--task2_intended 1", opt.task2_caption)
 
 
 def check_config(config) -> None:
@@ -437,6 +449,10 @@ class Prepared:
     train2_feed: Optional[PairFeed] = None  # trainCollection2's pairs, single steps
     # (K+1, D) w2v table that the step mean-pools from, with device_text_featurize
     w2v_table: Optional[np.ndarray] = None
+    # task3: <val>/TextData/<val_set>/<val>.caption.negationset.txt, the
+    # validation captions re-evaluated after each validation as 'task3_*'
+    # metrics (reference trainer.py:120-122, 596-607)
+    negationset_path: Optional[str] = None
 
 
 def _vis_files(rootpath: str, collection: str, names) -> Dict[str, BigFile]:
@@ -463,11 +479,67 @@ def vision_source(rootpath: str, collection: str, config, vis_ids=None) -> Visio
 
 
 def _pair_feed(config, featurizers, tsource, vsource, batch_size, seed, dtf, dtf_w2v,
-               cap_ids=None) -> PairFeed:
+               cap_ids=None, task3_source=None, task2_labels=None) -> PairFeed:
     return PairFeed(
         TextBatcher(tsource, dict(featurizers), max_txtlength=config.max_txtlength,
                     indexed_bow=dtf, indexed_w2v=dtf_w2v),
-        VisBatcher(vsource), batch_size=batch_size, seed=seed, cap_ids=cap_ids)
+        VisBatcher(vsource, task2_labels=task2_labels), batch_size=batch_size, seed=seed,
+        cap_ids=cap_ids, task3_source=task3_source)
+
+
+def prepare_task2(opt: Options, config, txt_dims: Dict[str, int], vis_dims: Dict[str, int]
+                  ) -> Tuple[Optional[Task2Spec], Optional[Dict[str, np.ndarray]]]:
+    """The task2 (concept space) spec and per-video multi-hot labels
+    (``laff_tpu.engine.prepare._prepare_task2``). Without
+    ``--task2_intended 1`` a ``task2_caption`` is accepted but inert, as in
+    the reference, whose task2 loss is dead code (``model/model.py:884``).
+    With it: a bow vocabulary over the train collection's object-caption
+    file ``<train>.caption.<task2_caption>.txt`` (saved as
+    ``TextData/vocab_<suffix>/<enc>_<threshold>.pkl``), one label row per
+    video id of that file, and the text head's input, the main tower's
+    ``txt_feature_task2`` feature ('bow', 'w2v' or 'no')."""
+    suffix = opt.task2_caption
+    if suffix == "no_task2_caption":
+        return None, None
+    if not opt.task2_intended:
+        logger.warning(
+            "task2_caption=%s accepted but INERT: the reference's task2 loss is dead code "
+            "(model/model.py:884 passes zeros) and parity is kept by default. Pass "
+            "--task2_intended 1 for the intent implementation (concept-space auxiliary "
+            "loss).", suffix)
+        return None, None
+    capfile = os.path.join(opt.rootpath, opt.trainCollection, "TextData",
+                           f"{opt.trainCollection}.caption.{suffix}.txt")
+    encoding = config.text_encoding_task2
+    vocab2 = _ensure_vocab(opt.rootpath, opt.trainCollection, encoding,
+                           config.threshold_task2, capfile, dirname=f"vocab_{suffix}")
+    bow2 = get_txt2vec(encoding)(vocab2, norm=0)
+    labels = {vis_id: (np.asarray(bow2.encoding(cap)) > 0).astype(np.float32)
+              for vis_id, cap in TextSource(capfile).captions.items()}
+    if not labels:
+        raise ValueError(f"task2 caption file {capfile} yielded no labels")
+    feat2 = config.txt_feature_task2
+    if feat2 in ("bow", "w2v"):
+        if feat2 not in txt_dims:
+            raise ValueError(f"txt_feature_task2={feat2!r} but the main text encoding has "
+                             f"no {feat2!r} feature (active: {sorted(txt_dims)})")
+        txt_dim_in = txt_dims[feat2]
+    elif feat2 == "no":
+        txt_dim_in = 0
+    else:
+        raise NotImplementedError(f"txt_feature_task2={feat2!r}: only bow/w2v/no are "
+                                  "supported (the gru variant would need the in-graph GRU "
+                                  "encoding)")
+    if not vis_dims:
+        raise ValueError("task2 needs video-level features (vid_feats)")
+    spec2 = Task2Spec(
+        n_concepts=bow2.ndims, vis_dim_in=int(sum(vis_dims.values())), txt_feature=feat2,
+        txt_dim_in=txt_dim_in, activation=config.activation_task2,
+        batch_norm=config.batch_norm_task2, dropout=config.dropout_task2,
+        measure=config.measure_task2, alpha=config.alpha)
+    logger.info("task2 (intent) enabled: %d concepts over %d labeled videos, alpha=%.3f",
+                bow2.ndims, len(labels), config.alpha)
+    return spec2, labels
 
 
 def _captions_file(rootpath: str, collection: str, val_set: str = "") -> str:
@@ -518,7 +590,10 @@ def prepare(opt: Options) -> Prepared:
     if isinstance(config.txt_fc_layers, str):
         config.txt_fc_layers = [0, int(config.txt_fc_layers.split("-")[1])]
     config.txt_fc_layers[0] = int(sum(txt_dims.values()))
-    spec = build_spec(config, vis_dims, txt_dims, gru_spec, frame_dims)
+    task3 = opt.task3_caption != "no_task3_caption"
+    task2_spec, task2_labels = prepare_task2(opt, config, txt_dims, vis_dims)
+    spec = build_spec(config, vis_dims, txt_dims, gru_spec, frame_dims, task3=task3,
+                      task2=task2_spec)
     # the legacy RandomState seeded like laff_tpu's np.random.seed(random_seed)
     we = gru_init_we(config, gru_vocab, w2v_dir, np.random.RandomState(opt.random_seed))
 
@@ -528,13 +603,25 @@ def prepare(opt: Options) -> Prepared:
     if train2 != "None":
         capfile2 = _captions_file(rootpath, train2)
         train2_tsource = TextSource(capfile2, precomputed=text_precomputed(config, capfile2))
+    task3_source = None
+    if task3:
+        task3_source = TextSource(
+            os.path.join(rootpath, train, "TextData", f"{train}.caption.{opt.task3_caption}.txt"),
+            task3=True, shuffle_seed=opt.random_seed)
+        if "clip" in featurizers or "bert" in featurizers:
+            logger.warning("task3 with precomputed clip/bert text features: false captions "
+                           "reuse the true caption's precomputed vector (live tower pending)")
 
-    # the w2v table must cover every caption a train feed can emit
+    # the w2v table must cover every caption a train feed can emit: train,
+    # train2, task3's false captions and their negation-augmented variants
     dtf = bool(opt.device_text_featurize)
     w2v_table = None
     dtf_w2v = dtf and featurizers.get("w2v") is not None
     if dtf_w2v:
         caps = list(train_tsource.captions.values())
+        if task3_source is not None:
+            caps += [c for lst in task3_source.captions_multi.values() for c in lst]
+            caps += [c for lst in task3_source.negation_augmented().values() for c in lst]
         if train2_tsource is not None:
             caps += list(train2_tsource.captions.values())
         w2v_table = featurizers["w2v"].build_row_index(caps)
@@ -545,7 +632,8 @@ def prepare(opt: Options) -> Prepared:
         cut = int(0.985 * len(all_caps))
         train_caps, holdout = all_caps[:cut], all_caps[cut:]
     train_feed = _pair_feed(config, featurizers, train_tsource, train_vsource, opt.batch_size,
-                            opt.random_seed, dtf, dtf_w2v, cap_ids=train_caps)
+                            opt.random_seed, dtf, dtf_w2v, cap_ids=train_caps,
+                            task3_source=task3_source, task2_labels=task2_labels)
     train2_feed = None
     if train2_tsource is not None:
         train2_vsource = vision_source(rootpath, train2, config)
@@ -568,4 +656,6 @@ def prepare(opt: Options) -> Prepared:
         val_txt_batcher=TextBatcher(val_tsource, dict(featurizers),
                                     max_txtlength=config.max_txtlength, indexed_bow=dtf),
         val_vis_batcher=VisBatcher(val_vsource), val_vis_ids=val_ids,
-        featurizers=featurizers, we=we, train2_feed=train2_feed, w2v_table=w2v_table)
+        featurizers=featurizers, we=we, train2_feed=train2_feed, w2v_table=w2v_table,
+        negationset_path=(os.path.join(rootpath, val, "TextData", val_set,
+                                       f"{val}.caption.negationset.txt") if task3 else None))

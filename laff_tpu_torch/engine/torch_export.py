@@ -9,7 +9,8 @@ the mean residual), and a cross-tower tied linear is written into both
 towers' ``fc1``: the reference's multi-head tie is a no-op, so its loader
 expects a copy per tower. Covers the LAFF and FrameLAFF layouts (the gate
 kinds); a tower of another fusion kind raises, as its reference layout is
-not mapped.
+not mapped. task2's concept heads have no reference counterpart: they are
+left out with a warning, and the retrieval towers are exported in full.
 
 ``save_torch_checkpoint`` writes {'epoch', 'model', 'best_perf', 'config',
 'opt', 'vocab'}: the config as an ``argparse.Namespace`` of its plain
@@ -121,6 +122,10 @@ def export_state_dict(payload: Dict) -> Dict[str, torch.Tensor]:
             w.multihead_gate(ours, base + idx)
         else:
             w.single_gate(ours, base + idx)
+    if any(k.startswith(("task2_vis_head.", "task2_txt_head.")) for k in w.state):
+        # the reference builds no task2 module (its task2 loss is dead code)
+        logger.warning("task2 concept heads present but NOT exported (the reference has no "
+                       "task2 modules); retrieval towers exported in full")
     return w.sd
 
 

@@ -40,8 +40,15 @@
   of the payload, which the next step's in-place updates cannot reach,
   and hands only the pickling and the disk write to the thread.
 
-Left for later slices (ROADMAP Queue 1): task2 and task3, data_parallel,
-the BERT lr/20 mask, and TensorBoard (``scalars.tsv`` only).
+* task3 (``--task3_caption``): each batch carries a false caption and its
+  mask (``step_text``), the step adds ``_masked_margin2`` over a second
+  text forward, and after each validation the negation subset's metrics
+  (``<val>.caption.negationset.txt``) become ``task3_*`` history entries
+  and ``task3val/*`` scalars. task2 (``--task2_intended 1``): the step
+  adds ``_task2_loss`` over the concept heads' logits.
+
+Left for later slices (ROADMAP Queue 1): data_parallel, the BERT lr/20
+mask, and TensorBoard (``scalars.tsv`` only).
 """
 
 from __future__ import annotations
@@ -54,9 +61,12 @@ from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..data import EvalFeed, PairFeed, Prefetcher, host_cast_bf16
-from ..ops import hist_sim, multi_head_cosine_sim
+from ..eval.metrics import metrics_from_ranks
+from ..models.layers import frozen_batch_stats
+from ..ops import cosine_sim, hist_sim, l2norm, multi_head_cosine_sim
 from ..ops.losses import (
     cross_entropy_loss,
     cross_entropy_loss_from_scores,
@@ -84,6 +94,9 @@ CACHE_BUDGET_DEFAULT = 4 * 1024**3  # bytes of device memory for both train cach
 GRAPH_WARMUP = 3  # eager steps on a side stream before a capture (torch's advice)
 
 Batch = Union[torch.Tensor, Dict[str, torch.Tensor]]  # arrays, or cache row indices
+# task3 rides the text batch: the false caption's arrays under this prefix,
+# and 'task3_mask' (B,) int32
+FALSE_PREFIX = "false_txt."
 
 
 def make_loss_fn(spec):
@@ -120,21 +133,132 @@ def make_loss_fn(spec):
     return loss_fn
 
 
+def _masked_margin2(txt_embs: torch.Tensor, vis_embs: torch.Tensor, false_embs: torch.Tensor,
+                    mask: torch.Tensor, task3, epoch: torch.Tensor) -> torch.Tensor:
+    """task3's per-row dual-margin negation loss (``laff_tpu``'s
+    ``_masked_margin2``): cosines of each row's (true caption, video),
+    (false caption, video) and (false, true caption) pairs, per head and
+    summed over heads for (B, H, d) embeddings; rows with mask -1 (no
+    entry) drop out, a row with mask 1 is weighted by ``neg_weight``; the
+    sum over rows is scaled by batch / valid rows (reference
+    ``model/model.py:942-949``) and by ``retrieval_weight``, and is 0 from
+    ``epoch`` (a tensor, so a CUDA graph reads it) ``end_epoch`` on."""
+    valid = (mask > -1).float()
+    weight = torch.where(mask > -1, mask.float(), torch.zeros((), device=mask.device))
+    weight = weight * (task3.neg_weight - 1.0) + 1.0
+    t, v, f = l2norm(txt_embs), l2norm(vis_embs), l2norm(false_embs)
+    s_t, s_f, s_f2 = (t * v).sum(-1), (f * v).sum(-1), (f * t).sum(-1)
+    cost = torch.zeros_like(s_t)
+    if task3.bottom_margin is not None:
+        cost = cost + torch.clamp(task3.bottom_margin + s_f - s_t, min=0.0)
+    if task3.upper_margin is not None:
+        cost = cost + torch.clamp(-task3.upper_margin - s_f + s_t, min=0.0)
+    if task3.bottom_margin_t2t is not None:
+        cost = cost + torch.clamp(task3.bottom_margin_t2t + s_f2 - s_t, min=0.0)
+    if task3.upper_margin_t2t is not None:
+        cost = cost + torch.clamp(-task3.upper_margin_t2t - s_f2 + s_t, min=0.0)
+    if cost.ndim == 2:  # (B, H): summed over heads
+        cost = cost.sum(dim=1)
+    n_valid = torch.clamp(valid.sum(), min=1.0)
+    total = (cost * weight * valid).sum() / n_valid * txt_embs.shape[0]
+    active = (epoch < task3.end_epoch).float()
+    return total * task3.retrieval_weight * active
+
+
+def _task2_loss(txt_logits: Optional[torch.Tensor], vis_logits: torch.Tensor,
+                labels: torch.Tensor, task2) -> torch.Tensor:
+    """task2's concept loss (``laff_tpu``'s ``_task2_loss``): BCE with
+    logits of each head against the video's multi-hot labels (summed over
+    concepts, averaged over the batch), plus the in-batch triplet (mean
+    cost) over the heads' sigmoid probabilities under ``task2.measure``
+    ('hist' or cosine), all times ``alpha``."""
+    labels = labels.float()
+
+    def bce(logits: torch.Tensor) -> torch.Tensor:
+        return F.binary_cross_entropy_with_logits(logits, labels,
+                                                  reduction="none").sum(dim=1).mean()
+
+    total = bce(vis_logits)
+    if txt_logits is not None:
+        total = total + bce(txt_logits)
+        t_prob, v_prob = torch.sigmoid(txt_logits), torch.sigmoid(vis_logits)
+        scores = hist_sim(v_prob, t_prob) if task2.measure == "hist" else cosine_sim(v_prob,
+                                                                                     t_prob)
+        total = total + triplet_loss_from_scores(scores, cost_style="mean")
+    return task2.alpha * total
+
+
+def split_task3(txt: Dict[str, torch.Tensor]):
+    """A step's text batch -> (txt, false_txt or None, task3_mask or None)."""
+    if "task3_mask" not in txt:
+        return txt, None, None
+    main = {k: v for k, v in txt.items()
+            if not k.startswith(FALSE_PREFIX) and k != "task3_mask"}
+    false = {k[len(FALSE_PREFIX):]: v for k, v in txt.items() if k.startswith(FALSE_PREFIX)}
+    return main, false, txt["task3_mask"]
+
+
+def step_text(batch: Dict) -> Dict[str, np.ndarray]:
+    """A feed batch's text arrays for the step: with task3 the false
+    caption's arrays (under ``FALSE_PREFIX``) and 'task3_mask' join them."""
+    if "false_txt" not in batch:
+        return batch["txt"]
+    return {**batch["txt"], **{FALSE_PREFIX + k: v for k, v in batch["false_txt"].items()},
+            "task3_mask": batch["task3_mask"]}
+
+
 class TrainStep:
     """One optimizer step on a batch already on the model's device:
     training-mode forward, loss, backward, update. Returns the loss as a
     tensor on the card (reading it is the caller's host sync). Puts the
-    model in training mode; ``validate`` leaves it so."""
+    model in training mode; ``validate`` leaves it so.
+
+    With task2 the forward is ``forward_with_concepts`` and the visual
+    batch carries 'task2_labels'. With task3 the text batch carries the
+    false caption (``step_text``): the text tower runs on it in training
+    mode under ``frozen_batch_stats``, so it normalizes by its own batch
+    statistics while the running statistics keep the main forward's update
+    only, as ``laff_tpu`` keeps; its dropout draws from the same generator.
+    The task3 epoch gate reads ``self.epoch``, a tensor on the model's
+    device that ``set_epoch`` fills in place, so a CUDA graph of the step
+    sees each epoch's value."""
 
     def __init__(self, model: torch.nn.Module, optimizer: OptaxChain, spec) -> None:
         self.model = model.train()
         self.optimizer = optimizer
+        self.spec = spec
         self.loss_fn = make_loss_fn(spec)
+        device = next(model.parameters()).device
+        self.epoch = torch.zeros((), dtype=torch.int64, device=device)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch.fill_(epoch)
+
+    def loss(self, txt: Dict[str, torch.Tensor], vis: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        spec, model = self.spec, self.model
+        txt, false_txt, task3_mask = split_task3(txt)
+        if spec.task2 is not None:
+            vis = dict(vis)
+            labels = vis.pop("task2_labels")
+            txt_embs, vis_embs, txt_conc, vis_conc = model.forward_with_concepts(
+                txt, vis, generator)
+            loss = self.loss_fn(txt_embs, vis_embs) + _task2_loss(txt_conc, vis_conc, labels,
+                                                                  spec.task2)
+        else:
+            txt_embs, vis_embs = model(txt, vis, generator)
+            loss = self.loss_fn(txt_embs, vis_embs)
+        if spec.task3 is not None and false_txt is not None:
+            with frozen_batch_stats(model.txt_net):
+                false_embs = model.encode_txt(false_txt, generator)
+            loss = loss + _masked_margin2(txt_embs, vis_embs, false_embs, task3_mask,
+                                          spec.task3, self.epoch)
+        return loss
 
     def __call__(self, txt: Dict[str, torch.Tensor], vis: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
         self.optimizer.zero_grad()
-        loss = self.loss_fn(*self.model(txt, vis, generator))
+        loss = self.loss(txt, vis, generator)
         loss.backward()
         self.optimizer.step()
         return loss.detach()
@@ -171,8 +295,9 @@ def host_tensors(arrays: Dict[str, np.ndarray], pin: bool,
 
 def host_batch(batch: Dict, pin: bool, cast_txt: bool = False,
                cast_vis: bool = False) -> Dict[str, Dict[str, torch.Tensor]]:
-    """A featurized feed batch's arrays as CPU tensors (``host_tensors``)."""
-    return {"txt": host_tensors(batch["txt"], pin, cast_txt),
+    """A featurized feed batch's arrays as CPU tensors (``host_tensors``;
+    the text side through ``step_text``)."""
+    return {"txt": host_tensors(step_text(batch), pin, cast_txt),
             "vis": host_tensors(batch["vis"], pin, cast_vis)}
 
 
@@ -208,19 +333,23 @@ def make_txt_cached_train_step(step, txt_cache: DeviceTxtCache):
 
 def pool_w2v(txt: Dict[str, torch.Tensor], table: torch.Tensor) -> Dict[str, torch.Tensor]:
     """'w2v_ids' (B, T) rows of ``table`` and 'w2v_len' (B,) -> the mean
-    'w2v' (B, D): ``table[ids].sum(1) / n``, padding on the zero sink row.
-    The rows are added one position at a time, the order in which the host
-    mean (numpy, over a caption's word vectors) adds them, so the pooled
-    mean equals the fed path's bit for bit (and so do its bf16 roundings)."""
+    'w2v' (B, D): ``table[ids].sum(1) / n``, padding on the zero sink row;
+    a task3 false caption's ids (``FALSE_PREFIX``) likewise. The rows are
+    added one position at a time, the order in which the host mean (numpy,
+    over a caption's word vectors) adds them, so the pooled mean equals the
+    fed path's bit for bit (and so do its bf16 roundings)."""
     if "w2v_ids" not in txt:
         return txt
     txt = dict(txt)
-    rows = table[txt.pop("w2v_ids").long()]  # (B, T, D)
-    n = txt.pop("w2v_len")
-    total = rows[:, 0]
-    for t in range(1, rows.shape[1]):
-        total = total + rows[:, t]
-    txt["w2v"] = total / n[:, None].to(table.dtype)
+    for prefix in ("", FALSE_PREFIX):
+        if prefix + "w2v_ids" not in txt:
+            continue
+        rows = table[txt.pop(prefix + "w2v_ids").long()]  # (B, T, D)
+        n = txt.pop(prefix + "w2v_len")
+        total = rows[:, 0]
+        for t in range(1, rows.shape[1]):
+            total = total + rows[:, t]
+        txt[prefix + "w2v"] = total / n[:, None].to(table.dtype)
     return txt
 
 
@@ -373,7 +502,7 @@ def train_one_epoch(step, feed: PairFeed, epoch: int, device: torch.device,
 
     def host_args(batch):  # in the prefetch thread
         txt = (txt_cache.indices(batch["cap_ids"]) if txt_cache is not None
-               else host_tensors(batch["txt"], pin, cast_txt))
+               else host_tensors(step_text(batch), pin, cast_txt))
         vis = (vis_cache.indices(batch["vis_ids"]) if vis_cache is not None
                else host_tensors(batch["vis"], pin, cast_vis))
         return txt, vis
@@ -486,7 +615,10 @@ def _check_fits(what: str, nbytes: int, device: torch.device) -> None:
 def setup_dispatch(opt: Options, prepared: Prepared, base: TrainStep, device: torch.device,
                    cast_txt: bool, cast_vis: bool) -> Dict:
     """``laff_tpu``'s dispatch rules (``trainer.py:862-946``): the caches,
-    the step wrappers around ``base``, K, the prefetch depth. Returns
+    the step wrappers around ``base``, K, the prefetch depth. task3 draws
+    new false captions and augmented captions every epoch, so its text side
+    is not cached: auto declines the text cache and ``--device_text_cache
+    1`` raises; task2's labels ride the visual cache. Returns
     {step, fed_step, multi_step, vis_cache, txt_cache, steps_per_dispatch,
     prefetch_depth}; turns the train feed's featurization off for the sides
     a cache holds."""
@@ -513,6 +645,15 @@ def setup_dispatch(opt: Options, prepared: Prepared, base: TrainStep, device: to
 
     txt_cache = None
     want_txt = int(opt.device_text_cache)
+    txt_deterministic = prepared.spec.task3 is None
+    if want_txt and not txt_deterministic:
+        if want_txt == 1:
+            raise ValueError(
+                "--device_text_cache 1 is incompatible with task3 (negation augmentation "
+                "substitutes captions per epoch, so a once-built HBM cache would go stale). "
+                "Use 0 or -1 (auto).")
+        want_txt = 0
+        logger.info("device text cache declined: task3 draws the captions each epoch")
     if want_txt == -1 and vis_cache is None:
         want_txt = 0  # text rows alone do not help while the visual features stream
     if want_txt:
@@ -547,6 +688,33 @@ def setup_dispatch(opt: Options, prepared: Prepared, base: TrainStep, device: to
     return {"step": step, "fed_step": fed_step, "multi_step": multi_step,
             "vis_cache": vis_cache, "txt_cache": txt_cache, "steps_per_dispatch": spd,
             "prefetch_depth": prefetch_depth}
+
+
+def read_negationset(path: Optional[str]) -> Optional[set]:
+    """task3's validation subset: the caption ids of
+    ``<val>.caption.negationset.txt``; None (with a warning) when the file
+    is missing."""
+    if not path:
+        return None
+    if not os.path.exists(path):
+        logger.warning("task3 negationset file missing, skipping the in-training negation "
+                       "metrics: %s", path)
+        return None
+    with open(path) as fh:
+        ids = {line.strip().split(" ", 1)[0] for line in fh if line.strip()}
+    logger.info("task3 negation validation subset: %d caption ids (%s)", len(ids), path)
+    return ids
+
+
+def negation_subset_metrics(metrics: Dict, negationset: set):
+    """(metrics, n): the validation metrics over the n captions of the
+    negation subset, from the ranks ``validate`` counted (no second
+    ranking); (None, 0) when no validation caption is in the set."""
+    sel = np.asarray([t in negationset for t in metrics["txt_ids"]])
+    if not sel.any():
+        return None, 0
+    ranks = np.asarray(metrics["ranks"])[sel]
+    return dict(zip(METRICS, metrics_from_ranks(ranks))), int(sel.sum())
 
 
 def warm_start(model: torch.nn.Module, path: str) -> Dict:
@@ -603,6 +771,7 @@ def main(opt: Options, prepared: Optional[Prepared] = None) -> Dict:
     embedder = Embedder(model, device, prefetch_depth=max(2, int(opt.workers) + 1))
 
     generator = torch.Generator(device=device)  # reseeded each epoch
+    negationset = read_negationset(prepared.negationset_path)
     best_perf, no_impr, mean_last, start_epoch, global_step = 0.0, 0, [], 0, 0
     resume_path = os.path.join(model_path, "model_resume.pth.tar")
     if opt.resume and os.path.exists(resume_path):
@@ -643,6 +812,7 @@ def main(opt: Options, prepared: Optional[Prepared] = None) -> Dict:
             lr = lr_ctl.current()
             optimizer.set_learning_rate(lr)
             anneal_schedule(model, config.txt_attention_global_decay_rate)
+            base.set_epoch(epoch)
             scalar_log.add_scalar("train/learning_rate", lr, epoch)
             logger.info("Epoch %d/%d lr=%.6g", epoch, opt.num_epochs, lr)
 
@@ -681,6 +851,14 @@ def main(opt: Options, prepared: Optional[Prepared] = None) -> Dict:
             entry = {"epoch": epoch, "loss": float(train_loss), "lr": float(lr), "steps": steps,
                      "train_seconds": round(epoch_time, 2), "val_seconds": round(val_time, 2),
                      **{k: float(metrics[k]) for k in METRICS}}
+            if negationset is not None:
+                t3, n_sub = negation_subset_metrics(metrics, negationset)
+                if n_sub:
+                    for tag, v in t3.items():
+                        scalar_log.add_scalar(f"task3val/{tag}", v, epoch)
+                    entry.update({f"task3_{k}": float(v) for k, v in t3.items()})
+                    logger.info("epoch %d negation subset (%d caps): r1=%.2f mir=%.4f", epoch,
+                                n_sub, t3["r1"], t3["mir"])
             result["history"].append(entry)
 
             lr_ctl.step(cur_perf)

@@ -22,8 +22,11 @@ plus these layout changes:
 ``gate_kernel`` (H, dh), ``gate_bias`` (H,), the pre-LN parameters, the
 expert embedding, LinearCombine's ``kernel`` (L, 1) and ``bias``, the MHA's
 packed ``in_proj_weight`` / ``in_proj_bias``, ``cls_embedding`` and the
-NetVLAD ``assign`` / ``centroids`` keep their names and shapes. Inputs are nested dicts of
-numpy arrays (flax variable collections after ``np.asarray``).
+NetVLAD ``assign`` / ``centroids`` keep their names and shapes. task2's
+``task2_vis_head`` / ``task2_txt_head`` are TransformNets (fc1, bn1) and
+carry over by the same rules, BatchNorm statistics included. Inputs are
+nested dicts of numpy arrays (flax variable collections after
+``np.asarray``).
 """
 
 from __future__ import annotations

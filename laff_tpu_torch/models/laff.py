@@ -37,8 +37,17 @@ TransformNets use it as their fc, each with its own dropout and
 BatchNorm; the pair ('__concat__', '__concat__') ties the concat
 transform. The 'netvlad' text feature pools the caption's per-token w2v
 vectors ('netvlad_tokens' (B, T, D) under 'netvlad_mask' (B, T)) with
-``NetVLAD`` inside the tower. A live BERT tower and the task2 concept
-heads come with later slices and raise here.
+``NetVLAD`` inside the tower. A live BERT tower comes with a later slice
+and raises here.
+
+task2 (``spec.task2``, ``laff_tpu``'s concept-space intent): two heads
+``task2_vis_head`` and ``task2_txt_head``, TransformNets in f32 from the
+raw features to concept logits (fc -> dropout -> BatchNorm; the sigmoid is
+the loss's). ``encode_concepts`` feeds the vis head the concatenated raw
+video-level features and the txt head the main tower's
+``txt_feature`` ('bow' or 'w2v'); ``forward_with_concepts`` is the
+training forward with both, densifying a sparse bow row once for the text
+tower and the bow head.
 """
 
 from __future__ import annotations
@@ -238,13 +247,20 @@ class LAFFModel(nn.Module):
 
     def __init__(self, spec: LAFFSpec) -> None:
         super().__init__()
-        if spec.task2 is not None:
-            raise NotImplementedError("task2 concept heads are not ported yet: "
-                                      "ROADMAP Queue 1 item 1")
         self.spec = spec
         txt_tied, vis_tied = self._build_tied_transforms()
         self.txt_net = FusionTower(spec.txt, tied=txt_tied)
         self.vis_net = FusionTower(spec.vis, is_visual=True, tied=vis_tied)
+        t2 = spec.task2
+        self.task2_vis_head = self.task2_txt_head = None
+        if t2 is not None:
+            act = None if t2.activation == "sigmoid" else t2.activation
+            self.task2_vis_head = TransformNet(t2.vis_dim_in, t2.n_concepts, activation=act,
+                                               dropout=t2.dropout, batch_norm=t2.batch_norm)
+            if t2.txt_feature != "no":
+                self.task2_txt_head = TransformNet(t2.txt_dim_in, t2.n_concepts,
+                                                   activation=act, dropout=t2.dropout,
+                                                   batch_norm=t2.batch_norm)
 
     def _build_tied_transforms(self):
         """One ``tied_fc_<txt>_<vis>`` linear per tied pair, owned here
@@ -281,6 +297,10 @@ class LAFFModel(nn.Module):
                 nn.init.zeros_(module.bias)
         self.txt_net.reset_parameters(generator)
         self.vis_net.reset_parameters(generator)
+        for head in (self.task2_vis_head, self.task2_txt_head):
+            if head is not None:
+                head.reset_parameters(generator)
+
     def encode_txt(self, inputs: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.txt_net(inputs, generator)
@@ -291,3 +311,31 @@ class LAFFModel(nn.Module):
 
     def forward(self, txt_inputs, vis_inputs, generator: Optional[torch.Generator] = None):
         return self.encode_txt(txt_inputs, generator), self.encode_vis(vis_inputs, generator)
+
+    def encode_concepts(self, txt_inputs: Optional[Dict[str, torch.Tensor]],
+                        vis_inputs: Dict[str, torch.Tensor],
+                        generator: Optional[torch.Generator] = None):
+        """task2 concept logits (txt (B, C) or None, vis (B, C)). The heads
+        run in f32 on f32 copies of their inputs, as flax promotes bf16
+        features against f32 parameters."""
+        t2 = self.spec.task2
+        raw = torch.cat([vis_inputs[name].float() for name, _ in self.spec.vis.features],
+                        dim=1)
+        vis_logits = self.task2_vis_head(raw, generator)
+        txt_logits = None
+        if self.task2_txt_head is not None and txt_inputs is not None:
+            if t2.txt_feature == "bow" and "bow_ids" in txt_inputs:
+                txt_inputs = densify_bow(txt_inputs, dict(self.spec.txt.features)["bow"])
+            txt_logits = self.task2_txt_head(txt_inputs[t2.txt_feature].float(), generator)
+        return txt_logits, vis_logits
+
+    def forward_with_concepts(self, txt_inputs: Dict[str, torch.Tensor],
+                              vis_inputs: Dict[str, torch.Tensor],
+                              generator: Optional[torch.Generator] = None):
+        """The task2 training forward: (txt_embs, vis_embs, txt_logits,
+        vis_logits). A sparse bow row is densified once, for the text tower
+        and the bow concept head."""
+        if "bow_ids" in txt_inputs:
+            txt_inputs = densify_bow(txt_inputs, dict(self.spec.txt.features)["bow"])
+        txt_embs, vis_embs = self(txt_inputs, vis_inputs, generator)
+        return (txt_embs, vis_embs, *self.encode_concepts(txt_inputs, vis_inputs, generator))

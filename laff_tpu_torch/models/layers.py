@@ -15,6 +15,10 @@ With a ``compute_dtype`` (bf16 for the headline) the input, the linear map
 and the activation run in that type, BatchNorm normalizes in f32 and rounds
 back, and the output is cast to f32, as ``laff_tpu.models.layers`` does.
 
+``frozen_batch_stats(module)`` runs training forwards that normalize with
+the batch statistics but leave every running statistic as it was (the
+task3 false-caption forward, whose update ``laff_tpu`` drops).
+
 ``shared_fc`` replaces ``fc1`` by a linear owned elsewhere (cross-tower
 weight tying, ``txt_fc_same_with_vis_fc``): the map is shared, dropout and
 BatchNorm stay per tower. The module only refers to it; its owner
@@ -24,6 +28,7 @@ parameters in the state dict and the optimizer.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -56,6 +61,7 @@ class TransformNet(nn.Module):
         self.bn1 = (nn.BatchNorm1d(dim_out, eps=1e-5, momentum=0.1)
                     if batch_norm else None)
         self.compute_dtype = compute_dtype
+        self.update_stats = True  # off inside frozen_batch_stats
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         if self.fc1 is not None:
@@ -69,6 +75,8 @@ class TransformNet(nn.Module):
         if not self.training:
             return bn(x)
         out = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+        if not self.update_stats:
+            return out
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=0, correction=0)
             keep = 1.0 - bn.momentum
@@ -93,3 +101,17 @@ class TransformNet(nn.Module):
         if self.bn1 is not None:
             x = self._batch_norm(x.float()).to(x.dtype)
         return x.float() if dtype is not None else x
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(module: nn.Module):
+    """Inside, the TransformNets of ``module`` normalize with their batch
+    statistics in training mode but update no running statistic."""
+    nets = [m for m in module.modules() if isinstance(m, TransformNet)]
+    for net in nets:
+        net.update_stats = False
+    try:
+        yield
+    finally:
+        for net in nets:
+            net.update_stats = True

@@ -6,6 +6,9 @@
   triplet_loss_multi_space  LAFF-ml: one triplet loss per head, summed
   dual_softmax_loss         prior-reweighted symmetric InfoNCE (DSL)
   cross_entropy_loss        -sum(diag(sim))
+  margin_loss               task3: false-caption scores pushed below true ones
+  margin2_loss              task3: the dual-margin loss over t2v and t2t gaps
+  kl_loss                   KL(softmax(origin) || softmax(scores)) over rows
 
 Layout as in the JAX package: rows index videos, columns index captions
 (``scores = sim(vis, txt)``); ``measure`` is 'cosine' or 'hist' (the
@@ -13,7 +16,10 @@ generalized Jaccard of ``ops.similarity.hist_sim``). Direction 't2i' compares ea
 with its column (video retrieval), 'i2t' with its row, 'bidir' both;
 ``max_violation`` keeps the hardest negative only. Score matrices may carry
 leading batch dimensions (one per head); the losses reduce the last two.
-The negation losses (margin, margin2, kl) come with task3.
+The negation losses take paired (B, D) rows: with 'cosine' each pair's
+cosine, a (1, B) row; with 'hist' the (B, B) Jaccard matrix, as in
+``laff_tpu`` (``_VEC_MEASURES``). ``weight`` is per row (1 positive, 0
+negative) and scales a row's cost to ``neg_weight`` where it is 1.
 """
 
 from __future__ import annotations
@@ -22,6 +28,14 @@ import torch
 
 from .norms import l2norm
 from .similarity import hist_sim
+
+
+def _pair_scores(a: torch.Tensor, b: torch.Tensor, measure: str) -> torch.Tensor:
+    if measure == "hist":
+        return hist_sim(a, b)
+    if measure != "cosine":
+        raise ValueError(f"measure {measure!r} is not 'cosine' or 'hist'")
+    return (l2norm(a) * l2norm(b)).sum(dim=1)[None, :]
 
 
 def _triplet(scores: torch.Tensor, margin: float, direction: str, max_violation: bool,
@@ -115,3 +129,47 @@ def cross_entropy_loss(txt_embs: torch.Tensor, vis_embs: torch.Tensor) -> torch.
     """The reference CrossEntropyLoss, which reduces to -sum(diag(sim));
     per head over (B, H, d) pairs -> (H,)."""
     return cross_entropy_loss_from_scores(_cosine_scores(txt_embs, vis_embs))
+
+
+def margin_loss(txt_embs: torch.Tensor, vis_embs: torch.Tensor, false_txt_embs: torch.Tensor,
+                weight: torch.Tensor, neg_weight: float = 1.0, measure: str = "cosine",
+                cost_style: str = "sum") -> torch.Tensor:
+    """Negation loss: the false caption's score pushed below the true one's
+    (reference ``loss.py:224-268``, whose margin is 0)."""
+    scores_t = _pair_scores(txt_embs, vis_embs, measure)
+    scores_f = _pair_scores(false_txt_embs, vis_embs, measure)
+    cost = torch.clamp(scores_f - scores_t, min=0.0) * (weight * (neg_weight - 1.0) + 1.0)
+    return cost.sum() if cost_style == "sum" else cost.mean()
+
+
+def margin2_loss(txt_embs: torch.Tensor, vis_embs: torch.Tensor, false_txt_embs: torch.Tensor,
+                 weight: torch.Tensor, bottom_margin=0.1, upper_margin=0.6,
+                 bottom_margin_t2t=0.1, upper_margin_t2t=0.3, neg_weight: float = 1.0,
+                 measure: str = "cosine", cost_style: str = "sum") -> torch.Tensor:
+    """Dual-margin negation loss over the t2v and t2t score gaps (reference
+    ``loss.py:342-398``); a margin of None drops its term."""
+    scores_t = _pair_scores(txt_embs, vis_embs, measure)
+    scores_f = _pair_scores(false_txt_embs, vis_embs, measure)
+    scores_f2 = _pair_scores(false_txt_embs, txt_embs, measure)
+    cost = torch.zeros_like(scores_t)
+    if bottom_margin is not None:
+        cost = cost + torch.clamp(bottom_margin + scores_f - scores_t, min=0.0)
+    if upper_margin is not None:
+        cost = cost + torch.clamp(-upper_margin - scores_f + scores_t, min=0.0)
+    if bottom_margin_t2t is not None:
+        cost = cost + torch.clamp(bottom_margin_t2t + scores_f2 - scores_t, min=0.0)
+    if upper_margin_t2t is not None:
+        cost = cost + torch.clamp(-upper_margin_t2t - scores_f2 + scores_t, min=0.0)
+    cost = cost * (weight * (neg_weight - 1.0) + 1.0)
+    return cost.sum() if cost_style == "sum" else cost.mean()
+
+
+def kl_loss(scores: torch.Tensor, origin_scores: torch.Tensor,
+            cost_style: str = "sum") -> torch.Tensor:
+    """KL(softmax(origin) || softmax(scores)) per element over rows
+    (reference ``loss.py:313-338``: torch ``KLDivLoss(reduction='none')``
+    on log-softmax predictions), with the target's log clamped at 1e-30."""
+    target = torch.softmax(origin_scores, dim=1)
+    elementwise = target * (torch.log(torch.clamp(target, min=1e-30))
+                            - torch.log_softmax(scores, dim=1))
+    return elementwise.sum() if cost_style == "sum" else elementwise.mean()

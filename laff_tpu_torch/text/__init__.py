@@ -1,4 +1,4 @@
-from .textlib import TextTool, Vocabulary
+from .textlib import TextTool, Vocabulary, negation_augmentation, split_negation
 from .txt2vec import (
     NAME_TO_T2V,
     BowVec,
@@ -14,6 +14,8 @@ from .vocab import build_vocab, read_captions
 __all__ = [
     "TextTool",
     "Vocabulary",
+    "negation_augmentation",
+    "split_negation",
     "NAME_TO_T2V",
     "BowVec",
     "BowVecNSW",

@@ -1,4 +1,4 @@
-"""Tokenizer, stopword filtering and the vocabulary wrapper.
+"""Tokenizer, stopword filtering, vocabulary wrapper, negation augmentation.
 
 Tokenization semantics match the reference exactly (reference
 ``textlib.py:26-59``) because BoW vectors, the GRU index stream and the
@@ -49,6 +49,57 @@ class TextTool:
             if remove_stopword:
                 tokens = [t for t in tokens if t not in CHINESE_STOP_WORDS]
         return tokens
+
+
+# contraction <-> expansion pairs used by the negation-aware ("task3") data
+# pipeline (reference ``textlib.py:60-79``)
+_NEGATION_PAIRS = [
+    ("don t", "do not"), ("doesn t", "does not"), ("didn t", "did not"),
+    ("isn t", "is not"), ("aren t", "are not"), ("wasn t", "was not"),
+    ("weren t", "were not"), ("won t", "will not"), ("hasn t", "has not"),
+    ("haven t", "have not"), ("can t", "can not"), ("couldn t", "could not"),
+    ("don't", "do not"), ("doesn't", "does not"), ("didn't", "did not"),
+    ("isn't", "is not"), ("aren't", "are not"), ("won't", "will not"),
+    ("hasn't", "has not"), ("haven't", "have not"), ("can't", "can not"),
+    ("couldn't", "could not"),
+]
+
+
+def negation_augmentation(input_str: str) -> List[str]:
+    """Return [original, *augmented] where contractions are swapped with
+    their expansions (first matching pair in each direction only)."""
+    res = [input_str]
+    for contracted, expanded in _NEGATION_PAIRS:
+        if contracted in input_str:
+            res.append(input_str.replace(contracted, expanded))
+            break
+    for contracted, expanded in _NEGATION_PAIRS:
+        if expanded in input_str:
+            res.append(input_str.replace(expanded, contracted))
+            break
+    return res
+
+
+# keep the reference's (mis)spelling importable for drop-in compatibility
+negation_augumentation = negation_augmentation
+
+_NEGATION_CUES = (" not ", " no ", " without ", " never ")
+
+
+def split_negation(caption: str):
+    """Split a query into (positive part, negated clause, has_negation) for
+    boolean negation scoring. The clause after the first negation cue is
+    the negated content; the positive part keeps everything before it."""
+    padded = f" {caption.strip()} "
+    lower = padded.lower()
+    for cue in _NEGATION_CUES:
+        pos = lower.find(cue)
+        if pos >= 0:
+            positive = padded[:pos].strip()
+            negated = padded[pos + len(cue):].strip()
+            if positive and negated:
+                return positive, negated, True
+    return caption.strip(), "", False
 
 
 class Vocabulary:

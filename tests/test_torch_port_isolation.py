@@ -27,9 +27,10 @@ print(len(names), "modules;", "forbidden:", bad, covered)
 """
 
 # modules the walk must reach: the native featurizer, the FrameLAFF configs,
-# the checkpoint interchange, the registry and the configs that reference
-# checkpoints name
-REQUIRED = ("laff_tpu_torch.native", "laff_tpu_torch.configs.frame_rehearsal",
+# the checkpoint interchange, the registry, the configs that reference
+# checkpoints name and the re-rankers
+REQUIRED = ("laff_tpu_torch.native", "laff_tpu_torch.eval.rerank",
+            "laff_tpu_torch.configs.frame_rehearsal",
             "laff_tpu_torch.configs.FrameLaff_NoFrameFc_StrongCLIP_adjust",
             "laff_tpu_torch.engine.torch_import", "laff_tpu_torch.engine.torch_export",
             "laff_tpu_torch.models.registry", "laff_tpu_torch.configs.tiny",

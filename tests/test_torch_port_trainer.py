@@ -471,8 +471,7 @@ def test_resume_gives_the_uninterrupted_result(world, monkeypatch):
         assert torch.equal(v, cb["state_dict"][k]), k
 
 
-@pytest.mark.parametrize("option,value", [
-    ("data_parallel", 4), ("task3_caption", "negation"), ("task2_intended", 1)])
+@pytest.mark.parametrize("option,value", [("data_parallel", 4)])
 def test_options_not_ported_raise(world, option, value):
     opt = port_prepare.Options(device="cpu", **_base(world), **{option: value})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
