@@ -131,10 +131,27 @@ Phases, each asserting; any failure exits non-zero before the last line:
    kernel, its t2v row against eval_t2v of the plain path's adjusted
    scores from the same card embeddings. (d) On vtest (1,500 videos x 10
    captions, the VATEX test shape, with a concept pkl): --rerank
-   kreciprocal, tkb and concept and --each_head 1 under (a)'s checkpoint,
+   kreciprocal, tkb and concept, and --each_head 1 on vheads (vtest's
+   shape with 2 captions a video: 3,000 queries), under (a)'s checkpoint,
    each re-rank's wall time, each re-ranked t2v row against the port's host
    function on the same embeddings moved to the CPU, the 8 per-head score
    files and perf.txt checked (and deleted).
+8. AVS ad-hoc search at iacc.3's size (335,944 shots, 7.22 GB of the four
+   rehearsal video features, three editions of 30 topics with stratified
+   qrels: laff_tpu_torch.data.synth.build_avs_world, timed, removed at the
+   end) under phase 4's trained checkpoint. predictor.main answers
+   tv16/tv17/tv18.avs.txt at batch 1,024, streaming the gallery through
+   the video tower for each set: the gate only, 1 + 329 launches a set, no
+   rank kernel; each id.sent.score.txt 30 lines of 2,000 descending (id,
+   score) pairs, t2v.pkl their top 500; each phase timed, with gallery
+   videos/s. One set again with the gallery embedded whole (LARGE_GALLERY
+   raised) and scored by score_matrix: the scores within 1e-6 of the
+   streamed ones and the lists equal but at near ties. The gate kernel
+   against its plain version on the video tower's input for a gallery
+   block; one streamed pass under the profiler (the card's busy share).
+   laff_tpu_torch.cli.avs_eval on each edition: the trained run's infAP at
+   least 5x a seeded random run's over the gallery's shots, and equal to
+   the NIST sample_eval.pl's within 2e-4 where perl is installed.
 
 Prints the kernels JSON line (all three kernels; launches: each main path
 counted from 0 around its run, summed, and by path; rbig for the tiled
@@ -1617,6 +1634,11 @@ TASK3_TIMED_STEPS = 20  # eager task3 steps timed on one batch on the card
 NEGATION_GATE_CALLS = 3 * 59 + 3
 VTEST = ("vtest", 1500, 10)  # the VATEX test shape: 1,500 videos x 10 captions
 VTEST_GATE_CALLS = 15 + 2  # 15 text batches and 2 gallery batches of 1,024
+# the per-head pass runs on vtest's gallery with 2 captions a video, not 10:
+# its 8 files of 15,000 queries took 64-95 s of host formatting, and this cut
+# of its depth keeps the script inside its limit with phase 8
+VHEADS = ("vheads", 1500, 2)
+HEAD_GATE_CALLS = 3 + 2  # 3 text batches and 2 gallery batches of 1,024
 POSTPROCESSING = (("kreciprocal", {"rerank": "kreciprocal"}), ("tkb", {"rerank": "tkb"}),
                   ("concept", {"rerank": "concept"}), ("each_head", {"each_head": 1}))
 
@@ -1818,7 +1840,8 @@ def negation_phase(torch, K, P, root, ckpt, negated, smi):
           f"[negation] t2v {res['t2v']} vs eval_t2v of the recomputed scores {ref}")
     log(f"  [negation] {negated} of {len(txt_ids)} queries carry a negation; t2v equals eval_t2v "
         f"of the plain path's adjusted scores from the same card embeddings "
-        f"({moved.size} ranks at exact ties); negation scoring {res['seconds']['negation']:.2f} s "
+        f"({moved.size} ranks at exact ties); the clauses embedded in "
+        f"{res['seconds']['negation']:.2f} s and scored in {res['seconds']['score_matrix']:.2f} s "
         f"of {wall:.1f} s [{smi}]")
     return launches
 
@@ -1839,15 +1862,19 @@ def rerank_phase(torch, K, P, root, ckpt, smi):
     log(f"world: {build_world(root, coll, n_videos, caps, 11286, SEED + 3, concept_pkl=True)} "
         f"in {time.perf_counter() - t0:.1f} s; disk free "
         f"{shutil.disk_usage(root).free / 1e9:.1f} GB")
+    heads_coll, _, head_caps = VHEADS
+    log(f"world: {build_world(root, heads_coll, n_videos, head_caps, 11286, SEED + 5)}")
     concept = dict(concept_pkl=os.path.join(root, coll, "TextData", "concept_sim.pkl"),
                    concept_caption=os.path.join(root, coll, "TextData", f"{coll}.caption.txt"))
     out, by_run = {}, {}
     for name, extra in POSTPROCESSING:
-        opt = predict_options(P, root, coll, ckpt, name, **extra,
-                              **(concept if name == "concept" else {}))
+        per_head = name == "each_head"
+        opt = predict_options(P, root, heads_coll if per_head else coll, ckpt, name,
+                              **extra, **(concept if name == "concept" else {}))
         res, launches, wall = timed_predict(torch, K, P, opt, name, smi)
-        expect = {"sim_rank_wide": int(name == "each_head"), "sim_rank_tiled": 0,
-                  "gate_attention": VTEST_GATE_CALLS, "gate_attention_simple": 0}
+        expect = {"sim_rank_wide": int(per_head), "sim_rank_tiled": 0,
+                  "gate_attention": HEAD_GATE_CALLS if per_head else VTEST_GATE_CALLS,
+                  "gate_attention_simple": 0}
         check(launches == expect, f"[{name}] launches {launches}, expected {expect}")
         out[name], by_run[f"{name}_predict"] = (opt, res, wall), launches
     log(f"  [concept] the lemmatizer took the {rerank.LEMMATIZER['branch']} branch")
@@ -1875,7 +1902,9 @@ def rerank_phase(torch, K, P, root, ckpt, smi):
             f"({wall:.1f} s), {secs:.2f} s on the CPU copies [{smi}]")
 
     opt, res, wall = out["each_head"]
-    sdir = os.path.join(root, coll, "SimilarityIndex", opt.query_sets, opt.sim_name)
+    sdir = os.path.join(root, heads_coll, "SimilarityIndex", opt.query_sets, opt.sim_name)
+    with open(os.path.join(root, heads_coll, "TextData", opt.query_sets)) as fh:
+        head_ids = [line.split(" ", 1)[0] for line in fh.read().splitlines()]
     heads = txt_embs.shape[1]
     check(len(res["per_head"]) == heads, f"[each_head] {len(res['per_head'])} head rows")
     for h in range(heads):
@@ -1883,14 +1912,15 @@ def rerank_phase(torch, K, P, root, ckpt, smi):
         with open(path) as fh:
             first = fh.readline().split()
             n_lines = 1 + sum(1 for _ in fh)
-        check(n_lines == len(txt_ids) and len(first) == 1 + 2 * n_videos,
+        check(n_lines == len(head_ids) and len(first) == 1 + 2 * n_videos,
               f"[each_head] {path}: {n_lines} lines, {len(first)} fields in the first")
-        check(first[0] == txt_ids[0] and np.isfinite(np.asarray(first[2::2], float)).all(),
+        check(first[0] == head_ids[0] and np.isfinite(np.asarray(first[2::2], float)).all(),
               f"[each_head] {path} first line {first[:5]}")
         os.remove(path)
     with open(os.path.join(sdir, "perf.txt")) as fh:
         check(fh.read().count("Text to video head") == heads, "[each_head] perf.txt")
-    log(f"  [each_head] {heads} head{{h}}.id.sent.score.txt files of {len(txt_ids)} lines x "
+    log(f"  [each_head] on {heads_coll} ({n_videos} videos x {head_caps} captions): {heads} "
+        f"head{{h}}.id.sent.score.txt files of {len(head_ids)} lines x "
         f"{n_videos} videos and perf.txt written ({res['seconds']['each_head']:.1f} s of "
         f"{wall:.1f} s); per-head r1 {[round(float(m[0]), 3) for m in res['per_head']]} [{smi}]")
     timing = {name: {"wall_s": wall, "seconds": res["seconds"]}
@@ -1916,6 +1946,258 @@ def aux_phase(torch, K, P, root, smi):
                                                   test["negated_captions"], smi)}
     by_path.update(rerank_phase(torch, K, P, root, ckpt, smi))
     return by_path
+
+
+# ---------------------------------------------------------------------------
+# phase 8: AVS ad-hoc search over an iacc.3-sized gallery
+# ---------------------------------------------------------------------------
+
+AVS_COLLECTION, AVS_SHOTS = "iacc.3", 335_944  # the TRECVID 2016-2018 AVS gallery
+AVS_EDITIONS, AVS_TOPICS = ("tv16", "tv17", "tv18"), 30
+AVS_BATCH = 1024
+AVS_GATE_CALLS = 1 + -(-AVS_SHOTS // AVS_BATCH)  # a query set: its topics, then 329 gallery blocks
+# streamed (a flat product per gallery block) vs cached (per-head cosines of
+# the whole gallery, averaged): f32 sums in other orders
+AVS_STREAM_TOL = 1e-6
+AVS_INFAP_RATIO = 5.0  # the trained model's infAP over a random run's, at least
+PERL_TOL = 2e-4  # the NIST report prints 4 decimals
+
+
+def read_score_file(path):
+    """{topic: (shot ids, scores)} of an id.sent.score.txt."""
+    import numpy as np
+
+    out = {}
+    with open(path) as fh:
+        for line in fh:
+            parts = line.split()
+            out[parts[0]] = (parts[1::2], np.asarray(parts[2::2], np.float64))
+    return out
+
+
+def near_tie(vals, i, tol):
+    """Position i of a descending list lies within ``tol`` of a neighbour
+    (the list's last entry may tie with the first one left out)."""
+    return (i == len(vals) - 1 or (i > 0 and vals[i - 1] - vals[i] <= tol)
+            or (i + 1 < len(vals) and vals[i] - vals[i + 1] <= tol))
+
+
+def avs_infap(avs_eval, root, edition, sim_name, use_perl=0):
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = avs_eval.main([AVS_COLLECTION, edition, sim_name, "--rootpath", root,
+                            "--overwrite", "1", "--use_perl", str(use_perl)])
+    check(rc == 0, f"[avs] avs_eval {edition} {sim_name} exited {rc}: {out.getvalue()}")
+    line = out.getvalue().strip().splitlines()[-1].split()
+    check(line[:2] == [edition, "infAP"], f"[avs] avs_eval printed {line}")
+    return float(line[2])
+
+
+def avs_block_check(torch, K, embedder, vis_feed):
+    """The gate kernel against its plain version on the video tower's gate
+    input for the first gallery block of the world, as gate_phase compares
+    them."""
+    from laff_tpu_torch.data import EvalFeed
+
+    gate = embedder.model.vis_net.attention
+    block = EvalFeed(vis_feed.ids[:vis_feed.batch_size], vis_feed.batcher, vis_feed.batch_size)
+    seen = []
+    hook = gate.register_forward_pre_hook(lambda module, args: seen.append(args[0]))
+    try:
+        embedder.embed_vis(block)
+    finally:
+        hook.remove()
+    local = seen[0]
+    b, length, _ = local.shape
+    x = local.reshape(b, length, gate.heads, gate.dh).float().contiguous()
+    k, bias = gate.gate_kernel.detach().float(), gate.gate_bias.detach().float()
+    got = K.fused_gate_attention(x, k, bias, 1.0, with_ave=gate.with_ave, mul=gate.mul)
+    ref = K.fused_gate_attention_plain(x, k, bias, 1.0, with_ave=gate.with_ave, mul=gate.mul)
+    err = float((got - ref).abs().max())
+    check(err <= GATE_TOL, f"[avs] gate on a gallery block: max abs err {err}")
+    return tuple(x.shape), err
+
+
+def avs_phase(torch, K, P, root, ckpt, smi):
+    """8. AVS ad-hoc search at iacc.3's size under phase 4's trained
+    checkpoint: the world built and timed, three query sets streamed
+    through predictor.main (the gate only, 1 + 329 launches a set, no rank
+    kernel; the score files and t2v.pkl checked), one set again with the
+    gallery embedded whole and scored by score_matrix (lists and scores
+    against the streamed ones), the gate against its plain version on a
+    block of this world, one streamed pass profiled, and infAP by
+    cli/avs_eval against a seeded random run (and perl's scorer where
+    there is perl). The world is removed at the end. Returns the
+    launches."""
+    import pickle
+
+    import numpy as np
+
+    from laff_tpu_torch.cli import avs_eval
+    from laff_tpu_torch.data.synth import build_avs_world
+    from laff_tpu_torch.engine.evaluator import score_matrix_streaming
+
+    t0 = time.perf_counter()
+    info = build_avs_world(root, AVS_COLLECTION, AVS_SHOTS, AVS_EDITIONS, AVS_TOPICS,
+                           seed=SEED + 8)
+    build_s = time.perf_counter() - t0
+    log(f"[avs] world {info} in {build_s:.1f} s ({info['feature_bytes'] / 1e9:.2f} GB of "
+        f"features); disk free {shutil.disk_usage(root).free / 1e9:.1f} GB [{smi}]")
+    cdir = os.path.join(root, AVS_COLLECTION)
+    try:
+        sets = [f"{e}.avs.txt" for e in AVS_EDITIONS]
+        opt = P.PredictOptions(testCollection=AVS_COLLECTION, model_path=ckpt,
+                               sim_name="smoke_avs", rootpath=root, query_sets=",".join(sets),
+                               batch_size=AVS_BATCH, overwrite=1, device="cuda")
+        check(AVS_SHOTS > P.LARGE_GALLERY, f"[avs] LARGE_GALLERY {P.LARGE_GALLERY}")
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = P.main(opt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        expect = {"sim_rank_wide": 0, "sim_rank_tiled": 0,
+                  "gate_attention": len(sets) * AVS_GATE_CALLS, "gate_attention_simple": 0}
+        check(launches == expect, f"[avs] launches {launches}, expected {expect}")
+        timing = {"world_build_s": build_s, "feature_bytes": info["feature_bytes"],
+                  "streamed_wall_s": wall, "card": smi}
+        for qs in sets:
+            secs = res[qs]["seconds"]
+            check({"embed_txt", "stream", "topk", "score_file", "rank_dump"} <= set(secs),
+                  f"[avs] {qs} phases {secs}")
+            sdir = os.path.join(cdir, "SimilarityIndex", qs, opt.sim_name)
+            scores = read_score_file(os.path.join(sdir, "id.sent.score.txt"))
+            check(len(scores) == AVS_TOPICS and all(
+                len(ids) == 2000 and len(set(ids)) == 2000 and (np.diff(v) <= 0).all()
+                and np.isfinite(v).all() for ids, v in scores.values()),
+                f"[avs] {qs}: the score file is not {AVS_TOPICS} lines of 2,000 descending "
+                f"distinct (id, score) pairs")
+            with open(os.path.join(sdir, "t2v.pkl"), "rb") as fh:
+                dump = pickle.load(fh)
+            check(list(dump) == list(scores) and all(
+                d["rank_list"] == scores[t][0][:500] and len(d["sim_value"]) == 500
+                for t, d in dump.items()), f"[avs] {qs}: t2v.pkl is not the top 500")
+            timing[qs] = {**secs, "videos_per_s": AVS_SHOTS / secs["stream"]}
+            log(f"  [avs] {qs} streamed: " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+                + f"; {AVS_SHOTS / secs['stream']:.0f} gallery videos/s [{smi}]")
+        log(f"  [avs] launches of the three streamed sets {launches} ({AVS_GATE_CALLS} gate "
+            f"launches a set, no rank kernel); {wall:.1f} s wall")
+
+        # the gallery embedded whole (about 5.5 GB on the card) and scored by
+        # score_matrix, for one query set
+        saved = P.LARGE_GALLERY
+        P.LARGE_GALLERY = AVS_SHOTS
+        try:
+            cached_opt = P.PredictOptions(
+                testCollection=AVS_COLLECTION, model_path=ckpt, sim_name="smoke_avs_cached",
+                rootpath=root, query_sets=sets[0], batch_size=AVS_BATCH, overwrite=1,
+                device="cuda")
+            t0 = time.perf_counter()
+            cached_secs = P.main(cached_opt)[sets[0]]["seconds"]
+            torch.cuda.synchronize()
+            cached_wall = time.perf_counter() - t0
+        finally:
+            P.LARGE_GALLERY = saved
+        check("embed_vis" in cached_secs and "stream" not in cached_secs,
+              f"[avs] the cached pass ran {cached_secs}")
+        streamed, cached = (read_score_file(os.path.join(
+            cdir, "SimilarityIndex", sets[0], name, "id.sent.score.txt"))
+            for name in ("smoke_avs", "smoke_avs_cached"))
+        check(list(streamed) == list(cached), "[avs] streamed and cached topics differ")
+        err, moved = 0.0, 0
+        for t, (ids_s, v_s) in streamed.items():
+            ids_c, v_c = cached[t]
+            err = max(err, float(np.abs(v_s - v_c).max()))
+            bad = [i for i in range(len(ids_s)) if ids_s[i] != ids_c[i]]
+            moved += len(bad)
+            check(all(near_tie(v_s, i, AVS_STREAM_TOL) and near_tie(v_c, i, AVS_STREAM_TOL)
+                      for i in bad), f"[avs] topic {t}: streamed and cached lists differ away "
+                  f"from near ties")
+        check(err <= AVS_STREAM_TOL, f"[avs] streamed vs cached scores: max abs diff {err}")
+        timing["cached"] = {"wall_s": cached_wall, **cached_secs}
+        log(f"  [avs] {sets[0]} cached (gallery embedded whole, score_matrix): {cached_wall:.1f} "
+            f"s ({', '.join(f'{k} {v:.2f}' for k, v in cached_secs.items())}); against the "
+            f"streamed lists: scores within {err:.3g}, {moved} of "
+            f"{AVS_TOPICS * 2000} places differ, all at near ties [{smi}]")
+
+        # one streamed pass outside the predictor, profiled; and the gate
+        # kernel against its plain version on a block of this world
+        ck = P.load_checkpoint(ckpt)
+        device = torch.device("cuda")
+        embedder = P.Embedder(P.rebuild_model(ck, device), device)
+        vis_feed, txt_feed, _, _ = P.build_test_feeds(
+            opt, ck["config"], sets[0], P.rebuild_featurizers(ck, root))
+        txt_embs, _ = embedder.embed_txt(txt_feed)
+        shape, gate_err = avs_block_check(torch, K, embedder, vis_feed)
+        log(f"  [avs] gate kernel vs plain on the video tower's input for a gallery block "
+            f"{shape}: max abs err {gate_err:.3g} (<= {GATE_TOL})")
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            profiled_scores, _ = score_matrix_streaming(embedder, txt_embs, vis_feed)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        kernel_ms = copy_ms = 0.0
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+            if "memcpy" in e.key.lower() or "memset" in e.key.lower():
+                copy_ms += us / 1e3
+            else:
+                kernel_ms += us / 1e3
+        check(profiled_scores.shape == (AVS_TOPICS, AVS_SHOTS)
+              and np.isfinite(profiled_scores).all(), "[avs] the profiled pass's scores")
+        busy = {"wall_s": prof_wall, "kernel_ms": kernel_ms, "copy_ms": copy_ms,
+                "kernel_share": kernel_ms / 1e3 / prof_wall,
+                "busy_share": (kernel_ms + copy_ms) / 1e3 / prof_wall}
+        timing["profiled_stream"] = busy
+        log(f"  [avs] one streamed pass under the profiler: {prof_wall:.2f} s wall, kernels "
+            f"{kernel_ms:.1f} ms and copies {copy_ms:.1f} ms of device time: busy "
+            f"{busy['busy_share']:.1%} (kernels {busy['kernel_share']:.1%}) [{smi}]"
+            if kernel_ms else "  [avs] the profiler recorded no device time (not measured)")
+
+        # infAP of the trained run against a seeded random run of the gallery's
+        # shots, written in the same format
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED + 8)
+        shots = [line.strip() for line in open(os.path.join(cdir, "VideoSets",
+                                                             f"{AVS_COLLECTION}.txt"))]
+        trained, random_run, perl = {}, {}, {}
+        for edition, qs in zip(AVS_EDITIONS, sets):
+            trained[edition] = avs_infap(avs_eval, root, edition, "smoke_avs")
+            rdir = os.path.join(cdir, "SimilarityIndex", qs, "smoke_random")
+            os.makedirs(rdir, exist_ok=True)
+            with open(os.path.join(rdir, "id.sent.score.txt"), "w") as fh:
+                for t in read_score_file(os.path.join(cdir, "SimilarityIndex", qs, "smoke_avs",
+                                                      "id.sent.score.txt")):
+                    pick = rng.choice(len(shots), 2000, replace=False)
+                    fh.write(f"{t} " + " ".join(f"{shots[j]} {1.0 - r / 2000}"
+                                                for r, j in enumerate(pick)) + "\n")
+            random_run[edition] = avs_infap(avs_eval, root, edition, "smoke_random")
+            check(trained[edition] >= AVS_INFAP_RATIO * random_run[edition]
+                  and trained[edition] > 0, f"[avs] {edition}: infAP {trained[edition]} of the "
+                  f"trained model against {random_run[edition]} of a random run")
+            if shutil.which("perl"):
+                perl[edition] = avs_infap(avs_eval, root, edition, "smoke_avs", use_perl=1)
+                check(abs(perl[edition] - trained[edition]) <= PERL_TOL,
+                      f"[avs] {edition}: infAP {trained[edition]} vs {perl[edition]} by "
+                      f"sample_eval.pl")
+        chain_s = time.perf_counter() - t0
+        timing.update(infap=trained, random_infap=random_run, perl_infap=perl or None,
+                      infap_chain_s=chain_s)
+        log(f"  [avs] infAP by cli/avs_eval: {trained}; a seeded random run of the gallery's "
+            f"shots: {random_run}; "
+            + (f"sample_eval.pl agrees within {PERL_TOL}: {perl}" if perl
+               else "perl is not on this machine: the NIST scorer not run")
+            + f"; the chain {chain_s:.1f} s [{smi}]")
+        log("avs_timing " + json.dumps(timing))
+    finally:
+        shutil.rmtree(cdir, ignore_errors=True)
+    return launches
 
 
 def gate_worker(torch, root):
@@ -2087,18 +2369,21 @@ def main(argv):
         t0 = time.perf_counter()
         by_path_aux = aux_phase(torch, K, P, root, smi_line)
         log(f"task3, task2 and post-processing phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches_avs = avs_phase(torch, K, P, root, trained["ckpt_path"], smi_line)
+        log(f"AVS phase: {time.perf_counter() - t0:.1f} s")
 
         # launches of the main paths, each counted from 0 around its run:
         # the rtest prediction pass, the LAFF training run's validations and
         # its checkpoint's pass, FrameLAFF's, W2VVPP's, the 'hist'
         # validation's, the reference file's pass, task3's and task2's
-        # validations, the negation-scored pass and the post-processing
-        # passes (rbig for the tiled kernel)
+        # validations, the negation-scored pass, the post-processing passes
+        # and the three streamed AVS query sets (rbig for the tiled kernel)
         by_path = {"laff_predict": launches_k, "laff_train": launches_t,
                    "laff_trained_predict": launches_tp, "frames_train": launches_f,
                    "frames_trained_predict": launches_fp, "concat_train": launches_c,
                    "concat_trained_predict": launches_cp, "hist_validate": launches_h,
-                   "reference_predict": launches_r, **by_path_aux}
+                   "reference_predict": launches_r, **by_path_aux, "avs_predict": launches_avs}
         main_path = {k: sum(p[k] for p in by_path.values()) for k in launches_k}
         rows["gate_attention"]["at_l5"] = gate_l5
         meta = {

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Prediction CLI for benchmark collections; the argument surface follows
-``laff_tpu.cli.do_predictor`` where the port implements the option.
+"""Prediction CLI for benchmark and AVS collections; the argument surface
+is ``laff_tpu.cli.do_predictor``'s (``--data_parallel`` and
+``--int8_gallery`` are accepted and raise ``NotImplementedError`` for a
+value other than 0, naming their ROADMAP items).
 
   python -m laff_tpu_torch.cli.do_predictor <testCollection> <checkpoint> \
-      <sim_name> --rootpath <root> --query_sets <capfile> [--rank_path kernel] \
-      [--task3_caption negation] [--rerank kreciprocal|tkb|concept] [--each_head 1]
+      <sim_name> --rootpath <root> --query_sets <capfile>[,<capfile>...] \
+      [--rank_path kernel] [--task3_caption negation] \
+      [--rerank kreciprocal|tkb|concept] [--each_head 1]
 """
 
 import argparse
@@ -34,6 +37,14 @@ def parse_args(argv=None) -> PredictOptions:
                         help="torch device; 'cpu' runs the plain versions of the kernels")
     parser.add_argument("--rank_path", default="auto", choices=list(RANK_PATHS),
                         help="t2v rank path; 'kernel' forces the fused CUDA rank kernel")
+    parser.add_argument("--adjust_weight_predict", type=int, default=0, choices=[0, 1],
+                        help="accepted for parity; the reference parses it and never reads it")
+    parser.add_argument("--data_parallel", type=int, default=0,
+                        help="sharded inference over several devices (not ported: any value "
+                             "but 0 raises)")
+    parser.add_argument("--int8_gallery", type=int, default=0, choices=[0, 1],
+                        help="int8 gallery nomination for large AVS galleries (not ported: 1 "
+                             "raises)")
     parser.add_argument("--task3_caption", type=str, default="no_task3_caption",
                         help="any other value enables boolean negation scoring of the queries")
     parser.add_argument("--neg_method", type=str, default="sub", choices=["sub", "mul"],

@@ -45,6 +45,27 @@ by some video, so the BoW vocabulary has ``n_vocab`` entries, 11,286 like
 the headline's); its features are a fixed projection of the summed word
 codes plus noise, and each caption names 6 of its 8 words, so retrieval is
 learnable. Every number comes from ``seed``.
+
+``build_avs_world`` writes an AVS collection (iacc.3 by default, at its
+335,944 shots) in the reference's TRECVID layout, over the same word codes
+and feature projections, so a model trained on a ``build_world``
+collection of the same vocabulary answers its topics:
+
+  <root>/<collection>/FeatureData/{the four FEATS}     (written in chunks)
+  <root>/<collection>/VideoSets/<collection>.txt
+  <root>/<collection>/TextData/<edition>.avs.txt       ("<topic> the w w w")
+  <root>/<collection>/TextData/clip_synth              (CLIP rows of the topics)
+  <root>/<collection>/TextData/avs.qrels.<edition>     ("1<topic> 0 <shot> <stratum> <rel>")
+
+Each topic names ``AVS_TOPIC_WORDS`` words no other topic names; a shot is
+relevant to it when the shot's 8 words contain all of them. Random words
+almost never meet in one shot, so each topic gets a number of planted
+relevant shots drawn log-uniformly from ``relevant`` (disjoint across
+topics), whose first word slots become the topic's words. The judged pool of
+a topic is its relevant shots and as many others (shots sharing some of its
+words first, then random ones); a third of the pool, drawn at random, is
+stratum 1 and fully judged, the rest stratum 2, of which half is judged and
+half left unjudged (rel -1), the sampled layout ``sample_eval.pl`` scores.
 """
 
 from __future__ import annotations
@@ -52,6 +73,7 @@ from __future__ import annotations
 import os
 import pickle
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -65,6 +87,9 @@ LATENT = 24
 CLIP_DIM = 512
 W2V_DIM = 500
 N_CONCEPTS = 300  # task2 concepts and concept re-ranking words of a world
+AVS_TOPIC_WORDS = 3  # words a topic names; a relevant shot has all of them
+AVS_FIRST_TOPIC = 501  # TRECVID numbers the AVS topics of 2016-2018 501-590
+AVS_CHUNK = 32_768  # rows of features made and written at once
 
 
 def _video_words(rng: np.random.Generator, n_videos: int, n_vocab: int) -> np.ndarray:
@@ -80,6 +105,15 @@ def _video_words(rng: np.random.Generator, n_videos: int, n_vocab: int) -> np.nd
             dup = np.setdiff1d(np.arange(8), first)
             row[dup] = rng.integers(0, n_vocab, dup.size)
     return words
+
+
+def _word_codes(n_vocab: int) -> np.ndarray:
+    return np.random.default_rng(99).standard_normal((n_vocab, LATENT)).astype(np.float32)
+
+
+def _clip_projection() -> np.ndarray:
+    return np.random.default_rng(zlib.crc32(b"clip_text") % 1000).standard_normal(
+        (LATENT, CLIP_DIM)).astype(np.float32) * 0.3
 
 
 def _projection(name: str, dim: int) -> np.ndarray:
@@ -151,7 +185,7 @@ def build_world(root: str, collection: str = "rtest", n_videos: int = 2990,
     files that the flags ask for; returns a summary dict."""
     rng = np.random.default_rng(seed)
     vocab = [f"w{i:05d}" for i in range(n_vocab)]
-    word_codes = np.random.default_rng(99).standard_normal((n_vocab, LATENT)).astype(np.float32)
+    word_codes = _word_codes(n_vocab)
     vids = [f"{collection}_v{i}" for i in range(n_videos)]
     words = _video_words(rng, n_videos, n_vocab)
     latent = word_codes[words].sum(axis=1)
@@ -177,10 +211,8 @@ def build_world(root: str, collection: str = "rtest", n_videos: int = 2990,
         fh.write("\n".join(vids))
 
     # per-caption CLIP rows from the caption's own 6-word latent
-    proj = np.random.default_rng(zlib.crc32(b"clip_text") % 1000).standard_normal(
-        (LATENT, CLIP_DIM)).astype(np.float32) * 0.3
     cap_latent = word_codes[cap_words.reshape(-1, 6)].sum(axis=1)
-    rows = cap_latent @ proj + 0.1 * rng.standard_normal(
+    rows = cap_latent @ _clip_projection() + 0.1 * rng.standard_normal(
         (len(cap_ids), CLIP_DIM)).astype(np.float32)
     write_bigfile(os.path.join(cdir, "TextData", "clip_synth"), cap_ids, rows)
 
@@ -205,3 +237,116 @@ def build_world(root: str, collection: str = "rtest", n_videos: int = 2990,
     summary.update(_task_files(cdir, collection, vocab, words, cap_words, lines, seed,
                                false_captions, negations, objects, concept_pkl))
     return summary
+
+
+def _shots_with(words: np.ndarray):
+    """word id -> the shots whose words hold it (an inverted index)."""
+    flat = words.ravel()
+    order = np.argsort(flat, kind="stable")
+    ordered = flat[order]
+
+    def shots(w: int) -> np.ndarray:
+        lo, hi = np.searchsorted(ordered, [w, w + 1])
+        return order[lo:hi] // words.shape[1]
+    return shots
+
+
+def _plant(rng: np.random.Generator, words: np.ndarray, shots: np.ndarray,
+           topic: np.ndarray, n_vocab: int) -> None:
+    """Give ``shots`` the topic's words in their first slots, keeping each
+    shot's 8 words distinct."""
+    k = len(topic)
+    for s in shots:
+        row = words[s]
+        row[:k] = topic
+        for j in range(k, row.size):
+            while row[j] in row[:j]:
+                row[j] = rng.integers(0, n_vocab)
+
+
+def build_avs_world(root: str, collection: str = "iacc.3", n_videos: int = 335_944,
+                    editions=("tv16", "tv17", "tv18"), topics_per_edition: int = 30,
+                    n_vocab: int = 11286, seed: int = 0, relevant=(50, 2000)) -> dict:
+    """Build the AVS collection of the module docstring; returns a summary
+    dict (the bytes of features written among it). Each feature is made and
+    written ``AVS_CHUNK`` rows at a time, the four side by side."""
+    rng = np.random.default_rng(seed)
+    word_codes = _word_codes(n_vocab)
+    vocab = [f"w{i:05d}" for i in range(n_vocab)]
+    vids = [f"{collection}_v{i}" for i in range(n_videos)]
+    words = _video_words(rng, n_videos, n_vocab)
+    n_topics = len(editions) * topics_per_edition
+    topic_words = rng.choice(n_vocab, n_topics * AVS_TOPIC_WORDS, replace=False).reshape(
+        n_topics, AVS_TOPIC_WORDS)
+    lo, hi = np.log(relevant[0]), np.log(relevant[1])
+    planted = np.exp(rng.uniform(lo, hi, n_topics)).round().astype(int)
+    if planted.sum() > n_videos:
+        raise ValueError(f"{planted.sum()} planted relevant shots do not fit {n_videos} shots")
+    starts = np.concatenate([[0], np.cumsum(planted)])
+    chosen = rng.permutation(n_videos)
+    for t in range(n_topics):
+        _plant(rng, words, chosen[starts[t]:starts[t + 1]], topic_words[t], n_vocab)
+
+    cdir = os.path.join(root, collection)
+
+    def write_feature(feat: str, dim: int, stream: np.random.Generator) -> int:
+        fdir = os.path.join(cdir, "FeatureData", feat)
+        os.makedirs(fdir, exist_ok=True)
+        proj = _projection(feat, dim)
+        with open(os.path.join(fdir, "feature.bin"), "wb") as fh:
+            for start in range(0, n_videos, AVS_CHUNK):
+                mat = word_codes[words[start:start + AVS_CHUNK]].sum(axis=1) @ proj
+                mat += 0.1 * stream.standard_normal(mat.shape, dtype=np.float32)
+                mat.tofile(fh)
+        _write_lines(os.path.join(fdir, "id.txt"), vids)
+        _write_lines(os.path.join(fdir, "shape.txt"), [f"{n_videos} {dim}"])
+        return n_videos * dim * 4
+
+    # one noise stream and one thread per feature: numpy draws and multiplies
+    # outside the interpreter lock, so the features are made side by side
+    streams = [np.random.default_rng(s) for s in np.random.SeedSequence(seed).spawn(len(FEATS))]
+    with ThreadPoolExecutor(len(FEATS)) as pool:
+        done = [pool.submit(write_feature, feat, dim, stream)
+                for (feat, dim), stream in zip(FEATS.items(), streams)]
+        n_bytes = sum(d.result() for d in done)
+    os.makedirs(os.path.join(cdir, "VideoSets"), exist_ok=True)
+    _write_lines(os.path.join(cdir, "VideoSets", f"{collection}.txt"), vids)
+
+    tdir = os.path.join(cdir, "TextData")
+    os.makedirs(tdir, exist_ok=True)
+    tnums = [str(AVS_FIRST_TOPIC + t) for t in range(n_topics)]
+    rows = word_codes[topic_words].sum(axis=1) @ _clip_projection()
+    rows += 0.1 * rng.standard_normal(rows.shape, dtype=np.float32)
+    write_bigfile(os.path.join(tdir, "clip_synth"), tnums, rows)
+    shots_with = _shots_with(words)
+    n_relevant = []
+    for e, edition in enumerate(editions):
+        topics = range(e * topics_per_edition, (e + 1) * topics_per_edition)
+        _write_lines(os.path.join(tdir, f"{edition}.avs.txt"),
+                     [f"{tnums[t]} the " + " ".join(vocab[w] for w in topic_words[t])
+                      for t in topics])
+        qrels = []
+        for t in topics:
+            sharing = [shots_with(w) for w in topic_words[t]]
+            rel = sharing[0]
+            for s in sharing[1:]:
+                rel = np.intersect1d(rel, s)
+            n_relevant.append(len(rel))
+            others = np.setdiff1d(np.unique(np.concatenate(sharing)), rel)
+            extra = np.setdiff1d(rng.choice(n_videos, min(n_videos, 2 * len(rel)), replace=False),
+                                 np.concatenate([rel, others]))
+            others = np.concatenate([rng.permutation(others), rng.permutation(extra)])[:len(rel)]
+            pool = np.concatenate([rel, others])
+            is_rel = np.arange(len(pool)) < len(rel)
+            order = rng.permutation(len(pool))
+            stratum1 = np.zeros(len(pool), bool)
+            stratum1[order[:len(pool) // 3]] = True
+            judged = stratum1 | (rng.random(len(pool)) < 0.5)
+            qrels += [f"1{tnums[t]} 0 {vids[s]} {1 if s1 else 2} "
+                      f"{int(r) if j else -1}"
+                      for s, r, s1, j in zip(pool, is_rel, stratum1, judged)]
+        _write_lines(os.path.join(tdir, f"avs.qrels.{edition}"), qrels)
+    return {"collection": collection, "videos": n_videos, "editions": list(editions),
+            "topics": n_topics, "relevant_min": int(min(n_relevant)),
+            "relevant_max": int(max(n_relevant)), "relevant_total": int(sum(n_relevant)),
+            "feature_bytes": n_bytes}

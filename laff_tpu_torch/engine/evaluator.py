@@ -12,6 +12,12 @@ too), above which it streams unstaged as ``laff_tpu`` does; the full
 score matrix (for v2t metrics and the rank dump) is built in text blocks;
 t2v ranks come from counting on the device, never from a host argsort.
 
+Galleries above ``LARGE_GALLERY`` videos (``LAFF_TPU_LARGE_GALLERY``, read
+at import, 50,000 by default: the reference's threshold) are not embedded
+whole: ``score_matrix_streaming`` sends each gallery batch through the
+video tower and scores it against every query, keeping only the (T, V)
+host scores.
+
 Rank paths (``rank_path``), with the rule of ``laff_tpu.engine.evaluator``:
 
   flat       one (block, V) f32 score block per text block (torch.matmul,
@@ -55,9 +61,9 @@ FLAT_SCORE_BUDGET = 2 * 1024**3
 # bytes of one text block's f64 (H, block, V) 'hist' intermediates
 HIST_BLOCK_BUDGET = 1024**3
 
-# galleries above this are streamed by the reference (model/model.py:1020);
-# the streaming evaluator comes in a later slice of the port
-LARGE_GALLERY = 50_000
+# galleries above this stream through score_matrix_streaming instead of being
+# embedded whole (reference threshold 5e4, model/model.py:1020)
+LARGE_GALLERY = int(os.environ.get("LAFF_TPU_LARGE_GALLERY", 50_000))
 
 
 STAGE_BUDGET_ENV = "LAFF_TPU_EVAL_STAGE_BUDGET"
@@ -75,15 +81,15 @@ def card_cast_bf16(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def device_batches(feed: EvalFeed, device: torch.device, bf16: bool, prefetch_depth: int,
-                   host_cast: bool = False
+                   host_cast: bool = False, stage: bool = True
                    ) -> Iterator[Tuple[Dict[str, torch.Tensor], List[str], int]]:
     """(device arrays, ids, valid) per batch of ``feed``, float ones rounded
     to bf16 with ``bf16`` (on the card after the upload, or with
-    ``host_cast`` on the host before it); staged on the card when the feed
-    asks for it and the batches fit the budget, replayed from there on
-    later passes (the same tensors, so the same embeddings)."""
+    ``host_cast`` on the host before it); with ``stage``, staged on the
+    card when the feed asks for it and the batches fit the budget, replayed
+    from there on later passes (the same tensors, so the same embeddings)."""
     key = (str(device), bf16)
-    stage = feed.stage_on_device
+    stage = stage and feed.stage_on_device
     if stage and feed.staged is not None and feed.staged[0] == key:
         yield from feed.staged[1]
         return
@@ -143,6 +149,28 @@ class Embedder:
 
     def embed_vis(self, feed: EvalFeed):
         return self._embed(self.model.encode_vis, feed, self._vis_bf16)
+
+
+@torch.no_grad()
+def score_matrix_streaming(embedder: Embedder, txt_embs: torch.Tensor,
+                           vis_feed: EvalFeed) -> Tuple[np.ndarray, List[str]]:
+    """Cosine scores of every query against a gallery too large to embed
+    whole (``laff_tpu.engine.evaluator.score_matrix_streaming``): each
+    gallery batch goes through the video tower on the embedder's device
+    (bf16 rounding as ``embed_vis`` does it, never staged) and is scored
+    against all queries as the per-head mean of cosines, one product of the
+    flattened unit heads divided by H; no block is kept on the device.
+    Returns the host (T, V) f32 scores and the gallery ids in feed order."""
+    heads = txt_embs.shape[1] if txt_embs.ndim == 3 else 1
+    tn = flatten_heads(txt_embs)
+    blocks, vis_ids = [], []
+    for data, ids, valid in device_batches(vis_feed, embedder.device, embedder._vis_bf16,
+                                           embedder.prefetch_depth, embedder.host_cast,
+                                           stage=False):
+        vn = flatten_heads(embedder.model.encode_vis(data)[:valid])
+        blocks.append((tn @ vn.T / heads).float().cpu().numpy())
+        vis_ids.extend(ids)
+    return np.concatenate(blocks, axis=1), vis_ids
 
 
 def hist_block(heads: int, v: int) -> int:

@@ -1,14 +1,26 @@
-"""Prediction driver for benchmark collections (``laff_tpu.engine.predictor``
-main, benchmark branch).
+"""Prediction driver (``laff_tpu.engine.predictor`` main).
 
 Loads a port checkpoint, or a reference ``.pth.tar`` (imported by
-``engine.torch_import``), rebuilds the model and the text featurizers,
-embeds the test collection once, and per query set:
+``engine.torch_import``), rebuilds the model and the text featurizers, and
+answers each query set against the test collection's gallery.
+
+The gallery is embedded once and kept on the device, or, above
+``LARGE_GALLERY`` videos, streamed through the video tower for every query
+set (``evaluator.score_matrix_streaming``), as ``laff_tpu`` does.
+
+Benchmark collections, per query set:
 
 * t2v ranks on the device (``rank_path``: auto | flat | kernel |
   blockwise, see ``evaluator``) -> R@1/5/10, MedR, MeanR, MIR;
 * the full score matrix -> v2t metrics and the top-500 ``t2v.pkl`` dump;
 * t2v and v2t rows appended to the result_log TSVs (reference format).
+
+AVS collections (``AVS_COLLECTIONS``) and ``simple_query.txt``: the query
+ids are topic numbers with no ground-truth video, so there are no metrics
+and no TSV rows; each query set writes its top-2,000 ranking to
+``id.sent.score.txt`` ('<txt_id> <vis_id> <score> ...', one line a query,
+what ``laff_tpu_torch.cli.avs_eval`` scores) and its top 500 to
+``t2v.pkl``.
 
 The post-processing options of ``laff_tpu``'s predictor:
 
@@ -16,21 +28,31 @@ The post-processing options of ``laff_tpu``'s predictor:
   Each query is split on its negation cue (``split_negation``); the
   positive and the negated clause go through the text tower, and
   ``negation_adjusted_scores`` demotes the videos the negated clause
-  matches (``neg_method`` 'sub' or 'mul').
+  matches (``neg_method`` 'sub' or 'mul'). A streamed gallery is streamed
+  for each clause.
 * ``rerank``: 'kreciprocal' and 'tkb' (``eval.rerank``, host numpy; the
   query-query and gallery-gallery products are taken on the embeddings'
   device), or 'concept' with a concept pkl (``concept_*`` options).
 * ``each_head``: per-head score matrices, their metric rows, one
-  ``head<h>.id.sent.score.txt`` ('<txt_id> <vis_id> <score> ...', the top
-  2,000 of each query) per head and a ``perf.txt``.
+  ``head<h>.id.sent.score.txt`` (the top 2,000 of each query) per head and
+  a ``perf.txt``; benchmark collections whose gallery is embedded whole.
 
-When the scores are adjusted or re-ranked, t2v comes from the score matrix
-(its ranks counted by ``ranks_from_scores`` on the device, ties
-larger-index-first), as ``laff_tpu`` takes ``eval_t2v`` of it, and not from
-the embeddings' rank kernel; v2t always comes from the score matrix.
+When the scores are adjusted or re-ranked, or the gallery was streamed, t2v
+comes from the score matrix (its ranks counted by ``ranks_from_scores`` on
+the device, ties larger-index-first), as ``laff_tpu`` takes ``eval_t2v`` of
+it, and not from the embeddings' rank kernel; v2t always comes from the
+score matrix. Every top-K list puts equal scores in decreasing gallery
+index order (``score_rankings``).
 
-AVS collections, large-gallery streaming, int8 galleries and StrongCLIP
-come with later slices.
+Raising instead of running (each names its ROADMAP item or the reason):
+a large benchmark gallery without post-processing (``laff_tpu``'s
+``streaming_benchmark_eval``) and ``int8_gallery`` (item 3b);
+``data_parallel`` (item 5); a StrongCLIP config whose fine-tuned CLIP text
+tower is on disk (item 4). Two results differ from ``laff_tpu`` on
+purpose: above the threshold 'kreciprocal' and 'tkb' raise a ``ValueError``
+(they need the gallery-gallery product, which a streamed gallery never
+forms; ``laff_tpu`` crashes there), and so does measure 'hist' (``laff_tpu``
+scores cosine there without a word).
 """
 
 from __future__ import annotations
@@ -55,12 +77,16 @@ from ..text.textlib import split_negation
 from ..text.txt2vec import BowVec, BowVecNSW, IndexVec, get_txt2vec
 from ..utils import ROOT_PATH, check_to_skip, get_logger, makedirs
 from .checkpoint import load_checkpoint, vocab_from_dict
-from .evaluator import LARGE_GALLERY, Embedder, score_matrix, t2v_ranks
+from .evaluator import (LARGE_GALLERY, Embedder, score_matrix, score_matrix_streaming,
+                        t2v_ranks)
 from .prepare import build_featurizers, text_precomputed, vision_source, w2v_dir_for
 
 logger = get_logger(__name__)
 
 AVS_COLLECTIONS = ("iacc.3", "v3c1")
+AVS_SCORE_TOPK = 2000  # the reference's Threshold in txt2video_write_to_file
+DUMP_TOPK = 500  # t2v.pkl
+STRONGCLIP_DIR = "clip_finetune_8frame_uniform_1103"
 _BOW_CLASSES = {"BowVec": BowVec, "BowVecNSW": BowVecNSW}
 
 
@@ -77,6 +103,9 @@ class PredictOptions:
     num_workers: int = 0
     device: str = "cuda"
     rank_path: str = "auto"
+    adjust_weight_predict: int = 0  # parity: parsed and never read, as in the reference
+    data_parallel: int = 0  # not ported: ROADMAP Queue 1 item 5
+    int8_gallery: int = 0  # not ported: ROADMAP Queue 1 item 3b
     task3_caption: str = "no_task3_caption"  # any other value: negation scoring
     neg_method: str = "sub"  # negation adjustment: sub | mul
     each_head: int = 0  # also per-head metrics, score files and perf.txt
@@ -154,16 +183,14 @@ def build_test_feeds(opt: PredictOptions, config, query_set: str, featurizers):
     return vis_feed, txt_feed, tsrc, vis_ids
 
 
-def write_rank_dump(pkl_path: str, scores: np.ndarray, txt_ids: List[str],
-                    vis_ids: List[str], captions: Dict[str, str], device: torch.device,
-                    threshold: int = 500) -> None:
-    """Per-query descending top-``threshold`` ranking pickled as
-    {txt_id: {query, rank_list, sim_value}} (reference
-    ``txt2video_write_to_file``); the top-k runs on ``device``. The rank
-    lists hold the gallery's own id strings (an object array indexes them),
-    so pickle writes each id once and refers to it after: the dump pickles
-    about 5x faster than with a fresh string per entry, and loads equal."""
-    vals, idx = score_rankings(scores, device, threshold)
+def write_rank_dump(pkl_path: str, vals: np.ndarray, idx: np.ndarray, txt_ids: List[str],
+                    vis_ids: List[str], captions: Dict[str, str]) -> None:
+    """Each query's ranking (``score_rankings``' values and indices)
+    pickled as {txt_id: {query, rank_list, sim_value}} (reference
+    ``txt2video_write_to_file``). The rank lists hold the gallery's own id
+    strings (an object array indexes them), so pickle writes each id once
+    and refers to it after: the dump pickles about 5x faster than with a
+    fresh string per entry, and loads equal."""
     vis_arr = np.asarray(vis_ids, dtype=object)
     shot_dict = {}
     for q, tid in enumerate(txt_ids):
@@ -176,13 +203,27 @@ def write_rank_dump(pkl_path: str, scores: np.ndarray, txt_ids: List[str],
         pickle.dump(shot_dict, fh)
 
 
-def score_rankings(scores: np.ndarray, device: torch.device, threshold: int = 2000):
+# elements of one row block sorted at once by score_rankings
+RANKING_BLOCK = 1 << 26
+
+
+@torch.no_grad()
+def score_rankings(scores: np.ndarray, device: torch.device, threshold: int = AVS_SCORE_TOPK):
     """Each query's top ``threshold`` videos (all when the gallery is
-    smaller), descending, ranked on ``device``: (values, indices) on the
-    host."""
-    vals, idx = torch.topk(torch.from_numpy(scores).to(device), min(threshold, scores.shape[1]),
-                           dim=1)
-    return vals.cpu().numpy(), idx.cpu().numpy()
+    smaller), descending, equal scores in decreasing gallery index order,
+    ranked on ``device`` in row blocks: (values, indices) on the host.
+    ``torch.topk`` leaves the order of ties unspecified, so the columns are
+    reversed and sorted stably instead."""
+    n, v = scores.shape
+    k = min(threshold, v)
+    vals, idx = np.empty((n, k), np.float32), np.empty((n, k), np.int64)
+    rows = max(1, RANKING_BLOCK // max(v, 1))
+    for start in range(0, n, rows):
+        block = torch.from_numpy(scores[start:start + rows]).to(device).flip(1)
+        top_vals, top_idx = torch.sort(block, dim=1, descending=True, stable=True)
+        vals[start:start + rows] = top_vals[:, :k].cpu().numpy()
+        idx[start:start + rows] = (v - 1 - top_idx[:, :k]).cpu().numpy()
+    return vals, idx
 
 
 def _write_score_lines(path: str, vals: np.ndarray, idx: np.ndarray, txt_ids: List[str],
@@ -381,13 +422,64 @@ def each_head_outputs(opt: PredictOptions, output_dir: str, txt_embs: torch.Tens
     return per_head
 
 
+def check_options(opt: PredictOptions) -> None:
+    """Options whose paths are not ported raise before any work."""
+    if opt.data_parallel:
+        raise NotImplementedError(f"data_parallel={opt.data_parallel} is not ported yet: "
+                                  f"ROADMAP Queue 1 item 5")
+    if opt.int8_gallery:
+        raise NotImplementedError("int8_gallery=1 (the int8 gallery nomination) is not ported "
+                                  "yet: ROADMAP Queue 1 item 3b")
+
+
+def check_strongclip(ckpt: Dict, rootpath: str, collection: str) -> None:
+    """``laff_tpu`` swaps a fine-tuned live CLIP text tower in for a
+    StrongCLIP config whenever ``<root>/<collection>/TextData/<CLIP
+    dir_name>/model_best.pth.tar`` loads, and warns when it does not
+    (``laff_tpu/engine/predictor.py:490-503``). The port has no live CLIP
+    tower yet: it raises where that file exists, so the two packages never
+    score with different text features in silence, and warns as
+    ``laff_tpu`` does where it does not."""
+    config = ckpt["config"]
+    named = str(type(config).__module__) + str(getattr(config, "model_name", ""))
+    if "StrongCLIP" not in named + str(ckpt.get("opt", {}).get("config_name", "")):
+        return
+    dir_name = config.text_encoding["CLIP_encoding"].get("dir_name", STRONGCLIP_DIR)
+    path = os.path.join(rootpath, collection, "TextData", dir_name, "model_best.pth.tar")
+    if os.path.exists(path):
+        raise NotImplementedError(f"{path}: the StrongCLIP text tower swap is not ported yet: "
+                                  f"ROADMAP Queue 1 item 4")
+    logger.warning("StrongCLIP text tower load failed: [Errno 2] No such file or directory: %r",
+                   path)
+
+
+def check_streamable(opt: PredictOptions, measure: str, is_avs: bool, n_videos: int) -> None:
+    """What the streamed (large-gallery) path does not serve raises before
+    the gallery is read."""
+    if measure != "cosine":
+        raise ValueError(f"measure {measure!r} over a gallery of {n_videos} videos (above "
+                         f"LARGE_GALLERY {LARGE_GALLERY}): streamed galleries are scored by "
+                         f"cosine only")
+    if opt.rerank in ("kreciprocal", "tkb"):
+        raise ValueError(f"--rerank {opt.rerank} over a gallery of {n_videos} videos (above "
+                         f"LARGE_GALLERY {LARGE_GALLERY}): it needs the gallery-gallery "
+                         f"product, which is not formed for streamed galleries")
+    if not is_avs and opt.rerank == "none" and opt.task3_caption == "no_task3_caption":
+        raise NotImplementedError(f"a benchmark gallery of {n_videos} videos without "
+                                  f"post-processing (streaming_benchmark_eval) is not ported "
+                                  f"yet: ROADMAP Queue 1 item 3b")
+
+
 def main(opt: PredictOptions) -> Dict:
-    """Returns {query_set: {'t2v', 'v2t' metric tuples, 't2v_ranks',
-    'seconds' per phase, 'negated_queries' (None without negation
-    scoring), and with each_head 'per_head'}}."""
+    """Returns {query_set: ...}: for a benchmark collection the 't2v' and
+    'v2t' metric tuples, 't2v_ranks', 'negated_queries' (None without
+    negation scoring) and with each_head 'per_head'; for an AVS query set
+    'score_file' and 'negated_queries'; both with 'seconds' per phase."""
+    check_options(opt)
     device = resolve_device(opt.device)
     ckpt = load_checkpoint(opt.model_path)
     config = ckpt["config"]
+    check_strongclip(ckpt, opt.rootpath, opt.testCollection)
     model = rebuild_model(ckpt, device)
     embedder = Embedder(model, device, prefetch_depth=max(2, opt.num_workers))
     featurizers = rebuild_featurizers(ckpt, opt.rootpath)
@@ -401,11 +493,11 @@ def main(opt: PredictOptions) -> Dict:
     vis_embs: Optional[torch.Tensor] = None
 
     for query_set in opt.query_sets.split(","):
-        if coll in AVS_COLLECTIONS or query_set == "simple_query.txt":
-            raise NotImplementedError("AVS score files are not ported yet: ROADMAP Queue 1 item 3")
+        is_avs = coll in AVS_COLLECTIONS or query_set == "simple_query.txt"
         output_dir = os.path.join(opt.rootpath, coll, "SimilarityIndex", query_set,
                                   opt.sim_name)
-        if check_to_skip(os.path.join(output_dir, "id.sent.score.txt"), opt.overwrite):
+        score_file = os.path.join(output_dir, "id.sent.score.txt")
+        if check_to_skip(score_file, opt.overwrite):
             continue
         makedirs(output_dir)
         seconds: Dict[str, float] = {}
@@ -415,45 +507,67 @@ def main(opt: PredictOptions) -> Dict:
             nonlocal tick
             _sync(device)
             now = time.perf_counter()
-            seconds[name] = now - tick
+            seconds[name] = seconds.get(name, 0.0) + now - tick
             tick = now
 
         vis_feed, txt_feed, tsrc, vis_ids = build_test_feeds(opt, config, query_set, featurizers)
-        if len(vis_ids) > LARGE_GALLERY:
-            raise NotImplementedError(
-                f"gallery of {len(vis_ids)} videos: large-gallery streaming is not ported yet: "
-                f"ROADMAP Queue 1 item 3")
+        streamed = len(vis_ids) > LARGE_GALLERY
+        if streamed:
+            check_streamable(opt, measure, is_avs, len(vis_ids))
         txt_embs, txt_ids = embedder.embed_txt(txt_feed)
         lap("embed_txt")
-        if vis_embs is None:  # cached across query sets
+        if not streamed and vis_embs is None:  # cached across query sets
             vis_embs, vis_ids = embedder.embed_vis(vis_feed)
-        lap("embed_vis")
-        scores = score_matrix(txt_embs, vis_embs, measure=measure)
-        lap("score_matrix")
+            lap("embed_vis")
+
+        def scores_of(embs: torch.Tensor) -> np.ndarray:
+            nonlocal vis_ids
+            if streamed:  # every query set and clause streams the gallery again
+                out, vis_ids = score_matrix_streaming(embedder, embs, vis_feed)
+                lap("stream")
+                return out
+            out = score_matrix(embs, vis_embs, measure=measure)
+            lap("score_matrix")
+            return out
+
         adjusted, negated = False, None
         if opt.task3_caption != "no_task3_caption":
             pos_embs, neg_embs, neg_mask = embed_negation_split(embedder, txt_feed, tsrc,
                                                                 txt_ids)
             negated = int(neg_mask.sum())
+            lap("negation")
             if neg_embs is None:
                 logger.warning("task3_caption=%s set but no query contains a negation cue; "
                                "scores unchanged", opt.task3_caption)
             else:
                 adjusted = True
-                scores = negation_adjusted_scores(
-                    score_matrix(pos_embs, vis_embs, measure=measure),
-                    score_matrix(neg_embs, vis_embs, measure=measure), neg_mask,
-                    method=opt.neg_method)
+                scores = negation_adjusted_scores(scores_of(pos_embs), scores_of(neg_embs),
+                                                  neg_mask, method=opt.neg_method)
                 logger.info("negation scoring (%s): %d/%d queries carry a negation",
                             opt.neg_method, negated, len(txt_ids))
-            lap("negation")
+        if not adjusted:
+            scores = scores_of(txt_embs)
         if opt.rerank == "concept":
             scores = concept_rerank_scores(opt, scores, txt_ids, vis_ids, tsrc)
             lap("rerank")
         elif opt.rerank != "none":
             scores = apply_rerank(opt.rerank, scores, txt_embs, vis_embs)
             lap("rerank")
-        if adjusted or opt.rerank != "none":
+
+        if is_avs:
+            vals, idx = score_rankings(scores, device, AVS_SCORE_TOPK)
+            lap("topk")
+            write_score_files([(score_file, vals, idx)], txt_ids, vis_ids)
+            lap("score_file")
+            write_rank_dump(os.path.join(output_dir, "t2v.pkl"), vals[:, :DUMP_TOPK],
+                            idx[:, :DUMP_TOPK], txt_ids, vis_ids, tsrc.captions)
+            lap("rank_dump")
+            logger.info("wrote %s", score_file)
+            results[query_set] = {"score_file": score_file, "seconds": seconds,
+                                  "negated_queries": negated}
+            continue
+
+        if adjusted or opt.rerank != "none" or streamed:
             t2v, ranks = t2v_from_scores(scores, txt_ids, vis_ids, device)
         else:
             ranks = t2v_ranks(txt_embs, vis_embs, txt_ids, vis_ids, measure=measure,
@@ -462,8 +576,9 @@ def main(opt: PredictOptions) -> Dict:
         lap("t2v_ranks")
         append_result_row(os.path.join(result_dir, "TextToVideo", result_name),
                           model_tag, parm_adjust, t2v)
-        write_rank_dump(os.path.join(output_dir, "t2v.pkl"), scores, txt_ids, vis_ids,
-                        tsrc.captions, device)
+        write_rank_dump(os.path.join(output_dir, "t2v.pkl"),
+                        *score_rankings(scores, device, DUMP_TOPK), txt_ids, vis_ids,
+                        tsrc.captions)
         lap("rank_dump")
         v2t = eval_v2t(scores, txt_ids, vis_ids)
         lap("v2t")
@@ -471,7 +586,7 @@ def main(opt: PredictOptions) -> Dict:
                           model_tag, parm_adjust, v2t)
         results[query_set] = {"t2v": t2v, "v2t": v2t, "t2v_ranks": ranks,
                               "seconds": seconds, "negated_queries": negated}
-        if opt.each_head and txt_embs.ndim == 3:
+        if opt.each_head and txt_embs.ndim == 3 and vis_embs is not None:
             results[query_set]["per_head"] = each_head_outputs(
                 opt, output_dir, txt_embs, vis_embs, txt_ids, vis_ids, model_tag, parm_adjust,
                 device)

@@ -1,5 +1,6 @@
 from .metrics import (
     eval_label_matrix,
+    eval_qry2retro,
     eval_t2v,
     eval_v2t,
     label_matrix_from_scores,
@@ -9,6 +10,7 @@ from .metrics import (
 
 __all__ = [
     "eval_label_matrix",
+    "eval_qry2retro",
     "eval_t2v",
     "eval_v2t",
     "label_matrix_from_scores",

@@ -22,6 +22,14 @@ import numpy as np
 import torch
 
 
+def _id_codes(*id_lists: Sequence[str]):
+    """One int64 array per list, equal ids given equal codes: the label
+    matrices compare these instead of strings, with the same result."""
+    table: dict = {}
+    return [np.fromiter((table.setdefault(i, len(table)) for i in ids), np.int64, len(ids))
+            for ids in id_lists]
+
+
 def label_matrix_from_scores(
     scores: np.ndarray, query_ids: Sequence[str], gallery_ids: Sequence[str]
 ) -> np.ndarray:
@@ -29,12 +37,11 @@ def label_matrix_from_scores(
     the positions whose gallery id equals ``query_id.split('#')[0]``."""
     scores = np.asarray(scores)
     inds = np.argsort(scores, axis=1)
-    gallery_ids = np.asarray(gallery_ids)
+    query_codes, gallery_codes = _id_codes([q.split("#")[0] for q in query_ids], gallery_ids)
     label_matrix = np.zeros(scores.shape, dtype=np.int32)
-    for i, qid in enumerate(query_ids):
+    for i in range(len(query_ids)):
         ind = inds[i][::-1]
-        gt = qid.split("#")[0]
-        label_matrix[i][np.where(gallery_ids[ind] == gt)[0]] = 1
+        label_matrix[i][np.where(gallery_codes[ind] == query_codes[i])[0]] = 1
     return label_matrix
 
 
@@ -57,6 +64,27 @@ def eval_label_matrix(label_matrix: np.ndarray):
     return (r1, r5, r10, medr, meanr, mir, aps.mean())
 
 
+def eval_qry2retro(qry2retro_sim: np.ndarray, n_qry: int = 1):
+    """Legacy block-diagonal protocol (reference ``evaluation.py:64-89``):
+    query row i matches gallery column i // n_qry. MedR and MeanR are +1
+    here, unlike ``eval_label_matrix``; ties follow the reversed ascending
+    argsort, as there."""
+    sim = np.asarray(qry2retro_sim)
+    assert sim.shape[0] / sim.shape[1] == n_qry, sim.shape
+    inds = np.argsort(sim, axis=1)
+    ranks = np.zeros(sim.shape[0])
+    for i in range(sim.shape[0]):
+        ind = inds[i][::-1]
+        ranks[i] = np.where(ind == i // n_qry)[0][0]
+    r1 = 100.0 * np.mean(ranks < 1)
+    r5 = 100.0 * np.mean(ranks < 5)
+    r10 = 100.0 * np.mean(ranks < 10)
+    medr = np.floor(np.median(ranks)) + 1
+    meanr = ranks.mean() + 1
+    mir = (1.0 / (ranks + 1)).mean()
+    return (r1, r5, r10, medr, meanr, mir)
+
+
 def eval_t2v(scores: np.ndarray, txt_ids: Sequence[str], vis_ids: Sequence[str]):
     """Text->video metrics straight from a score matrix."""
     return eval_label_matrix(label_matrix_from_scores(scores, txt_ids, vis_ids))
@@ -68,11 +96,11 @@ def eval_v2t(scores: np.ndarray, txt_ids: Sequence[str], vis_ids: Sequence[str])
     ``predictor.py:261-276``)."""
     t_scores = np.asarray(scores).T
     inds = np.argsort(t_scores, axis=1)
-    txt_roots = np.asarray([t.split("#")[0] for t in txt_ids])
+    root_codes, vis_codes = _id_codes([t.split("#")[0] for t in txt_ids], vis_ids)
     label_matrix = np.zeros(t_scores.shape, dtype=np.int32)
-    for i, vid in enumerate(vis_ids):
+    for i in range(len(vis_ids)):
         ind = inds[i][::-1]
-        label_matrix[i][np.where(txt_roots[ind] == vid)[0]] = 1
+        label_matrix[i][np.where(root_codes[ind] == vis_codes[i])[0]] = 1
     return eval_label_matrix(label_matrix)
 
 

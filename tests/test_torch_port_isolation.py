@@ -28,8 +28,11 @@ print(len(names), "modules;", "forbidden:", bad, covered)
 
 # modules the walk must reach: the native featurizer, the FrameLAFF configs,
 # the checkpoint interchange, the registry, the configs that reference
-# checkpoints name and the re-rankers
+# checkpoints name, the re-rankers and the TRECVID harness with its CLI
 REQUIRED = ("laff_tpu_torch.native", "laff_tpu_torch.eval.rerank",
+            "laff_tpu_torch.eval.trecvid", "laff_tpu_torch.eval.trecvid.infap",
+            "laff_tpu_torch.eval.trecvid.trec_eval", "laff_tpu_torch.eval.trecvid.txt2xml",
+            "laff_tpu_torch.cli.avs_eval",
             "laff_tpu_torch.configs.frame_rehearsal",
             "laff_tpu_torch.configs.FrameLaff_NoFrameFc_StrongCLIP_adjust",
             "laff_tpu_torch.engine.torch_import", "laff_tpu_torch.engine.torch_export",
@@ -49,7 +52,7 @@ def test_port_imports_no_jax_and_no_laff_tpu():
                 ROOT)
     assert proc.returncode == 0, proc.stderr
     count, _, rest = proc.stdout.strip().partition(" modules;")
-    assert int(count) >= 50  # every module was walked, the interchange's included
+    assert int(count) >= 55  # every module was walked, the TRECVID harness's included
     assert rest.strip() == "forbidden: [] True", proc.stdout
 
 
