@@ -79,8 +79,9 @@ Phases, each asserting; any failure exits non-zero before the last line:
    CUDA graph of its forward + backward against eager, and its time per
    call with each direction's weights in a cuDNN buffer of their own against
    one buffer for the module. One step on the card against the CPU; (f) the
-   trained checkpoint through ``predictor.main`` with rank_path 'kernel'
-   and 'flat'.
+   trained checkpoint through ``predictor.main`` with rank_path 'kernel',
+   its ranks held against the plain version (phase 3 holds the 'flat' path
+   on the untrained checkpoint).
 5. FrameLAFF at full width (configs/frame_rehearsal.py: the shape of
    FrameLaff_NoFrameFc_StrongCLIP_adjust at parm 0_7_1_12_0_12_0, 512-d
    frame rows pooled by the plain gate beside four video features, L = 5
@@ -98,8 +99,8 @@ Phases, each asserting; any failure exits non-zero before the last line:
    two concatenations equally wide): the caches and 16 graphed steps
    against eager ones, two epochs of trainer.main at the default dispatch
    (each validation one wide rank launch, no gate), the trained checkpoint
-   through predictor.main with rank_path 'kernel' and 'flat', the kernel
-   ranks held against the plain version. (b) The rest of the attention
+   through predictor.main with rank_path 'kernel', the kernel ranks held
+   against the plain version. (b) The rest of the attention
    zoo (kinds 2, 4, 5, 6, 10, 11, 16 at the rehearsal's parm
    0_<k>_0_<k>_1_0_0): one step on the card against the CPU each, and for
    kind 5 (its QKV dropout on) 16 graphed steps against 16 eager ones. (c)
@@ -152,10 +153,31 @@ Phases, each asserting; any failure exits non-zero before the last line:
    laff_tpu_torch.cli.avs_eval on each edition: the trained run's infAP at
    least 5x a seeded random run's over the gallery's shots, and equal to
    the NIST sample_eval.pl's within 2e-4 where perl is installed.
+9. The large benchmark gallery and the int8 gallery, inside phase 8 before
+   its world is removed: ibench, a benchmark caption set over iacc.3's
+   gallery (its features linked), 20 captions for each of 500 shots spread
+   over it (10,000 captions; the other shots distractors). (a)
+   predictor.main at batch 1,024 takes the streamed benchmark branch
+   (streaming_benchmark_eval) with the gallery cached on the card in f32:
+   the gate 10 + 329 times, no rank kernel, no score_matrix or
+   score_matrix_streaming call; held against the gallery embedded whole
+   and scored in row blocks: t2v ranks, each captioned shot's v2t ranks
+   and each caption's top 2,000 (t2v.pkl) equal but at near ties. (b) The
+   same with LAFF_TPU_STREAM_GALLERY_BUDGET 0 (pass 2 streams the gallery
+   again: the gate 10 + 658 times): ranks, metrics and t2v.pkl equal to
+   (a) bit for bit. (c) streaming_benchmark_eval called directly on bf16
+   text and the tower's outputs cast to bf16, rank_path 'kernel': a bf16
+   cache, one sim_rank_tiled launch and the gate 329 times, the ranks held
+   against the plain version on the same bf16 rows, and the tiled kernel
+   timed at T 10,000 x V 335,944 x 4,096 against its bound and cuBLAS bf16
+   plus counting. (d) predictor.main with --int8_gallery 1 on tv16.avs.txt:
+   the gate 1 + 329 + one launch per 1,024 nominated videos, the score file
+   against phase 8's exact streamed one (each topic's top 2,000 overlapping
+   at least 0.99, shared scores within 1e-6, infAP within 0.01).
 
 Prints the kernels JSON line (all three kernels; launches: each main path
-counted from 0 around its run, summed, and by path; rbig for the tiled
-kernel), then ``{"ok": true, "device": ...}`` last.
+counted from 0 around its run, summed, and by path; rbig and phase 9(c) for
+the tiled kernel), then ``{"ok": true, "device": ...}`` last.
 Everything it writes goes under build/ in the repository.
 
 ``--gate-timing`` runs only the gate: each DIR (a checkout, e.g. the parent
@@ -571,12 +593,12 @@ def run_predictor(torch, K, P, root, coll, ckpt, rank_path):
     return res, launches
 
 
-def reembed_and_check(torch, K, P, root, coll, ckpt, res_kernel, res_flat):
+def reembed_and_check(torch, K, P, root, coll, ckpt, res_kernel, res_flat=None):
     """Embed the same inputs again (same model, feeds and batches, so the
-    same embeddings) and hold both runs' ranks against them: kernel ranks
+    same embeddings) and hold the runs' ranks against them: kernel ranks
     against the rank kernel's plain version on the same bf16 operands (near
-    ties within SCORE_TIE_TOL: f32 accumulation order), flat ranks against
-    the f32 scores (near ties within 1e-5)."""
+    ties within SCORE_TIE_TOL: f32 accumulation order), and, given a flat
+    run, its ranks against the f32 scores (near ties within 1e-5)."""
     from laff_tpu_torch.engine.checkpoint import load_checkpoint
     from laff_tpu_torch.engine.evaluator import Embedder
     from laff_tpu_torch.ops import flatten_heads
@@ -603,7 +625,6 @@ def reembed_and_check(torch, K, P, root, coll, ckpt, res_kernel, res_flat):
     gt = torch.as_tensor([vid_index[t.split("#")[0]] for t in txt_ids], device="cuda")
     tn, vn = flatten_heads(txt), flatten_heads(vis)
     rk = torch.as_tensor(res_kernel["t2v_ranks"], device="cuda").long()
-    rf = torch.as_tensor(res_flat["t2v_ranks"], device="cuda").long()
     t = len(txt_ids)
 
     # the predictor's kernel call is fused_sim_rank(tn, vn, gt, prenormalized)
@@ -612,7 +633,13 @@ def reembed_and_check(torch, K, P, root, coll, ckpt, res_kernel, res_flat):
                                        vn.to(torch.bfloat16), gt, SCORE_TIE_TOL)
     check(ok, "main-path kernel ranks differ from the plain version beyond near ties")
     equal = int((rk == plain).sum())
+    if res_flat is None:
+        log(f"  slice check: {t} captions; main-path kernel ranks equal the plain version "
+            f"on the same bf16 operands for {equal} rows (others within {SCORE_TIE_TOL} "
+            f"near ties, at most {max_err} places)")
+        return txt[:64].float(), vis[:64].float(), txt_feed, vis_feed, model
 
+    rf = torch.as_tensor(res_flat["t2v_ranks"], device="cuda").long()
     td, vd = tn.double(), vn.double()
     for rows in torch.arange(t, device="cuda").split(4096):
         s = td[rows] @ vd.T / heads
@@ -1360,8 +1387,8 @@ def train_phase(torch, K, P, root, smi):
     card_vs_cpu_step(torch, T, prepared, ck["state_dict"], "laff")
 
     ckpt_path, out, launches_p = trained_checkpoint_prediction(
-        torch, K, P, root, res, ("kernel", "flat"), "laff")
-    reembed_and_check(torch, K, P, root, "rtest", ckpt_path, out["kernel"], out["flat"])
+        torch, K, P, root, res, ("kernel",), "laff")
+    reembed_and_check(torch, K, P, root, "rtest", ckpt_path, out["kernel"])
     trained = {"opt": opt, "prepared": prepared, "ckpt_path": ckpt_path,
                "predict": out["kernel"], "predict_launches": launches_p}
     return launches, launches_p, trained
@@ -1463,8 +1490,8 @@ def concat_phase(torch, K, P, smi):
     res, launches, _ = run_main(torch, K, T, opt, prepared, smi, "concat", gate_calls=0)
     del res["model"]
     ckpt_path, out, launches_p = trained_checkpoint_prediction(
-        torch, K, P, root, res, ("kernel", "flat"), "concat", gate_run=0, coll="ctest")
-    reembed_and_check(torch, K, P, root, "ctest", ckpt_path, out["kernel"], out["flat"])
+        torch, K, P, root, res, ("kernel",), "concat", gate_run=0, coll="ctest")
+    reembed_and_check(torch, K, P, root, "ctest", ckpt_path, out["kernel"])
     return launches, launches_p
 
 
@@ -2042,7 +2069,7 @@ def avs_phase(torch, K, P, root, ckpt, smi):
 
     t0 = time.perf_counter()
     info = build_avs_world(root, AVS_COLLECTION, AVS_SHOTS, AVS_EDITIONS, AVS_TOPICS,
-                           seed=SEED + 8)
+                           seed=SEED + 8, benchmark=(IBENCH, IBENCH_SHOTS, IBENCH_CAPS))
     build_s = time.perf_counter() - t0
     log(f"[avs] world {info} in {build_s:.1f} s ({info['feature_bytes'] / 1e9:.2f} GB of "
         f"features); disk free {shutil.disk_usage(root).free / 1e9:.1f} GB [{smi}]")
@@ -2195,9 +2222,373 @@ def avs_phase(torch, K, P, root, ckpt, smi):
                else "perl is not on this machine: the NIST scorer not run")
             + f"; the chain {chain_s:.1f} s [{smi}]")
         log("avs_timing " + json.dumps(timing))
+        del embedder, txt_embs, profiled_scores
+        t0 = time.perf_counter()
+        phase9 = large_gallery_phase(torch, K, P, root, ckpt, trained[AVS_EDITIONS[0]], smi)
+        log(f"large gallery phase (9): {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(cdir, ignore_errors=True)
-    return launches
+        shutil.rmtree(os.path.join(root, IBENCH), ignore_errors=True)
+    return launches, phase9
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the large benchmark gallery and the int8 gallery over iacc.3
+# ---------------------------------------------------------------------------
+
+IBENCH, IBENCH_SHOTS, IBENCH_CAPS = "ibench", 500, 20  # MSR-VTT's 20 captions a video
+IBENCH_TXT_BATCHES = -(-IBENCH_SHOTS * IBENCH_CAPS // AVS_BATCH)  # 10 of 1,024 captions
+GALLERY_BLOCKS = -(-AVS_SHOTS // AVS_BATCH)  # 329
+IBENCH_TOPK = 2000  # the predictor's streamed t2v.pkl
+YARD_ROWS = 1536  # caption rows of one yardstick block: 2 GB of f32 scores
+INT8_OVERLAP = 0.99  # each topic's top 2,000 from the int8 gallery against the exact one
+INT8_INFAP_TOL = 0.01
+
+
+def counted_predict(torch, K, P, opt):
+    """predictor.main with the launch counts zeroed just before and read just
+    after, and the calls of score_matrix and score_matrix_streaming counted
+    (the streamed benchmark and the int8 gallery must make none)."""
+    calls = {"score_matrix": 0, "score_matrix_streaming": 0}
+    saved = {name: getattr(P, name) for name in calls}
+
+    def counting(name):
+        def fn(*args, **kwargs):
+            calls[name] += 1
+            return saved[name](*args, **kwargs)
+        return fn
+
+    for name in calls:
+        setattr(P, name, counting(name))
+    try:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = P.main(opt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+    finally:
+        for name, fn in saved.items():
+            setattr(P, name, fn)
+    return res, launches, wall, calls
+
+
+def check_launches(what, launches, gate, tiled=0):
+    expect = {"sim_rank_wide": 0, "sim_rank_tiled": tiled, "gate_attention": gate,
+              "gate_attention_simple": 0}
+    check(launches == expect, f"[{what}] launches {launches}, expected {expect}")
+
+
+def file_sha1(path):
+    import hashlib
+
+    h = hashlib.sha1()
+    with open(path, "rb") as fh:
+        for chunk in iter(lambda: fh.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def ibench_yardstick(torch, P, opt, ckpt):
+    """The ibench gallery embedded whole on the card and scored in row
+    blocks of YARD_ROWS captions: each caption's t2v rank (ties
+    larger-index-first) and top IBENCH_TOPK (torch.topk), the f32 unit
+    heads flattened, and the scores of the captioned shots' columns."""
+    from laff_tpu_torch.eval.metrics import ranks_from_scores
+    from laff_tpu_torch.ops import flatten_heads
+
+    ck = P.load_checkpoint(ckpt)
+    device = torch.device("cuda")
+    embedder = P.Embedder(P.rebuild_model(ck, device), device)
+    vis_feed, txt_feed, tsrc, _ = P.build_test_feeds(opt, ck["config"], opt.query_sets,
+                                                     P.rebuild_featurizers(ck, opt.rootpath))
+    txt, txt_ids = embedder.embed_txt(txt_feed)
+    vis, vis_ids = embedder.embed_vis(vis_feed)
+    heads = txt.shape[1]
+    tn, vn = flatten_heads(txt), flatten_heads(vis)
+    vis16 = flatten_heads(vis.to(torch.bfloat16))  # the bf16 cache rows of 9(c)
+    del vis
+    col = {v: i for i, v in enumerate(vis_ids)}
+    gt = torch.as_tensor([col[t.split("#")[0]] for t in txt_ids], device="cuda")
+    ranks, top_vals, top_idx = [], [], []
+    for start in range(0, len(txt_ids), YARD_ROWS):
+        s = tn[start:start + YARD_ROWS] @ vn.T / heads
+        ranks.append(ranks_from_scores(s, gt[start:start + YARD_ROWS]))
+        v, i = torch.topk(s, IBENCH_TOPK, dim=1)
+        top_vals.append(v)
+        top_idx.append(i)
+        del s
+    captioned = sorted(set(gt.tolist()))
+    cap_scores = tn @ vn[captioned].T / heads  # (T, captioned shots)
+    return {"embedder": embedder, "vis_feed": vis_feed, "txt": txt, "txt_ids": txt_ids,
+            "vis_ids": vis_ids, "tn": tn, "vn": vn, "vis16": vis16, "gt": gt,
+            "ranks": torch.cat(ranks), "top_vals": torch.cat(top_vals).cpu().numpy(),
+            "top_idx": torch.cat(top_idx).cpu().numpy(), "captioned": captioned,
+            "cap_scores": cap_scores}
+
+
+def v2t_against_yardstick(torch, y, v2t_ranks):
+    """Each captioned shot's sorted positive ranks (the streamed run's)
+    against those counted on the yardstick's column of that shot, equal
+    except where as many captions score within SCORE_TIE_TOL. Returns the
+    shots whose lists differ."""
+    import numpy as np
+
+    gt = y["gt"]
+    check(len(v2t_ranks) == len(y["captioned"]),
+          f"[ibench] v2t lists for {len(v2t_ranks)} shots, {len(y['captioned'])} captioned")
+    caps = torch.arange(len(gt), device="cuda")[:, None]
+    moved = 0
+    for j, shot in enumerate(y["captioned"]):
+        col = y["cap_scores"][:, j][:, None]  # (T, 1)
+        pos = torch.nonzero(gt == shot).flatten()
+        s_p = col[pos, 0][None, :]
+        beats = (col > s_p) | ((col == s_p) & (caps > pos[None, :]))
+        want = np.sort((1 + beats.sum(dim=0)).cpu().numpy())
+        near = int((((col - s_p).abs() <= SCORE_TIE_TOL).sum(dim=0) - 1).max())
+        got = np.asarray(v2t_ranks[j])
+        check(got.shape == want.shape and int(np.abs(got - want).max()) <= near,
+              f"[ibench] shot {shot}: v2t ranks {got[:5]} vs the yardstick's {want[:5]}")
+        moved += int((got != want).any())
+    return moved
+
+
+def topk_against_yardstick(y, dump):
+    """The streamed t2v.pkl (IBENCH_TOPK ids and scores a caption) against the
+    yardstick's top-k: scores within AVS_STREAM_TOL, ids equal but at near
+    ties. Returns (max |score diff|, places that differ)."""
+    import numpy as np
+
+    vis_arr = np.asarray(y["vis_ids"], dtype=object)
+    check(list(dump) == y["txt_ids"] and all(
+        len(d["rank_list"]) == IBENCH_TOPK for d in dump.values()),
+        f"[ibench] t2v.pkl is not {len(y['txt_ids'])} rows of {IBENCH_TOPK}")
+    err, moved = 0.0, 0
+    for q, tid in enumerate(y["txt_ids"]):
+        d = dump[tid]
+        v_s = np.asarray(d["sim_value"], np.float64)
+        v_y = y["top_vals"][q].astype(np.float64)
+        err = max(err, float(np.abs(v_s - v_y).max()))
+        bad = np.nonzero(np.asarray(d["rank_list"], dtype=object) != vis_arr[y["top_idx"][q]])[0]
+        moved += len(bad)
+        check(all(near_tie(v_s, i, AVS_STREAM_TOL) and near_tie(v_y, i, AVS_STREAM_TOL)
+                  for i in bad), f"[ibench] {tid}: the streamed top-{IBENCH_TOPK} differs from "
+              f"the yardstick's away from near ties")
+    check(err <= AVS_STREAM_TOL, f"[ibench] streamed vs yardstick top-k scores: {err}")
+    return err, moved
+
+
+def kernel_branch_check(torch, K, y, smi):
+    """9(c): streaming_benchmark_eval called directly with the video tower's
+    outputs cast to bf16 and bf16 text, rank_path 'kernel': the gallery
+    cached in bf16 and pass 2 one sim_rank_tiled launch over it, its ranks
+    against the plain version on the same bf16 rows, and the tiled kernel
+    timed at this shape against its bound and cuBLAS bf16 plus counting."""
+    import types
+
+    from laff_tpu_torch.engine.evaluator import Embedder, streaming_benchmark_eval
+    from laff_tpu_torch.eval.metrics import ranks_from_scores
+    from laff_tpu_torch.ops import flatten_heads
+
+    model = y["embedder"].model
+    bf16_tower = types.SimpleNamespace(
+        spec=model.spec, encode_vis=lambda data: model.encode_vis(data).to(torch.bfloat16))
+    embedder = Embedder(bf16_tower, torch.device("cuda"))
+    txt16 = y["txt"].to(torch.bfloat16)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = streaming_benchmark_eval(embedder, txt16, y["txt_ids"], y["vis_feed"], topk=0,
+                                   rank_path="kernel")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    check_launches("ibench kernel branch", launches, GALLERY_BLOCKS, tiled=1)
+    tn, vn, gt = flatten_heads(txt16), y["vis16"], y["gt"]
+    ranks = torch.as_tensor(res["t2v_ranks"], device="cuda")
+    plain = K.fused_sim_rank_plain(tn, vn, gt, prenormalized=True)
+    ok, max_err = rank_moves_explained(torch, ranks, plain, tn, vn, gt, SCORE_TIE_TOL)
+    check(ok, "[ibench] the kernel branch's ranks differ from the plain version beyond near ties")
+    equal = float((ranks == plain).float().mean())
+
+    t, v, hd = tn.shape[0], vn.shape[0], tn.shape[1]
+
+    def library():  # cuBLAS bf16 product + torch counting, in row blocks
+        return torch.cat([ranks_from_scores((tn[s:s + 2048] @ vn.T).float(), gt[s:s + 2048])
+                          for s in range(0, t, 2048)])
+
+    ms = time_ms(torch, lambda: K.fused_sim_rank(tn, vn, gt, prenormalized=True), reps=5)
+    device = device_ms(torch, lambda: K.fused_sim_rank(tn, vn, gt, prenormalized=True), reps=3)
+    launch_ms = sum(v_ms for k, v_ms in device.items() if "sim_rank_kernel" in k)
+    plain_ms = time_ms(torch, lambda: K.fused_sim_rank_plain(tn, vn, gt, prenormalized=True),
+                       reps=1)
+    library_ms = time_ms(torch, library, reps=3)
+    b_ms, b_by = bound_ms((t + v) * hd * 2 + 2 * t * 4, 2.0 * t * v * hd, PEAK_BF16_OPS_S)
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:4]
+    log("  [ibench] (c) device ms per call: "
+        + ("; ".join(f"{k[:60]} {v_ms:.3f}" for k, v_ms in top) or "none recorded"))
+    row = {"shape": [t, v, hd], "max_abs_err": max_err, "rows_equal": equal, "ms": ms,
+           "device_ms": launch_ms or None, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by,
+           "library_ms": library_ms, "stream_wall_s": wall,
+           "cache_bytes": v * hd * vn.element_size()}
+    log(f"  [ibench] (c) the kernel branch: streaming_benchmark_eval on bf16 text and a bf16 "
+        f"cache of {row['cache_bytes'] / 1e9:.2f} GB, rank_path 'kernel', {wall:.1f} s; "
+        f"launches {launches}; ranks equal to the plain version on {equal:.6f} of the rows, "
+        f"max |rank diff| {max_err} (near ties within {SCORE_TIE_TOL}); sim_rank_tiled at "
+        f"T={t} V={v} HD={hd}: {ms:.3f} ms ("
+        + (f"{launch_ms:.3f} ms of device time" if launch_ms else "device time not measured")
+        + "), plain "
+        f"{plain_ms:.1f} ms, cuBLAS bf16 + counting {library_ms:.3f} ms, bound {b_ms:.3f} ms "
+        f"({b_by}) [{smi}]")
+    return launches, row
+
+
+def large_gallery_phase(torch, K, P, root, ckpt, exact_infap, smi):
+    """9. The large benchmark gallery and the int8 gallery over iacc.3's
+    335,944 shots, under phase 4's trained checkpoint. (a) ibench, 10,000
+    captions (20 for each of 500 shots spread over the gallery, the rest
+    distractors) through predictor.main: the streamed benchmark branch with
+    the gallery cached in f32 (the gate 10 + 329 times, no rank kernel, no
+    score_matrix call), held against the gallery embedded whole (t2v ranks,
+    v2t ranks and the top 2,000, equal but at near ties); (b) the same
+    uncached (LAFF_TPU_STREAM_GALLERY_BUDGET 0: the gate 10 + 658 times),
+    equal to (a) bit for bit; (c) the kernel branch (kernel_branch_check);
+    (d) predictor.main with --int8_gallery 1 on tv16.avs.txt against phase
+    8's exact streamed run: topic overlap, scores and infAP. Returns the
+    launches by path and (c)'s row."""
+    import pickle
+
+    import numpy as np
+
+    from laff_tpu_torch.cli import avs_eval
+    from laff_tpu_torch.engine.evaluator import STREAM_BUDGET_ENV
+
+    check(STREAM_BUDGET_ENV not in os.environ, f"{STREAM_BUDGET_ENV} is set")
+    qs = f"{IBENCH}.caption.txt"
+    timing = {"card": smi}
+
+    def options(sim_name, **kw):
+        return P.PredictOptions(
+            testCollection=IBENCH, model_path=ckpt, sim_name=sim_name, rootpath=root,
+            query_sets=qs, batch_size=AVS_BATCH, overwrite=1, device="cuda",
+            predict_result_file=os.path.join(root, "result_log", f"{sim_name}.txt"), **kw)
+
+    def dump_path(sim_name, coll=IBENCH, query_set=qs):
+        return os.path.join(root, coll, "SimilarityIndex", query_set, sim_name, "t2v.pkl")
+
+    # (a) cached in f32
+    opt = options("smoke_ibench")
+    torch.cuda.reset_peak_memory_stats()
+    res, launches_a, wall, calls = counted_predict(torch, K, P, opt)
+    res = res[qs]
+    peak = torch.cuda.max_memory_allocated()
+    cache_bytes = AVS_SHOTS * 8 * 512 * 4
+    check_launches("ibench", launches_a, IBENCH_TXT_BATCHES + GALLERY_BLOCKS)
+    check(calls == {"score_matrix": 0, "score_matrix_streaming": 0},
+          f"[ibench] the streamed benchmark called {calls}")
+    check(peak >= cache_bytes, f"[ibench] peak device memory {peak} below the f32 cache")
+    secs = res["seconds"]
+    check({"embed_txt", "pass1", "pass2", "rank_dump"} <= set(secs), f"[ibench] phases {secs}")
+    for side in ("TextToVideo", "VideoToText"):
+        path = os.path.join(root, "result_log", side, "smoke_ibench.txt")
+        check(os.path.exists(path) and open(path).read().count("\n") == 1,
+              f"[ibench] no {side} row in {path}")
+    timing["cached"] = {"wall_s": wall, **secs, "videos_per_s_pass1": AVS_SHOTS / secs["pass1"],
+                        "peak_bytes": peak, "cache_bytes": cache_bytes}
+    log(f"  [ibench] (a) {IBENCH_SHOTS * IBENCH_CAPS} captions x {AVS_SHOTS} shots streamed, "
+        f"the gallery cached in f32 ({cache_bytes / 1e9:.2f} GB; peak {peak / 1e9:.2f} GB): "
+        f"{wall:.1f} s wall (" + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+        + f"); pass 1 {AVS_SHOTS / secs['pass1']:.0f} gallery videos/s; launches "
+        f"{launches_a}; t2v r1 {res['t2v'][0]:.2f} mir {res['t2v'][5]:.4f}, v2t r1 "
+        f"{res['v2t'][0]:.2f} mAP {res['v2t'][6]:.4f} [{smi}]")
+
+    t0 = time.perf_counter()
+    y = ibench_yardstick(torch, P, opt, ckpt)
+    stream_ranks = torch.as_tensor(res["t2v_ranks"], device="cuda")
+    ok, t2v_err = rank_moves_explained(torch, stream_ranks, y["ranks"], y["tn"], y["vn"], y["gt"],
+                                       SCORE_TIE_TOL)
+    check(ok, "[ibench] streamed t2v ranks differ from the yardstick's beyond near ties")
+    t2v_moved = int((stream_ranks != y["ranks"]).sum())
+    v2t_moved = v2t_against_yardstick(torch, y, res["v2t_ranks"])
+    with open(dump_path("smoke_ibench"), "rb") as fh:
+        top_err, top_moved = topk_against_yardstick(y, pickle.load(fh))
+    timing["yardstick_s"] = time.perf_counter() - t0
+    log(f"  [ibench] against the gallery embedded whole: t2v ranks differ on {t2v_moved} of "
+        f"{len(y['txt_ids'])} captions (at most {t2v_err} places, near ties within "
+        f"{SCORE_TIE_TOL}); v2t lists differ on {v2t_moved} of {IBENCH_SHOTS} shots (near "
+        f"ties); top-{IBENCH_TOPK} scores within {top_err:.3g}, {top_moved} of "
+        f"{len(y['txt_ids']) * IBENCH_TOPK} places differ, all at near ties; "
+        f"{timing['yardstick_s']:.1f} s")
+
+    # (b) uncached: the gallery streamed through the tower again for pass 2
+    os.environ[STREAM_BUDGET_ENV] = "0"
+    try:
+        res_b, launches_b, wall_b, calls_b = counted_predict(torch, K, P,
+                                                             options("smoke_ibench_uncached"))
+    finally:
+        del os.environ[STREAM_BUDGET_ENV]
+    res_b = res_b[qs]
+    check_launches("ibench uncached", launches_b, IBENCH_TXT_BATCHES + 2 * GALLERY_BLOCKS)
+    check(calls_b == calls, f"[ibench] the uncached run called {calls_b}")
+    check(np.array_equal(res_b["t2v_ranks"], res["t2v_ranks"]) and res_b["v2t"] == res["v2t"]
+          and res_b["t2v"] == res["t2v"], "[ibench] uncached metrics differ from cached ones")
+    check(file_sha1(dump_path("smoke_ibench_uncached")) == file_sha1(dump_path("smoke_ibench")),
+          "[ibench] the uncached t2v.pkl differs from the cached one")
+    timing["uncached"] = {"wall_s": wall_b, **res_b["seconds"]}
+    log(f"  [ibench] (b) uncached: {wall_b:.1f} s wall ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in res_b["seconds"].items())
+        + f"); launches {launches_b}; t2v ranks, v2t metrics and t2v.pkl equal to (a) bit for "
+        f"bit [{smi}]")
+
+    # (c) the kernel branch, then the yardstick goes
+    launches_c, row = kernel_branch_check(torch, K, y, smi)
+    timing["kernel_branch"] = row
+    del y
+
+    # (d) the int8 gallery on tv16, against phase 8's exact streamed run
+    query_set = f"{AVS_EDITIONS[0]}.avs.txt"
+    opt8 = P.PredictOptions(testCollection=AVS_COLLECTION, model_path=ckpt,
+                            sim_name="smoke_avs_int8", rootpath=root, query_sets=query_set,
+                            batch_size=AVS_BATCH, overwrite=1, device="cuda", int8_gallery=1)
+    res_d, launches_d, wall_d, calls_d = counted_predict(torch, K, P, opt8)
+    res_d = res_d[query_set]
+    union, int8_bytes = res_d["int8"]["union"], res_d["int8"]["int8_bytes"]
+    check_launches("avs int8", launches_d, 1 + GALLERY_BLOCKS + -(-union // AVS_BATCH))
+    check(calls_d == calls, f"[avs int8] called {calls_d}")
+    sdir = os.path.join(root, AVS_COLLECTION, "SimilarityIndex", query_set)
+    got = read_score_file(os.path.join(sdir, "smoke_avs_int8", "id.sent.score.txt"))
+    exact = read_score_file(os.path.join(sdir, "smoke_avs", "id.sent.score.txt"))
+    check(list(got) == list(exact) and len(got) == AVS_TOPICS and all(
+        len(ids) == 2000 and len(set(ids)) == 2000 and (np.diff(v) <= 0).all()
+        and np.isfinite(v).all() for ids, v in got.values()),
+        "[avs int8] the score file is not 30 lines of 2,000 descending distinct pairs")
+    overlap, err = 1.0, 0.0
+    for t, (ids, vals) in got.items():
+        e_ids, e_vals = exact[t]
+        shared = set(ids) & set(e_ids)
+        overlap = min(overlap, len(shared) / 2000)
+        where = {v: i for i, v in enumerate(e_ids)}
+        for i, v in enumerate(ids):
+            if v in where:
+                err = max(err, abs(vals[i] - e_vals[where[v]]))
+    check(overlap >= INT8_OVERLAP, f"[avs int8] a topic's top-2,000 overlap {overlap}")
+    check(err <= AVS_STREAM_TOL, f"[avs int8] shared ids' scores differ by {err}")
+    infap = avs_infap(avs_eval, root, AVS_EDITIONS[0], "smoke_avs_int8")
+    check(abs(infap - exact_infap) <= INT8_INFAP_TOL,
+          f"[avs int8] infAP {infap} against the exact run's {exact_infap}")
+    timing["int8"] = {"wall_s": wall_d, **res_d["seconds"], "union": union,
+                      "int8_bytes": int8_bytes, "min_overlap": overlap, "max_score_diff": err,
+                      "infap": infap, "exact_infap": exact_infap}
+    log(f"  [avs int8] {query_set} with --int8_gallery 1: {wall_d:.1f} s wall ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in res_d["seconds"].items())
+        + f"); the int8 gallery {int8_bytes / 1e9:.3f} GB on the card, {union} videos "
+        f"embedded again; launches {launches_d}; against the exact streamed run: top-2,000 "
+        f"overlap at least {overlap:.4f}, shared scores within {err:.3g}, infAP {infap:.4f} vs "
+        f"{exact_infap:.4f} [{smi}]")
+    log("large_gallery_timing " + json.dumps(timing))
+    by_path = {"ibench_predict": launches_a, "ibench_uncached_predict": launches_b,
+               "ibench_kernel_stream": launches_c, "avs_int8_predict": launches_d}
+    return by_path, row
 
 
 def gate_worker(torch, root):
@@ -2370,37 +2761,42 @@ def main(argv):
         by_path_aux = aux_phase(torch, K, P, root, smi_line)
         log(f"task3, task2 and post-processing phase: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        launches_avs = avs_phase(torch, K, P, root, trained["ckpt_path"], smi_line)
-        log(f"AVS phase: {time.perf_counter() - t0:.1f} s")
+        launches_avs, (by_path_large, tiled_ibench) = avs_phase(
+            torch, K, P, root, trained["ckpt_path"], smi_line)
+        log(f"AVS and large gallery phases: {time.perf_counter() - t0:.1f} s")
 
         # launches of the main paths, each counted from 0 around its run:
         # the rtest prediction pass, the LAFF training run's validations and
         # its checkpoint's pass, FrameLAFF's, W2VVPP's, the 'hist'
         # validation's, the reference file's pass, task3's and task2's
-        # validations, the negation-scored pass, the post-processing passes
-        # and the three streamed AVS query sets (rbig for the tiled kernel)
+        # validations, the negation-scored pass, the post-processing passes,
+        # the three streamed AVS query sets, and phase 9's ibench passes
+        # (cached, uncached, the kernel branch) and int8 gallery; the tiled
+        # kernel's paths are rbig and the kernel branch
         by_path = {"laff_predict": launches_k, "laff_train": launches_t,
                    "laff_trained_predict": launches_tp, "frames_train": launches_f,
                    "frames_trained_predict": launches_fp, "concat_train": launches_c,
                    "concat_trained_predict": launches_cp, "hist_validate": launches_h,
-                   "reference_predict": launches_r, **by_path_aux, "avs_predict": launches_avs}
-        main_path = {k: sum(p[k] for p in by_path.values()) for k in launches_k}
+                   "reference_predict": launches_r, **by_path_aux, "avs_predict": launches_avs,
+                   **by_path_large}
         rows["gate_attention"]["at_l5"] = gate_l5
+        rows["sim_rank_tiled"]["at_ibench"] = tiled_ibench
+        tiled_paths = {"rbig_predict": launches_b, "ibench_kernel_stream":
+                       by_path_large["ibench_kernel_stream"]}
         meta = {
             "sim_rank_wide": ("laff_tpu_torch/csrc/sim_rank.cu",
-                              "laff_tpu/ops/pallas_kernels.py:116", main_path),
+                              "laff_tpu/ops/pallas_kernels.py:116", by_path),
             "sim_rank_tiled": ("laff_tpu_torch/csrc/sim_rank.cu",
-                               "laff_tpu/ops/pallas_kernels.py:65", launches_b),
+                               "laff_tpu/ops/pallas_kernels.py:65", tiled_paths),
             "gate_attention": ("laff_tpu_torch/csrc/gate.cu",
-                               "laff_tpu/ops/pallas_kernels.py:274", main_path),
+                               "laff_tpu/ops/pallas_kernels.py:274", by_path),
         }
         kernels = []
-        for name, (source, replaces, launches) in meta.items():
-            paths = ({"rbig_predict": launches[name]} if launches is launches_b else
-                     {p: v[name] for p, v in by_path.items()})
+        for name, (source, replaces, paths) in meta.items():
+            counts = {p: v[name] for p, v in paths.items()}
             kernels.append({"name": name, "route": "cuda", "source": source,
-                            "replaces": replaces, "launches": launches[name],
-                            "launches_by_path": paths, **rows[name]})
+                            "replaces": replaces, "launches": sum(counts.values()),
+                            "launches_by_path": counts, **rows[name]})
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(json.dumps({"kernels": kernels}))
     except SmokeFailure as e:

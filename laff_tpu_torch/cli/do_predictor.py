@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Prediction CLI for benchmark and AVS collections; the argument surface
-is ``laff_tpu.cli.do_predictor``'s (``--data_parallel`` and
-``--int8_gallery`` are accepted and raise ``NotImplementedError`` for a
-value other than 0, naming their ROADMAP items).
+is ``laff_tpu.cli.do_predictor``'s (``--data_parallel`` is accepted and
+raises ``NotImplementedError`` for a value other than 0, naming its ROADMAP
+item). ``--int8_gallery 1`` holds an AVS gallery above ``LARGE_GALLERY``
+as int8 rows on the device: candidates are nominated on the int8 product
+and embedded again for exact scores.
 
   python -m laff_tpu_torch.cli.do_predictor <testCollection> <checkpoint> \
       <sim_name> --rootpath <root> --query_sets <capfile>[,<capfile>...] \
       [--rank_path kernel] [--task3_caption negation] \
-      [--rerank kreciprocal|tkb|concept] [--each_head 1]
+      [--rerank kreciprocal|tkb|concept] [--each_head 1] [--int8_gallery 1]
 """
 
 import argparse
@@ -43,8 +45,8 @@ def parse_args(argv=None) -> PredictOptions:
                         help="sharded inference over several devices (not ported: any value "
                              "but 0 raises)")
     parser.add_argument("--int8_gallery", type=int, default=0, choices=[0, 1],
-                        help="int8 gallery nomination for large AVS galleries (not ported: 1 "
-                             "raises)")
+                        help="an AVS gallery above LARGE_GALLERY held on the device as int8 "
+                             "rows: int8 nomination, exact rescoring of the candidates")
     parser.add_argument("--task3_caption", type=str, default="no_task3_caption",
                         help="any other value enables boolean negation scoring of the queries")
     parser.add_argument("--neg_method", type=str, default="sub", choices=["sub", "mul"],

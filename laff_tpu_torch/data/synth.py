@@ -57,6 +57,15 @@ collection of the same vocabulary answers its topics:
   <root>/<collection>/TextData/clip_synth              (CLIP rows of the topics)
   <root>/<collection>/TextData/avs.qrels.<edition>     ("1<topic> 0 <shot> <stratum> <rel>")
 
+With ``benchmark=(name, shots, captions)`` it also writes a benchmark
+collection over that gallery: ``<root>/<name>/FeatureData`` links to the
+AVS collection's, its video set is the whole gallery, and ``shots`` shots
+spread evenly over it get ``captions`` captions each, made as
+``build_world`` makes them (6 of the shot's 8 words, CLIP rows from their
+codes); the other shots are distractors. These are drawn from a generator
+of their own after everything else, so the AVS collection is the one
+``benchmark=None`` builds.
+
 Each topic names ``AVS_TOPIC_WORDS`` words no other topic names; a shot is
 relevant to it when the shot's 8 words contain all of them. Random words
 almost never meet in one shot, so each topic gets a number of planted
@@ -195,14 +204,8 @@ def build_world(root: str, collection: str = "rtest", n_videos: int = 2990,
             (n_videos, dim)).astype(np.float32)
         write_bigfile(os.path.join(cdir, "FeatureData", feat), vids, mat)
 
-    sel = np.argsort(rng.random((n_videos, caps_per_video, 8)), axis=2)[:, :, :6]
-    cap_words = np.take_along_axis(
-        np.broadcast_to(words[:, None, :], (n_videos, caps_per_video, 8)), sel, axis=2)
-    cap_ids, lines = [], []
-    for i, vid in enumerate(vids):
-        for c in range(caps_per_video):
-            cap_ids.append(f"{vid}#{c}")
-            lines.append(f"{vid}#{c} the " + " ".join(vocab[w] for w in cap_words[i, c]))
+    cap_ids, lines, rows, cap_words = _captions_of(rng, vocab, word_codes, vids, words,
+                                                   caps_per_video)
     os.makedirs(os.path.join(cdir, "TextData"), exist_ok=True)
     with open(os.path.join(cdir, "TextData", f"{collection}.caption.txt"), "w") as fh:
         fh.write("\n".join(lines))
@@ -210,10 +213,6 @@ def build_world(root: str, collection: str = "rtest", n_videos: int = 2990,
     with open(os.path.join(cdir, "VideoSets", f"{collection}.txt"), "w") as fh:
         fh.write("\n".join(vids))
 
-    # per-caption CLIP rows from the caption's own 6-word latent
-    cap_latent = word_codes[cap_words.reshape(-1, 6)].sum(axis=1)
-    rows = cap_latent @ _clip_projection() + 0.1 * rng.standard_normal(
-        (len(cap_ids), CLIP_DIM)).astype(np.float32)
     write_bigfile(os.path.join(cdir, "TextData", "clip_synth"), cap_ids, rows)
 
     w2v = np.random.default_rng(5).standard_normal((n_vocab + 2, W2V_DIM)).astype(np.float32)
@@ -264,11 +263,53 @@ def _plant(rng: np.random.Generator, words: np.ndarray, shots: np.ndarray,
                 row[j] = rng.integers(0, n_vocab)
 
 
+def _captions_of(rng: np.random.Generator, vocab, word_codes: np.ndarray, vids, words,
+                 caps_per_video: int):
+    """Captions of the videos ``vids`` with word rows ``words``, each naming
+    6 of its video's 8 words, and their CLIP rows from those words' codes:
+    (caption ids, 'id the w ...' lines, CLIP rows, (videos, captions, 6)
+    word ids)."""
+    sel = np.argsort(rng.random((len(vids), caps_per_video, 8)), axis=2)[:, :, :6]
+    cap_words = np.take_along_axis(
+        np.broadcast_to(words[:, None, :], (len(vids), caps_per_video, 8)), sel, axis=2)
+    cap_ids, lines = [], []
+    for i, vid in enumerate(vids):
+        for c in range(caps_per_video):
+            cap_ids.append(f"{vid}#{c}")
+            lines.append(f"{vid}#{c} the " + " ".join(vocab[w] for w in cap_words[i, c]))
+    rows = word_codes[cap_words.reshape(-1, 6)].sum(axis=1) @ _clip_projection()
+    rows += 0.1 * rng.standard_normal(rows.shape).astype(np.float32)
+    return cap_ids, lines, rows, cap_words
+
+
+def _benchmark_over(root: str, collection: str, name: str, n_shots: int, caps_per_video: int,
+                    vocab, word_codes: np.ndarray, vids, words: np.ndarray, seed: int) -> dict:
+    """The benchmark collection over an AVS gallery (module docstring)."""
+    rng = np.random.default_rng(seed + 104729)
+    bdir = os.path.join(root, name)
+    os.makedirs(os.path.join(bdir, "VideoSets"), exist_ok=True)
+    os.makedirs(os.path.join(bdir, "TextData"), exist_ok=True)
+    link = os.path.join(bdir, "FeatureData")
+    if os.path.lexists(link):
+        os.remove(link)
+    os.symlink(os.path.join(os.path.abspath(root), collection, "FeatureData"), link)
+    _write_lines(os.path.join(bdir, "VideoSets", f"{name}.txt"), vids)
+    shots = np.linspace(0, len(vids) - 1, n_shots).round().astype(int)
+    cap_ids, lines, rows, _ = _captions_of(rng, vocab, word_codes, [vids[s] for s in shots],
+                                           words[shots], caps_per_video)
+    _write_lines(os.path.join(bdir, "TextData", f"{name}.caption.txt"), lines)
+    write_bigfile(os.path.join(bdir, "TextData", "clip_synth"), cap_ids, rows)
+    return {"collection": name, "captioned_videos": n_shots, "captions": len(cap_ids)}
+
+
 def build_avs_world(root: str, collection: str = "iacc.3", n_videos: int = 335_944,
                     editions=("tv16", "tv17", "tv18"), topics_per_edition: int = 30,
-                    n_vocab: int = 11286, seed: int = 0, relevant=(50, 2000)) -> dict:
-    """Build the AVS collection of the module docstring; returns a summary
-    dict (the bytes of features written among it). Each feature is made and
+                    n_vocab: int = 11286, seed: int = 0, relevant=(50, 2000),
+                    benchmark=None) -> dict:
+    """Build the AVS collection of the module docstring, and with
+    ``benchmark=(name, shots, captions)`` a benchmark collection over its
+    gallery; returns a summary dict (the bytes of features written among
+    it, and the benchmark's under 'benchmark'). Each feature is made and
     written ``AVS_CHUNK`` rows at a time, the four side by side."""
     rng = np.random.default_rng(seed)
     word_codes = _word_codes(n_vocab)
@@ -346,7 +387,11 @@ def build_avs_world(root: str, collection: str = "iacc.3", n_videos: int = 335_9
                       f"{int(r) if j else -1}"
                       for s, r, s1, j in zip(pool, is_rel, stratum1, judged)]
         _write_lines(os.path.join(tdir, f"avs.qrels.{edition}"), qrels)
-    return {"collection": collection, "videos": n_videos, "editions": list(editions),
-            "topics": n_topics, "relevant_min": int(min(n_relevant)),
-            "relevant_max": int(max(n_relevant)), "relevant_total": int(sum(n_relevant)),
-            "feature_bytes": n_bytes}
+    summary = {"collection": collection, "videos": n_videos, "editions": list(editions),
+               "topics": n_topics, "relevant_min": int(min(n_relevant)),
+               "relevant_max": int(max(n_relevant)), "relevant_total": int(sum(n_relevant)),
+               "feature_bytes": n_bytes}
+    if benchmark is not None:
+        summary["benchmark"] = _benchmark_over(root, collection, *benchmark, vocab, word_codes,
+                                               vids, words, seed)
+    return summary

@@ -6,7 +6,14 @@ answers each query set against the test collection's gallery.
 
 The gallery is embedded once and kept on the device, or, above
 ``LARGE_GALLERY`` videos, streamed through the video tower for every query
-set (``evaluator.score_matrix_streaming``), as ``laff_tpu`` does.
+set, as ``laff_tpu`` does: through ``evaluator.streaming_benchmark_eval``
+for a benchmark collection without post-processing (two passes of device
+counting; ``t2v.pkl`` holds the streamed top 2,000), through
+``evaluator.int8_streaming_topk`` for an AVS query set with
+``int8_gallery`` and no post-processing (an int8 gallery on the device
+nominates candidates, which are embedded again for exact scores), and
+through ``evaluator.score_matrix_streaming`` (host (T, V) scores)
+otherwise.
 
 Benchmark collections, per query set:
 
@@ -45,8 +52,6 @@ score matrix. Every top-K list puts equal scores in decreasing gallery
 index order (``score_rankings``).
 
 Raising instead of running (each names its ROADMAP item or the reason):
-a large benchmark gallery without post-processing (``laff_tpu``'s
-``streaming_benchmark_eval``) and ``int8_gallery`` (item 3b);
 ``data_parallel`` (item 5); a StrongCLIP config whose fine-tuned CLIP text
 tower is on disk (item 4). Two results differ from ``laff_tpu`` on
 purpose: above the threshold 'kreciprocal' and 'tkb' raise a ``ValueError``
@@ -77,7 +82,8 @@ from ..text.textlib import split_negation
 from ..text.txt2vec import BowVec, BowVecNSW, IndexVec, get_txt2vec
 from ..utils import ROOT_PATH, check_to_skip, get_logger, makedirs
 from .checkpoint import load_checkpoint, vocab_from_dict
-from .evaluator import (LARGE_GALLERY, Embedder, score_matrix, score_matrix_streaming,
+from .evaluator import (LARGE_GALLERY, Embedder, int8_streaming_topk, ordered_topk,
+                        score_matrix, score_matrix_streaming, streaming_benchmark_eval,
                         t2v_ranks)
 from .prepare import build_featurizers, text_precomputed, vision_source, w2v_dir_for
 
@@ -105,7 +111,7 @@ class PredictOptions:
     rank_path: str = "auto"
     adjust_weight_predict: int = 0  # parity: parsed and never read, as in the reference
     data_parallel: int = 0  # not ported: ROADMAP Queue 1 item 5
-    int8_gallery: int = 0  # not ported: ROADMAP Queue 1 item 3b
+    int8_gallery: int = 0  # an AVS gallery above LARGE_GALLERY held as int8 rows
     task3_caption: str = "no_task3_caption"  # any other value: negation scoring
     neg_method: str = "sub"  # negation adjustment: sub | mul
     each_head: int = 0  # also per-head metrics, score files and perf.txt
@@ -210,19 +216,18 @@ RANKING_BLOCK = 1 << 26
 @torch.no_grad()
 def score_rankings(scores: np.ndarray, device: torch.device, threshold: int = AVS_SCORE_TOPK):
     """Each query's top ``threshold`` videos (all when the gallery is
-    smaller), descending, equal scores in decreasing gallery index order,
-    ranked on ``device`` in row blocks: (values, indices) on the host.
-    ``torch.topk`` leaves the order of ties unspecified, so the columns are
-    reversed and sorted stably instead."""
+    smaller), descending, equal scores in decreasing gallery index order
+    (``ordered_topk``), ranked on ``device`` in row blocks: (values,
+    indices) on the host."""
     n, v = scores.shape
     k = min(threshold, v)
     vals, idx = np.empty((n, k), np.float32), np.empty((n, k), np.int64)
     rows = max(1, RANKING_BLOCK // max(v, 1))
     for start in range(0, n, rows):
-        block = torch.from_numpy(scores[start:start + rows]).to(device).flip(1)
-        top_vals, top_idx = torch.sort(block, dim=1, descending=True, stable=True)
-        vals[start:start + rows] = top_vals[:, :k].cpu().numpy()
-        idx[start:start + rows] = (v - 1 - top_idx[:, :k]).cpu().numpy()
+        top_vals, top_idx = ordered_topk(torch.from_numpy(scores[start:start + rows]).to(device),
+                                         k)
+        vals[start:start + rows] = top_vals.cpu().numpy()
+        idx[start:start + rows] = top_idx.cpu().numpy()
     return vals, idx
 
 
@@ -427,9 +432,6 @@ def check_options(opt: PredictOptions) -> None:
     if opt.data_parallel:
         raise NotImplementedError(f"data_parallel={opt.data_parallel} is not ported yet: "
                                   f"ROADMAP Queue 1 item 5")
-    if opt.int8_gallery:
-        raise NotImplementedError("int8_gallery=1 (the int8 gallery nomination) is not ported "
-                                  "yet: ROADMAP Queue 1 item 3b")
 
 
 def check_strongclip(ckpt: Dict, rootpath: str, collection: str) -> None:
@@ -453,7 +455,7 @@ def check_strongclip(ckpt: Dict, rootpath: str, collection: str) -> None:
                    path)
 
 
-def check_streamable(opt: PredictOptions, measure: str, is_avs: bool, n_videos: int) -> None:
+def check_streamable(opt: PredictOptions, measure: str, n_videos: int) -> None:
     """What the streamed (large-gallery) path does not serve raises before
     the gallery is read."""
     if measure != "cosine":
@@ -464,17 +466,19 @@ def check_streamable(opt: PredictOptions, measure: str, is_avs: bool, n_videos: 
         raise ValueError(f"--rerank {opt.rerank} over a gallery of {n_videos} videos (above "
                          f"LARGE_GALLERY {LARGE_GALLERY}): it needs the gallery-gallery "
                          f"product, which is not formed for streamed galleries")
-    if not is_avs and opt.rerank == "none" and opt.task3_caption == "no_task3_caption":
-        raise NotImplementedError(f"a benchmark gallery of {n_videos} videos without "
-                                  f"post-processing (streaming_benchmark_eval) is not ported "
-                                  f"yet: ROADMAP Queue 1 item 3b")
 
 
 def main(opt: PredictOptions) -> Dict:
     """Returns {query_set: ...}: for a benchmark collection the 't2v' and
     'v2t' metric tuples, 't2v_ranks', 'negated_queries' (None without
-    negation scoring) and with each_head 'per_head'; for an AVS query set
-    'score_file' and 'negated_queries'; both with 'seconds' per phase."""
+    negation scoring), with each_head 'per_head', and over a streamed
+    gallery without post-processing 'v2t_ranks' (each captioned video's
+    sorted positive ranks, in gallery order); for an AVS query set
+    'score_file', 'negated_queries' and with the int8 gallery 'int8' (its
+    'int8_bytes' on the device and the 'union' of nominated videos); both
+    with 'seconds' per phase (the streamed benchmark's 'pass1' and 'pass2',
+    the int8 gallery's 'int8_stream', 'nominate', 'reembed' and
+    'exact_topk')."""
     check_options(opt)
     device = resolve_device(opt.device)
     ckpt = load_checkpoint(opt.model_path)
@@ -513,7 +517,9 @@ def main(opt: PredictOptions) -> Dict:
         vis_feed, txt_feed, tsrc, vis_ids = build_test_feeds(opt, config, query_set, featurizers)
         streamed = len(vis_ids) > LARGE_GALLERY
         if streamed:
-            check_streamable(opt, measure, is_avs, len(vis_ids))
+            check_streamable(opt, measure, len(vis_ids))
+        # no post-processing over a streamed gallery: no host (T, V) scores
+        counted = streamed and opt.rerank == "none" and opt.task3_caption == "no_task3_caption"
         txt_embs, txt_ids = embedder.embed_txt(txt_feed)
         lap("embed_txt")
         if not streamed and vis_embs is None:  # cached across query sets
@@ -530,33 +536,44 @@ def main(opt: PredictOptions) -> Dict:
             lap("score_matrix")
             return out
 
-        adjusted, negated = False, None
-        if opt.task3_caption != "no_task3_caption":
-            pos_embs, neg_embs, neg_mask = embed_negation_split(embedder, txt_feed, tsrc,
-                                                                txt_ids)
-            negated = int(neg_mask.sum())
-            lap("negation")
-            if neg_embs is None:
-                logger.warning("task3_caption=%s set but no query contains a negation cue; "
-                               "scores unchanged", opt.task3_caption)
-            else:
-                adjusted = True
-                scores = negation_adjusted_scores(scores_of(pos_embs), scores_of(neg_embs),
-                                                  neg_mask, method=opt.neg_method)
-                logger.info("negation scoring (%s): %d/%d queries carry a negation",
-                            opt.neg_method, negated, len(txt_ids))
-        if not adjusted:
-            scores = scores_of(txt_embs)
-        if opt.rerank == "concept":
-            scores = concept_rerank_scores(opt, scores, txt_ids, vis_ids, tsrc)
-            lap("rerank")
-        elif opt.rerank != "none":
-            scores = apply_rerank(opt.rerank, scores, txt_embs, vis_embs)
-            lap("rerank")
+        adjusted, negated, streamed_eval = False, None, None
+        if counted and not is_avs:
+            streamed_eval = streaming_benchmark_eval(embedder, txt_embs, txt_ids, vis_feed,
+                                                     topk=AVS_SCORE_TOPK,
+                                                     rank_path=opt.rank_path, lap=lap)
+            vis_ids = streamed_eval["vis_ids"]
+        elif counted and opt.int8_gallery:
+            streamed_eval = int8_streaming_topk(embedder, txt_embs, vis_feed, AVS_SCORE_TOPK,
+                                                lap=lap)
+            vals, idx, vis_ids = (streamed_eval[k] for k in ("topk_vals", "topk_idx", "vis_ids"))
+        else:
+            if opt.task3_caption != "no_task3_caption":
+                pos_embs, neg_embs, neg_mask = embed_negation_split(embedder, txt_feed, tsrc,
+                                                                    txt_ids)
+                negated = int(neg_mask.sum())
+                lap("negation")
+                if neg_embs is None:
+                    logger.warning("task3_caption=%s set but no query contains a negation "
+                                   "cue; scores unchanged", opt.task3_caption)
+                else:
+                    adjusted = True
+                    scores = negation_adjusted_scores(scores_of(pos_embs), scores_of(neg_embs),
+                                                      neg_mask, method=opt.neg_method)
+                    logger.info("negation scoring (%s): %d/%d queries carry a negation",
+                                opt.neg_method, negated, len(txt_ids))
+            if not adjusted:
+                scores = scores_of(txt_embs)
+            if opt.rerank == "concept":
+                scores = concept_rerank_scores(opt, scores, txt_ids, vis_ids, tsrc)
+                lap("rerank")
+            elif opt.rerank != "none":
+                scores = apply_rerank(opt.rerank, scores, txt_embs, vis_embs)
+                lap("rerank")
+            if is_avs:
+                vals, idx = score_rankings(scores, device, AVS_SCORE_TOPK)
+                lap("topk")
 
         if is_avs:
-            vals, idx = score_rankings(scores, device, AVS_SCORE_TOPK)
-            lap("topk")
             write_score_files([(score_file, vals, idx)], txt_ids, vis_ids)
             lap("score_file")
             write_rank_dump(os.path.join(output_dir, "t2v.pkl"), vals[:, :DUMP_TOPK],
@@ -565,27 +582,39 @@ def main(opt: PredictOptions) -> Dict:
             logger.info("wrote %s", score_file)
             results[query_set] = {"score_file": score_file, "seconds": seconds,
                                   "negated_queries": negated}
+            if streamed_eval is not None:
+                results[query_set]["int8"] = {k: streamed_eval[k]
+                                              for k in ("int8_bytes", "union")}
             continue
 
-        if adjusted or opt.rerank != "none" or streamed:
-            t2v, ranks = t2v_from_scores(scores, txt_ids, vis_ids, device)
+        if streamed_eval is not None:
+            t2v, ranks = streamed_eval["t2v"], streamed_eval["t2v_ranks"]
+            ranking = streamed_eval["topk_vals"], streamed_eval["topk_idx"]
         else:
-            ranks = t2v_ranks(txt_embs, vis_embs, txt_ids, vis_ids, measure=measure,
-                              rank_path=opt.rank_path)
-            t2v = metrics_from_ranks(ranks)
-        lap("t2v_ranks")
+            if adjusted or opt.rerank != "none" or streamed:
+                t2v, ranks = t2v_from_scores(scores, txt_ids, vis_ids, device)
+            else:
+                ranks = t2v_ranks(txt_embs, vis_embs, txt_ids, vis_ids, measure=measure,
+                                  rank_path=opt.rank_path)
+                t2v = metrics_from_ranks(ranks)
+            lap("t2v_ranks")
+            ranking = score_rankings(scores, device, DUMP_TOPK)
         append_result_row(os.path.join(result_dir, "TextToVideo", result_name),
                           model_tag, parm_adjust, t2v)
-        write_rank_dump(os.path.join(output_dir, "t2v.pkl"),
-                        *score_rankings(scores, device, DUMP_TOPK), txt_ids, vis_ids,
+        write_rank_dump(os.path.join(output_dir, "t2v.pkl"), *ranking, txt_ids, vis_ids,
                         tsrc.captions)
         lap("rank_dump")
-        v2t = eval_v2t(scores, txt_ids, vis_ids)
-        lap("v2t")
+        if streamed_eval is not None:
+            v2t = streamed_eval["v2t"]
+        else:
+            v2t = eval_v2t(scores, txt_ids, vis_ids)
+            lap("v2t")
         append_result_row(os.path.join(result_dir, "VideoToText", result_name),
                           model_tag, parm_adjust, v2t)
         results[query_set] = {"t2v": t2v, "v2t": v2t, "t2v_ranks": ranks,
                               "seconds": seconds, "negated_queries": negated}
+        if streamed_eval is not None:
+            results[query_set]["v2t_ranks"] = streamed_eval["v2t_ranks"]
         if opt.each_head and txt_embs.ndim == 3 and vis_embs is not None:
             results[query_set]["per_head"] = each_head_outputs(
                 opt, output_dir, txt_embs, vis_embs, txt_ids, vis_ids, model_tag, parm_adjust,

@@ -6,6 +6,8 @@ from .metrics import (
     label_matrix_from_scores,
     metrics_from_ranks,
     ranks_from_scores,
+    topk_two_stage,
+    topk_wide,
 )
 
 __all__ = [
@@ -16,4 +18,6 @@ __all__ = [
     "label_matrix_from_scores",
     "metrics_from_ranks",
     "ranks_from_scores",
+    "topk_two_stage",
+    "topk_wide",
 ]

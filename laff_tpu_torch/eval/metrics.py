@@ -12,6 +12,10 @@ Two paths, as in ``laff_tpu.eval.metrics``:
   above the ground-truth column plus the ties at a larger column index:
   two masked row reductions in torch on whatever device holds the scores,
   giving the host path's ranks without a sort.
+
+``topk_two_stage`` and ``topk_wide`` are the package's top-k over a wide
+gallery axis, value-exact; the order of exactly equal scores is
+``torch.topk``'s.
 """
 
 from __future__ import annotations
@@ -123,3 +127,50 @@ def metrics_from_ranks(ranks):
     meanr = ranks.mean()
     mir = (1.0 / ranks).mean()
     return (r1, r5, r10, medr, meanr, mir, mir)
+
+
+def topk_two_stage(scores: torch.Tensor, k: int, block_v: int = 16384):
+    """Top-k over a wide gallery axis in two stages: each block of
+    ``block_v`` columns' top k, then the top k of those. Returns (values,
+    global indices), descending. A ragged last block is padded with -inf
+    (k must fit one block)."""
+    t, v = scores.shape
+    block_v = min(block_v, v)
+    nb = -(-v // block_v)
+    pad = nb * block_v - v
+    if pad:
+        scores = torch.nn.functional.pad(scores, (0, pad), value=-float("inf"))
+    vals, idx = torch.topk(scores.reshape(t, nb, block_v), k, dim=2)
+    base = (torch.arange(nb, device=scores.device) * block_v)[None, :, None]
+    flat_idx = (idx + base).reshape(t, nb * k)
+    out_vals, sel = torch.topk(vals.reshape(t, nb * k), k, dim=1)
+    return out_vals, torch.gather(flat_idx, 1, sel)
+
+
+def _refine_topk(scores: torch.Tensor, kk: int, k: int):
+    """A ``kk``-wide candidate sweep, the top k of the candidates, and how
+    many scores of each row lie strictly above the selected floor."""
+    v, i = torch.topk(scores, kk, dim=1)
+    vv, sel = torch.topk(v, k, dim=1)
+    n_greater = (scores > vv[:, -1:]).sum(dim=1)
+    return vv, torch.gather(i, 1, sel), n_greater
+
+
+def topk_wide(scores: torch.Tensor, k: int, max_doublings: int = 6):
+    """Value-exact top-k by a candidate sweep and a verification: sweep 2k
+    candidates, take their top k, and count the scores strictly above the
+    selected floor; fewer than k means the top k is exact, else the sweep
+    doubles its width. ``laff_tpu`` sweeps with the TPU's
+    ``lax.approx_max_k``, which has no CUDA counterpart: here the sweep is
+    ``torch.topk`` at the same doubled widths, which is exact, so the first
+    verification passes; the loop keeps the contract. Index order among
+    exactly equal scores is ``torch.topk``'s."""
+    v = scores.shape[1]
+    k = min(k, v)
+    m = 2
+    for _ in range(max_doublings):
+        vv, ii, n_greater = _refine_topk(scores, min(k * m, v), k)
+        if int(n_greater.max()) <= k - 1:
+            return vv, ii
+        m *= 2
+    return torch.topk(scores, k, dim=1)

@@ -8,6 +8,7 @@ from .kernels import (
     reset_launches,
 )
 from .norms import l1norm, l2norm
+from .quantized import int8_scores, int8_topk, quantize_rows
 from .similarity import cosine_sim, flatten_heads, hist_scores, hist_sim, multi_head_cosine_sim
 
 __all__ = [
@@ -24,5 +25,8 @@ __all__ = [
     "flatten_heads",
     "hist_scores",
     "hist_sim",
+    "int8_scores",
+    "int8_topk",
+    "quantize_rows",
     "multi_head_cosine_sim",
 ]

@@ -1,3 +1,3 @@
-from .bigfile import BigFile, write_bigfile
+from .bigfile import BigFile, txt2bin, write_bigfile
 
-__all__ = ["BigFile", "write_bigfile"]
+__all__ = ["BigFile", "txt2bin", "write_bigfile"]

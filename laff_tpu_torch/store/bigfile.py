@@ -20,7 +20,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from ..utils import get_logger, makedirs
+from ..utils import check_to_skip, get_logger, makedirs
 
 logger = get_logger(__name__)
 
@@ -83,3 +83,35 @@ def write_bigfile(resultdir: str, names: Sequence[str], matrix: np.ndarray) -> N
     with open(os.path.join(resultdir, "shape.txt"), "w") as fh:
         fh.write("%d %d" % matrix.shape)
     logger.info("wrote %dx%d features to %s", matrix.shape[0], matrix.shape[1], resultdir)
+
+
+def txt2bin(feat_dim: int, input_text_files, resultdir: str, overwrite: bool = False) -> int:
+    """Convert ``id v1 v2 ... vD`` text feature files into BigFile format
+    (reference ``txt2bin.py:21-76``): rows holding a NaN are dropped, and a
+    line of another width raises. Returns the rows written (0 when the
+    result exists and ``overwrite`` is off)."""
+    bin_path = os.path.join(resultdir, "feature.bin")
+    if check_to_skip(bin_path, overwrite):
+        return 0
+    if isinstance(input_text_files, str):
+        input_text_files = [input_text_files]
+    names: List[str] = []
+    rows: List[np.ndarray] = []
+    for path in input_text_files:
+        with open(path, "r") as fh:
+            for line in fh:
+                parts = line.strip().split()
+                if not parts:
+                    continue
+                name, vals = parts[0], parts[1:]
+                if len(vals) != feat_dim:
+                    raise ValueError(f"{path}: {name} has {len(vals)} dims, expected {feat_dim}")
+                vec = np.asarray(vals, dtype=np.float32)
+                if np.isnan(vec).any():
+                    logger.info("skip %s: NaN", name)
+                    continue
+                names.append(name)
+                rows.append(vec)
+    write_bigfile(resultdir, names, np.stack(rows) if rows else
+                  np.zeros((0, feat_dim), dtype=np.float32))
+    return len(names)

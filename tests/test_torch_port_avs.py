@@ -6,21 +6,29 @@ both packages, answers the same query sets in both predictors:
 * an AVS collection named ``iacc.3`` (``build_avs_world``: 40 shots, two
   editions of 3 topics, their CLIP rows and qrels) with its gallery embedded
   whole, and streamed (``LARGE_GALLERY`` 5 in both predictor modules, two
-  query sets, so the gallery streams once a set); negation scoring over the
-  streamed gallery; ``simple_query.txt`` on a benchmark collection; and a
-  benchmark collection above the threshold with negation scoring or
-  concept re-ranking (t2v and v2t from the streamed scores). The
+  query sets, so the gallery streams once a set), and streamed with
+  --int8_gallery 1 (int8 nomination, exact rescoring); negation scoring
+  over the streamed gallery; ``simple_query.txt`` on a benchmark
+  collection; a benchmark collection above the threshold with negation
+  scoring or concept re-ranking (t2v and v2t from the streamed scores); and
+  ``ibench``, a benchmark caption set over iacc.3's gallery, above the
+  threshold without post-processing (``streaming_benchmark_eval``: two
+  passes of device counting, ``t2v.pkl`` the streamed top 2,000). The
   ``id.sent.score.txt`` ids are equal and the scores within 1e-5, the
   ``t2v.pkl`` keys, queries and rank lists equal, the TSV rows equal;
 * the port's streamed scores against its cached ones; top-K ties in
-  decreasing gallery index order on a gallery of duplicated rows;
+  decreasing gallery index order on a gallery of duplicated rows (the
+  streamed benchmark's running top-k keeps the same rule across gallery
+  blocks, where ``laff_tpu`` puts the lower index first:
+  ``tests/test_torch_port_large_gallery.py``);
 * what raises: 'kreciprocal', 'tkb' and measure 'hist' above the threshold
-  (ValueError, where laff_tpu crashes or scores cosine), a large benchmark
-  gallery without post-processing and --int8_gallery 1 (ROADMAP item 3b),
-  --data_parallel (item 5), and a StrongCLIP checkpoint whose CLIP text
-  tower is on disk (item 4; without the file, laff_tpu's warning);
-* ``build_avs_world``'s layout, relevance rule and chunked writes, and the
-  package data an installed port needs.
+  (ValueError, where laff_tpu crashes or scores cosine), --data_parallel
+  (item 5), and a StrongCLIP checkpoint whose CLIP text tower is on disk
+  (item 4; without the file, laff_tpu's warning); and what runs now: a
+  large benchmark gallery without post-processing and --int8_gallery 1,
+  which raised naming ROADMAP item 3b until the port served them;
+* ``build_avs_world``'s layout, relevance rule and chunked writes, its
+  benchmark over the gallery, and the package data an installed port needs.
 """
 
 import os
@@ -51,7 +59,7 @@ from laff_tpu_torch.engine.weights import from_jax_variables
 from laff_tpu_torch.models import LAFFModel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-AVS, BENCH, TRAIN = "iacc.3", "avsbench", "avstrain"
+AVS, BENCH, TRAIN, IBENCH = "iacc.3", "avsbench", "avstrain", "ibench"
 N_VOCAB = 60
 SCORE_ATOL = 1e-5  # the packages' f32 towers and products, summed in other orders
 EDITIONS = ("tv16", "tv17")
@@ -80,7 +88,8 @@ def world(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("avs_world"))
     synth.build_world(root, TRAIN, n_videos=30, caps_per_video=2, n_vocab=N_VOCAB, seed=1)
     avs = synth.build_avs_world(root, AVS, n_videos=40, editions=EDITIONS, topics_per_edition=3,
-                                n_vocab=N_VOCAB, seed=2, relevant=(2, 5))
+                                n_vocab=N_VOCAB, seed=2, relevant=(2, 5),
+                                benchmark=(IBENCH, 8, 2))
     synth.build_world(root, BENCH, n_videos=30, caps_per_video=2, n_vocab=N_VOCAB, seed=3,
                       negations=True, concept_pkl=True)
     tdir = os.path.join(root, AVS, "TextData")
@@ -181,6 +190,8 @@ def _assert_same_ranking_files(got_dir, want_dir, score_file):
 CASES = {
     "avs_cached": (AVS, AVS_SETS, None, {}),
     "avs_streamed": (AVS, AVS_SETS, 5, {}),
+    "avs_int8_streamed": (AVS, AVS_SETS, 5, {"int8_gallery": 1}),
+    "benchmark_counted_streamed": (IBENCH, f"{IBENCH}.caption.txt", 5, {}),
     "avs_negation_streamed": (AVS, "neg.avs.txt", 5, {"task3_caption": "negation"}),
     "simple_query": (BENCH, "simple_query.txt", None, {}),
     "benchmark_negation_streamed": (BENCH, f"{BENCH}.caption.txt", 5,
@@ -210,13 +221,19 @@ def test_predictor_equals_laff_tpu(world, monkeypatch, name):
     for query_set in want:
         is_avs = "score_file" in want[query_set]
         assert ("score_file" in got[query_set]) == is_avs
-        if is_avs:
-            assert set(got[query_set]["seconds"]) >= {"embed_txt", "topk", "score_file",
-                                                      "rank_dump"}
-            assert ("stream" in got[query_set]["seconds"]) == (large is not None)
+        seconds = set(got[query_set]["seconds"])
+        if is_avs and extra.get("int8_gallery"):
+            assert seconds >= {"embed_txt", "int8_stream", "nominate", "reembed", "exact_topk",
+                               "score_file", "rank_dump"}
+        elif is_avs:
+            assert seconds >= {"embed_txt", "topk", "score_file", "rank_dump"}
+            assert ("stream" in seconds) == (large is not None)
         else:
             assert got[query_set]["t2v"] == pytest.approx(want[query_set]["t2v"], rel=1e-12)
             assert got[query_set]["v2t"] == pytest.approx(want[query_set]["v2t"], rel=1e-12)
+            counted = large is not None and not extra
+            assert ({"pass1", "pass2"} <= seconds) == counted
+            assert ("stream" in seconds) == (large is not None and not counted)
         _assert_same_ranking_files(_score_dir(world, coll, query_set, f"port_{name}"),
                                    _score_dir(world, coll, query_set, f"jax_{name}"), is_avs)
     if name == "avs_negation_streamed":
@@ -274,17 +291,19 @@ def test_topk_ties_in_decreasing_index_order(world, monkeypatch):
         assert all(idx[q][i] == idx[q][i + 1] + 1 for i in range(0, 7 - 1, 2))
 
 
-# name: (checkpoint key, collection, query set, options, error, text in its message)
+# name: (checkpoint key, collection, query set, options, error, text in its
+# message); error None: the options run (both raised naming ROADMAP item 3b
+# until the port served them), and these seconds' phases show the path taken
 RAISES = {
     "kreciprocal_streamed": ("port_ckpt", AVS, "tv16.avs.txt", {"rerank": "kreciprocal"},
                              ValueError, "gallery-gallery product"),
     "tkb_streamed": ("port_ckpt", BENCH, f"{BENCH}.caption.txt", {"rerank": "tkb"},
                      ValueError, "gallery-gallery product"),
     "hist_streamed": ("hist_ckpt", AVS, "tv16.avs.txt", {}, ValueError, "cosine only"),
-    "benchmark_streamed": ("port_ckpt", BENCH, f"{BENCH}.caption.txt", {},
-                           NotImplementedError, "item 3b"),
-    "int8_gallery": ("port_ckpt", AVS, "tv16.avs.txt", {"int8_gallery": 1},
-                     NotImplementedError, "item 3b"),
+    "benchmark_streamed": ("port_ckpt", BENCH, f"{BENCH}.caption.txt", {}, None,
+                           {"pass1", "pass2"}),
+    "int8_gallery": ("port_ckpt", AVS, "tv16.avs.txt", {"int8_gallery": 1}, None,
+                     {"int8_stream", "nominate", "reembed", "exact_topk"}),
     "data_parallel": ("port_ckpt", AVS, "tv16.avs.txt", {"data_parallel": 2},
                       NotImplementedError, "item 5"),
 }
@@ -295,10 +314,14 @@ def test_not_served_raises(world, monkeypatch, name):
     key, coll, query_set, extra, error, text = RAISES[name]
     monkeypatch.setattr(port_predictor, "LARGE_GALLERY", 5)
     opt = _port_opt(world, coll, query_set, f"raise_{name}", ckpt=world[key], **extra)
+    dump = os.path.join(_score_dir(world, coll, query_set, f"raise_{name}"), "t2v.pkl")
+    if error is None:
+        assert set(port_predictor.main(opt)[query_set]["seconds"]) >= text
+        assert os.path.exists(dump)
+        return
     with pytest.raises(error, match=text):
         port_predictor.main(opt)
-    assert not os.path.exists(os.path.join(_score_dir(world, coll, query_set,
-                                                      f"raise_{name}"), "t2v.pkl"))
+    assert not os.path.exists(dump)
 
 
 def test_cli_accepts_laff_tpu_flags(world):
@@ -336,15 +359,33 @@ def test_strongclip_tower(world, monkeypatch, caplog, present):
 
 def test_build_avs_world(tmp_path, monkeypatch):
     """The layout, the relevance rule (a shot is relevant when its words
-    hold all the topic's words, judged or left unjudged in stratum 2), and
-    features that do not depend on the chunk size."""
+    hold all the topic's words, judged or left unjudged in stratum 2),
+    features that do not depend on the chunk size, and an AVS world built
+    with a benchmark over its gallery equal to one without (the benchmark
+    drawn after it): the gallery linked, its shots the video set, captions
+    for shots spread evenly over it."""
     def build(where, chunk):
         monkeypatch.setattr(synth, "AVS_CHUNK", chunk)
         return synth.build_avs_world(str(where), n_videos=50, editions=("tv17",),
                                      topics_per_edition=4, n_vocab=80, seed=5, relevant=(2, 6))
 
     info = build(tmp_path / "a", 7)
-    build(tmp_path / "b", 10_000)
+    monkeypatch.setattr(synth, "AVS_CHUNK", 10_000)
+    with_bench = synth.build_avs_world(str(tmp_path / "b"), n_videos=50, editions=("tv17",),
+                                       topics_per_edition=4, n_vocab=80, seed=5,
+                                       relevant=(2, 6), benchmark=("ib", 5, 3))
+    assert with_bench == {**info, "benchmark": {"collection": "ib", "captioned_videos": 5,
+                                                "captions": 15}}
+    bdir = tmp_path / "b" / "ib"
+    assert os.path.realpath(bdir / "FeatureData") == str(tmp_path / "b" / "iacc.3" /
+                                                         "FeatureData")
+    assert (bdir / "VideoSets" / "ib.txt").read_text().split() == [
+        f"iacc.3_v{i}" for i in range(50)]
+    caps = [line.split() for line in open(bdir / "TextData" / "ib.caption.txt")]
+    assert [c[0] for c in caps] == [f"iacc.3_v{v}#{j}" for v in (0, 12, 24, 37, 49)
+                                    for j in range(3)]
+    assert all(len(c) == 8 and c[1] == "the" for c in caps)
+    assert BigFile(str(bdir / "TextData" / "clip_synth")).names == [c[0] for c in caps]
     cdir = tmp_path / "a" / "iacc.3"
     assert info["feature_bytes"] == 50 * sum(synth.FEATS.values()) * 4
     for feat, dim in synth.FEATS.items():

@@ -28,8 +28,12 @@ print(len(names), "modules;", "forbidden:", bad, covered)
 
 # modules the walk must reach: the native featurizer, the FrameLAFF configs,
 # the checkpoint interchange, the registry, the configs that reference
-# checkpoints name, the re-rankers and the TRECVID harness with its CLI
+# checkpoints name, the re-rankers, the TRECVID harness with its CLI, the
+# int8 gallery and the host data CLIs
 REQUIRED = ("laff_tpu_torch.native", "laff_tpu_torch.eval.rerank",
+            "laff_tpu_torch.ops.quantized", "laff_tpu_torch.data.check",
+            "laff_tpu_torch.cli.build_vocab", "laff_tpu_torch.cli.txt2bin",
+            "laff_tpu_torch.cli.check_data",
             "laff_tpu_torch.eval.trecvid", "laff_tpu_torch.eval.trecvid.infap",
             "laff_tpu_torch.eval.trecvid.trec_eval", "laff_tpu_torch.eval.trecvid.txt2xml",
             "laff_tpu_torch.cli.avs_eval",
