@@ -66,11 +66,9 @@ Phases, each asserting; any failure exits non-zero before the last line:
    validation wall staging and replayed, and each epoch's wall outside
    train and validation; an unstaged embed_txt pass and a staging
    validation with the text featurizers on their Python path and in the
-   native fastfeat, in the order python, native, native, python, metrics
-   equal (and equal with the bf16 rounding on the host); the same two
-   epochs again with the checkpoints written on the epoch loop's thread
-   instead of trainer.AsyncSaver, each epoch's wall outside train and
-   validation. The fed epoch loop with the caches off: 60 single steps through
+   native fastfeat, in the order python, native, metrics equal (and equal
+   with the bf16 rounding on the host). The fed epoch loop with the caches
+   off: 60 single steps through
    ``train_one_epoch`` between two loss reads under sync debug mode
    'error', launch counts zeroed before, none of the port's. (e) 60 steps with
    device_text_featurize=1 (sparse bow, pooled w2v; cached, graphed)
@@ -78,7 +76,8 @@ Phases, each asserting; any failure exits non-zero before the last line:
    the rehearsal's GRU width: no host sync, the card against the CPU, a
    CUDA graph of its forward + backward against eager, and its time per
    call with each direction's weights in a cuDNN buffer of their own against
-   one buffer for the module. One step on the card against the CPU; (f) the
+   one buffer for the module. Two steps on the card against the CPU from
+   the same weights and batch; (f) the
    trained checkpoint through ``predictor.main`` with rank_path 'kernel',
    its ranks held against the plain version (phase 3 holds the 'flat' path
    on the untrained checkpoint).
@@ -102,7 +101,8 @@ Phases, each asserting; any failure exits non-zero before the last line:
    through predictor.main with rank_path 'kernel', the kernel ranks held
    against the plain version. (b) The rest of the attention
    zoo (kinds 2, 4, 5, 6, 10, 11, 16 at the rehearsal's parm
-   0_<k>_0_<k>_1_0_0): one step on the card against the CPU each, and for
+   0_<k>_0_<k>_1_0_0): two steps on the card against the CPU each (32
+   pairs of the first batch), and for
    kind 5 (its QKV dropout on) 16 graphed steps against 16 eager ones. (c)
    One validation of phase 4's trained model with measure 'hist': no rank
    kernel launch, its ranks equal the same embeddings' on the card and,
@@ -133,7 +133,7 @@ Phases, each asserting; any failure exits non-zero before the last line:
    scores from the same card embeddings. (d) On vtest (1,500 videos x 10
    captions, the VATEX test shape, with a concept pkl): --rerank
    kreciprocal, tkb and concept, and --each_head 1 on vheads (vtest's
-   shape with 2 captions a video: 3,000 queries), under (a)'s checkpoint,
+   shape with 1 caption a video: 1,500 queries), under (a)'s checkpoint,
    each re-rank's wall time, each re-ranked t2v row against the port's host
    function on the same embeddings moved to the CPU, the 8 per-head score
    files and perf.txt checked (and deleted).
@@ -170,14 +170,40 @@ Phases, each asserting; any failure exits non-zero before the last line:
    cache, one sim_rank_tiled launch and the gate 329 times, the ranks held
    against the plain version on the same bf16 rows, and the tiled kernel
    timed at T 10,000 x V 335,944 x 4,096 against its bound and cuBLAS bf16
-   plus counting. (d) predictor.main with --int8_gallery 1 on tv16.avs.txt:
+   plus counting (its device time from a profiler session around one call,
+   or, where this process's profiler records nothing, around the same call
+   on seeded rows of that shape in a fresh process: ``--tiled-worker``).
+   (d) predictor.main with --int8_gallery 1 on tv16.avs.txt:
    the gate 1 + 329 + one launch per 1,024 nominated videos, the score file
    against phase 8's exact streamed one (each topic's top 2,000 overlapping
    at least 0.99, shared scores within 1e-6, infAP within 0.01).
+10. The StrongCLIP text-tower swap, right after phase 5: phase 5's trained
+   FrameLAFF checkpoint under the config name
+   FrameLaff_NoFrameFc_StrongCLIP_adjust and a seeded ViT-B/32-shaped CLIP
+   text tower (63.4 M parameters, 254 MB of f32) in the reference's layout
+   at rtest/TextData/clip_synth/model_best.pth.tar; predictor.main on rtest
+   (rank_path 'kernel'): the tower swapped in once and every 'clip' row
+   its output, phase 5's launches (1 wide rank, 62 gate), the kernel ranks
+   against the plain version on the re-embedded operands, the tower on the
+   card against the CPU for 256 captions within 1e-4 of the largest value,
+   the TF32 flags as found, embed_txt with the tower's and the
+   tokenizer's shares.
+11. End2EndClip (configs/end2end_clip.py: ViT-B/32 towers, 151.3 M
+   parameters, 8 frames a video at 224 px, Adam at lr/20) on a raw-frame
+   world written with Pillow (e2etrain 256 videos x 2 captions, e2eval 64
+   x 2, 12 JPEG frames of 240 x 320 a video) at B 32, after phase 9: one
+   step on the card against the CPU from the same weights on the first 8
+   videos of the first batch (the loss within 1e-4 relative, the
+   parameters within 1e-4 of the largest), the step at B 32 timed; two epochs of engine.end2end.main through
+   cli/do_trainer with rank_path 'kernel' (finite losses, one wide rank
+   launch and no gate launch a validation, model_best.pth.tar written,
+   the decode wait and peak device bytes); a validation with
+   --stage_val_features 0 equal to the staged run's last.
 
 Prints the kernels JSON line (all three kernels; launches: each main path
-counted from 0 around its run, summed, and by path; rbig and phase 9(c) for
-the tiled kernel), then ``{"ok": true, "device": ...}`` last.
+counted from 0 around its run, summed, and by path, phases 10 and 11's
+included; rbig and phase 9(c) for the tiled kernel), then ``{"ok": true,
+"device": ...}`` last.
 Everything it writes goes under build/ in the repository.
 
 ``--gate-timing`` runs only the gate: each DIR (a checkout, e.g. the parent
@@ -606,6 +632,7 @@ def reembed_and_check(torch, K, P, root, coll, ckpt, res_kernel, res_flat=None):
     ck = load_checkpoint(ckpt)
     model = P.rebuild_model(ck, torch.device("cuda"))
     feats = P.rebuild_featurizers(ck, root)
+    P.strongclip_swap(ck, feats, root, coll, torch.device("cuda"))  # as predictor.main does
     opt = P.PredictOptions(coll, ckpt, "x", rootpath=root)
     vis_feed, txt_feed, _, _ = P.build_test_feeds(opt, ck["config"], f"{coll}.caption.txt",
                                                   feats)
@@ -717,10 +744,14 @@ def tower_profile(torch, model, txt_feed, vis_feed):
 # phase 4: the training slice
 # ---------------------------------------------------------------------------
 
-# card (bf16 linears on cuBLAS, cuDNN GRU) vs CPU (plain versions): one step's
+# card (bf16 linears on cuBLAS, cuDNN GRU) vs CPU (plain versions): a step's
 # loss from the same weights and batch, dropout off; bf16 rounding of the
 # transforms moves a sum of 8 x 128 hinge terms by far less than this
 STEP_LOSS_RTOL = 1e-2
+# pairs of the first batch in the zoo's steps (seeded, untrained weights):
+# the CPU's side of its 85-219 M-parameter models at B 128 took 6-16 s a
+# kind (PR 14 cut the depth; a trained model's loss on 32 pairs can be 0)
+ZOO_STEP_ROWS = 32
 # graphed cached steps vs eager fed steps from the same state and generator:
 # the same kernels on the same operands, so equal is expected; these bound it
 GRAPH_LOSS_RTOL = 1e-5
@@ -963,8 +994,8 @@ def cache_and_graph_checks(torch, K, T, opt, prepared, smi, what, timings=True):
 
 
 def featurizer_timing(torch, opt, prepared, model, txt_batcher, vis_batcher, want, smi):
-    """The host featurizer of the LAFF path: per order python, native,
-    native, python on fresh feeds, one unstaged embed_txt pass (the
+    """The host featurizer of the LAFF path: in the order python, native,
+    on fresh feeds, one unstaged embed_txt pass (the
     predictor's) and one validate that stages (the first validation), the
     text featurizers on their Python path or in the native fastfeat; the
     native calls are counted, and the metrics must equal ``want``. Then one
@@ -1000,7 +1031,7 @@ def featurizer_timing(torch, opt, prepared, model, txt_batcher, vis_batcher, wan
              for path in ("python", "native")}
     model.eval()  # as the predictor embeds: no BatchNorm updates, no dropout
     try:
-        for path in ("python", "native", "native", "python"):
+        for path in ("python", "native"):
             use_native(path == "native")
             native.reset_calls()
             emb = Embedder(model, device, prefetch_depth=depth)
@@ -1022,20 +1053,9 @@ def featurizer_timing(torch, opt, prepared, model, txt_batcher, vis_batcher, wan
     finally:
         use_native(True)
         model.train()
-    log("  the text featurizer, Python path vs native fastfeat (s; order python, native, native, "
-        "python; metrics equal, and equal with the bf16 cast on the host): featurizer_timing "
+    log("  the text featurizer, Python path vs native fastfeat (s; order python, native; "
+        "metrics equal, and equal with the bf16 cast on the host): featurizer_timing "
         + json.dumps({**times, "smi": smi}))
-
-
-class Synchronous:
-    """A checkpoint writer on the epoch loop's own thread: the port's saves
-    before ``trainer.AsyncSaver``, for timing against it."""
-
-    def submit(self, fn, *args, **kwargs):
-        fn(*args, **kwargs)
-
-    def join(self):
-        pass
 
 
 def epoch_remainder(hist):
@@ -1044,44 +1064,23 @@ def epoch_remainder(hist):
     return [round(e["wall_seconds"] - e["train_seconds"] - e["val_seconds"], 2) for e in hist]
 
 
-def saver_timing(torch, T, opt, prepared, hist, smi):
-    """The run of ``main`` that made ``hist`` (the background saver) again
-    with the checkpoints written on the epoch loop's thread, into another
-    model directory: each epoch's wall minus train minus validation."""
-    import dataclasses
-
-    model_path = prepared.model_path + "_synchronous_saver"
-    os.makedirs(model_path, exist_ok=True)
-    saver = T.AsyncSaver
-    T.AsyncSaver = Synchronous
-    try:
-        res = T.main(opt, prepared=dataclasses.replace(prepared, model_path=model_path))
-    finally:
-        T.AsyncSaver = saver
-    del res["model"]
-    log("  epoch wall minus train minus validation (s), checkpoints written in the background "
-        f"(trainer.AsyncSaver) vs on the epoch loop's thread: saver_timing "
-        + json.dumps({"background": epoch_remainder(hist),
-                      "synchronous": epoch_remainder(res["history"]),
-                      "background_walls": [e["wall_seconds"] for e in hist],
-                      "synchronous_walls": [e["wall_seconds"] for e in res["history"]],
-                      "smi": smi}))
-
-
-def card_vs_cpu_step(torch, T, prepared, state_dict, what):
-    """One step on the card and on the CPU from the same weights and batch,
-    dropout off: losses within STEP_LOSS_RTOL."""
+def card_vs_cpu_step(torch, T, prepared, state_dict, what, rows=None):
+    """Two steps on the card and on the CPU from the same weights and the
+    first batch (its first ``rows`` pairs), dropout off: losses within
+    STEP_LOSS_RTOL."""
     device = torch.device("cuda")
     losses = {}
     for dev in (device, torch.device("cpu")):
         s = new_step(T, prepared.config, prepared.spec, state_dict, dev)
         dropout_off(s.model)
-        txt, vis = device_batches(T, prepared.train_feed, dev, 1)[0]
+        txt, vis = ({k: v[:rows] for k, v in side.items()}
+                    for side in device_batches(T, prepared.train_feed, dev, 1)[0])
         g = torch.Generator(device=dev).manual_seed(SEED)
         losses[dev.type] = [float(s(txt, vis, g)) for _ in range(2)]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
     check(rel <= STEP_LOSS_RTOL, f"[{what}] card vs CPU step losses {losses}")
-    log(f"  [{what}] card vs CPU, two steps from the same weights and batch, dropout off: losses "
+    log(f"  [{what}] card vs CPU, two steps from the same weights and batch "
+        f"({next(iter(vis.values())).shape[0]} pairs), dropout off: losses "
         f"{losses['cuda']} vs {losses['cpu']} (max rel diff {rel:.3g} <= {STEP_LOSS_RTOL})")
 
 
@@ -1378,7 +1377,6 @@ def train_phase(torch, K, P, root, smi):
     featurizer_timing(torch, opt, prepared, res["model"], prepared.val_txt_batcher,
                       prepared.val_vis_batcher, unstaged, smi)
     del res["model"]
-    saver_timing(torch, T, opt, prepared, res["history"], smi)
 
     ck = load_checkpoint(os.path.join(res["model_path"], "model_best.pth.tar"))
     fed_window_check(torch, K, T, opt, prepared, ck["state_dict"], smi)
@@ -1402,7 +1400,9 @@ def frame_phase(torch, K, P, root, smi):
     the fed eager path, two epochs of trainer.main at the default dispatch
     (the video tower's gate at L 5 in each validation), one step on the card
     against the CPU, and the trained checkpoint through the predictor.
-    Returns the launches of the training run and of the prediction pass."""
+    Returns the launches of the training run and of the prediction pass, and
+    phase 10's input: {'ckpt': the trained checkpoint, 'seconds': its pass's
+    phases}."""
     from laff_tpu_torch.engine import trainer as T
     from laff_tpu_torch.engine.checkpoint import load_checkpoint
     from laff_tpu_torch.engine.prepare import Options, prepare
@@ -1428,8 +1428,8 @@ def frame_phase(torch, K, P, root, smi):
     del res["model"]
     ck = load_checkpoint(os.path.join(res["model_path"], "model_best.pth.tar"))
     card_vs_cpu_step(torch, T, prepared, ck["state_dict"], "frames")
-    _, out, launches_p = trained_checkpoint_prediction(torch, K, P, root, res, ("kernel",),
-                                                       "frames")
+    ckpt_path, out, launches_p = trained_checkpoint_prediction(torch, K, P, root, res,
+                                                               ("kernel",), "frames")
     secs = out["kernel"]["seconds"]
     log("[frames] frame_timing " + json.dumps({
         "epochs": [{k: e[k] for k in ("train_seconds", "val_seconds", "wall_seconds", "loss",
@@ -1438,7 +1438,7 @@ def frame_phase(torch, K, P, root, smi):
         "vis_cache_bytes": res["dispatch"]["vis_cache_bytes"],
         "vis_cache_s": res["dispatch"]["vis_cache_seconds"],
         "predict_seconds": secs, "predict_total_s": sum(secs.values()), "smi": smi}))
-    return launches, launches_p
+    return launches, launches_p, {"ckpt": ckpt_path, "seconds": secs}
 
 
 # ---------------------------------------------------------------------------
@@ -1525,7 +1525,7 @@ def zoo_phase(torch, K, trained, smi):
                        and "num_batches" not in n and "global_emb" not in n)
         log(f"[zoo {k}] {spec.txt.attention.kind} on both towers (parm {parm}): {n_params} "
             f"parameters")
-        card_vs_cpu_step(torch, T, run, state, f"zoo {k}")
+        card_vs_cpu_step(torch, T, run, state, f"zoo {k}", rows=ZOO_STEP_ROWS)
         if k == 5:
             cache_and_graph_checks(torch, K, T, dataclasses.replace(
                 trained["opt"], parm_adjust_config=parm), run, smi, "zoo 5", timings=False)
@@ -1661,11 +1661,12 @@ TASK3_TIMED_STEPS = 20  # eager task3 steps timed on one batch on the card
 NEGATION_GATE_CALLS = 3 * 59 + 3
 VTEST = ("vtest", 1500, 10)  # the VATEX test shape: 1,500 videos x 10 captions
 VTEST_GATE_CALLS = 15 + 2  # 15 text batches and 2 gallery batches of 1,024
-# the per-head pass runs on vtest's gallery with 2 captions a video, not 10:
-# its 8 files of 15,000 queries took 64-95 s of host formatting, and this cut
-# of its depth keeps the script inside its limit with phase 8
-VHEADS = ("vheads", 1500, 2)
-HEAD_GATE_CALLS = 3 + 2  # 3 text batches and 2 gallery batches of 1,024
+# the per-head pass runs on vtest's gallery with 1 caption a video, not 10:
+# its 8 files of 15,000 queries took 64-95 s of host formatting, 3,000
+# queries 24-26 s; this cut of its depth keeps the script inside its limit
+# with phases 8-11
+VHEADS = ("vheads", 1500, 1)
+HEAD_GATE_CALLS = 2 + 2  # 2 text batches and 2 gallery batches of 1,024
 POSTPROCESSING = (("kreciprocal", {"rerank": "kreciprocal"}), ("tkb", {"rerank": "tkb"}),
                   ("concept", {"rerank": "concept"}), ("each_head", {"each_head": 1}))
 
@@ -2417,7 +2418,20 @@ def kernel_branch_check(torch, K, y, smi):
                           for s in range(0, t, 2048)])
 
     ms = time_ms(torch, lambda: K.fused_sim_rank(tn, vn, gt, prenormalized=True), reps=5)
-    device = device_ms(torch, lambda: K.fused_sim_rank(tn, vn, gt, prenormalized=True), reps=3)
+    # one call in a profiler session of its own; where this process's profiler
+    # records nothing (as after phase 8's profiled pass), the same call on
+    # seeded rows of this shape in a fresh process
+    device = device_ms(torch, lambda: K.fused_sim_rank(tn, vn, gt, prenormalized=True), reps=1)
+    device_from = "this call"
+    if not any("sim_rank_kernel" in k for k in device):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tiled-worker",
+                               str(t), str(v), str(hd)], capture_output=True, text=True,
+                              timeout=600)
+        found = [ln for ln in proc.stdout.splitlines() if ln.startswith("tiled_device ")]
+        check(proc.returncode == 0 and found, f"[ibench] the tiled kernel's device-time worker "
+              f"failed: {proc.stderr[-2000:]}")
+        device = json.loads(found[-1][len("tiled_device "):])
+        device_from = "the same shape on seeded unit rows in a fresh process"
     launch_ms = sum(v_ms for k, v_ms in device.items() if "sim_rank_kernel" in k)
     plain_ms = time_ms(torch, lambda: K.fused_sim_rank_plain(tn, vn, gt, prenormalized=True),
                        reps=1)
@@ -2429,14 +2443,15 @@ def kernel_branch_check(torch, K, y, smi):
     row = {"shape": [t, v, hd], "max_abs_err": max_err, "rows_equal": equal, "ms": ms,
            "device_ms": launch_ms or None, "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": b_by,
-           "library_ms": library_ms, "stream_wall_s": wall,
+           "library_ms": library_ms, "stream_wall_s": wall, "device_ms_from": device_from,
            "cache_bytes": v * hd * vn.element_size()}
     log(f"  [ibench] (c) the kernel branch: streaming_benchmark_eval on bf16 text and a bf16 "
         f"cache of {row['cache_bytes'] / 1e9:.2f} GB, rank_path 'kernel', {wall:.1f} s; "
         f"launches {launches}; ranks equal to the plain version on {equal:.6f} of the rows, "
         f"max |rank diff| {max_err} (near ties within {SCORE_TIE_TOL}); sim_rank_tiled at "
         f"T={t} V={v} HD={hd}: {ms:.3f} ms ("
-        + (f"{launch_ms:.3f} ms of device time" if launch_ms else "device time not measured")
+        + (f"{launch_ms:.3f} ms of device time, {device_from}" if launch_ms
+           else "device time not measured")
         + "), plain "
         f"{plain_ms:.1f} ms, cuBLAS bf16 + counting {library_ms:.3f} ms, bound {b_ms:.3f} ms "
         f"({b_by}) [{smi}]")
@@ -2591,6 +2606,319 @@ def large_gallery_phase(torch, K, P, root, ckpt, exact_infap, smi):
     return by_path, row
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the StrongCLIP text tower in FrameLAFF's predictor
+# ---------------------------------------------------------------------------
+
+STRONG_CONFIG = "FrameLaff_NoFrameFc_StrongCLIP_adjust"
+CLIP_CHECK_CAPTIONS = 256
+TOKENIZE_SAMPLE = 4096
+# the CLIP tower on the card vs the same tower on the CPU: f32 on both (TF32
+# off), sums in other orders; relative to the largest output
+CLIP_TOWER_TOL = 1e-4
+
+
+def clip_flops(width, layers, tokens, embed_dim, patch_in=0):
+    """Operations (2 per multiply-add) of one sequence through a CLIP tower:
+    each block's QKV, output and MLP products over every token and its two
+    attention products, the patch embedding (``patch_in`` inputs a patch,
+    ViT), and the pooled row's projection."""
+    per_layer = 2 * tokens * 12 * width * width + 4 * tokens * tokens * width
+    patches = 2 * (tokens - 1) * patch_in * width if patch_in else 0
+    return layers * per_layer + patches + 2 * width * embed_dim
+
+
+def strongclip_phase(torch, K, P, root, frames, smi):
+    """10. The StrongCLIP text-tower swap (the LAFF-ml headline predictor):
+    phase 5's trained FrameLAFF checkpoint under the config name
+    FrameLaff_NoFrameFc_StrongCLIP_adjust, and a seeded ViT-B/32-shaped text
+    tower in the reference's layout ({'model': {'clip_model.<OpenAI key>'}})
+    at rtest/TextData/<CLIP dir_name>/model_best.pth.tar. predictor.main on
+    rtest (rank_path 'kernel'): the tower swapped in once and its rows every
+    query's 'clip' rows, the launches of phase 5's pass, the kernel ranks
+    against the plain version on the re-embedded operands, the tower on the
+    card against the CPU for 256 captions, the TF32 flags as found, and
+    embed_txt with the tower's share. Returns the pass's launches."""
+    import copy
+
+    from laff_tpu_torch.data import TextSource
+    from laff_tpu_torch.engine.checkpoint import save_checkpoint
+    from laff_tpu_torch.models.clip import ClipTextConfig, ClipTextTower, tokenize
+
+    payload = torch.load(frames["ckpt"], map_location="cpu", weights_only=True)
+    strong = os.path.join(WORK, "strongclip_model.pt")
+    save_checkpoint(dict(payload, opt={**payload["opt"], "config_name": STRONG_CONFIG}), strong)
+    cfg = ClipTextConfig()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 10)
+        tower = ClipTextTower(cfg)
+    n_params = sum(p.numel() for p in tower.parameters())
+    dir_name = payload["config"]["text_encoding"]["CLIP_encoding"]["dir_name"]
+    path = os.path.join(root, "rtest", "TextData", dir_name, "model_best.pth.tar")
+    torch.save({"model": {f"clip_model.{k}": v for k, v in tower.state_dict().items()}}, path)
+    log(f"[strongclip] {STRONG_CONFIG} on phase 5's weights; text tower {cfg}: {n_params} "
+        f"parameters, {os.path.getsize(path) / 1e6:.1f} MB at {path}")
+
+    made, real = [], P.strongclip_text_featurizer
+
+    def featurizer(*args, **kw):
+        made.append(real(*args, **kw))
+        return made[-1]
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    P.strongclip_text_featurizer = featurizer
+    try:
+        res, launches = run_predictor(torch, K, P, root, "rtest", strong, "kernel")
+    finally:
+        P.strongclip_text_featurizer = real
+    check((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags,
+          f"[strongclip] the pass changed the TF32 flags {flags}")
+    batch = P.PredictOptions.batch_size
+    n_caps = len(res["t2v_ranks"])
+    padded = -(-n_caps // batch) * batch
+    check(len(made) == 1 and made[0].rows == padded and made[0].tower.config == cfg,
+          f"[strongclip] the live tower was not swapped in once for every clip row: "
+          f"{[(m.rows, m.tower.config) for m in made]}, {padded} rows expected")
+    check(launches == frames["launches"],
+          f"[strongclip] launches {launches}, phase 5's pass {frames['launches']}")
+    reembed_and_check(torch, K, P, root, "rtest", strong, res)
+
+    gpu_tower = made[0].tower
+    tsrc = TextSource(os.path.join(root, "rtest", "TextData", "rtest.caption.txt"))
+    ids = torch.from_numpy(tokenize(tsrc.captions_for(tsrc.cap_ids[:CLIP_CHECK_CAPTIONS])))
+    with torch.no_grad():
+        card = gpu_tower(ids.cuda()).cpu()
+        cpu = copy.deepcopy(gpu_tower).cpu()(ids)
+    err, scale = float((card - cpu).abs().max()), float(cpu.abs().max())
+    check(err <= CLIP_TOWER_TOL * scale, f"[strongclip] tower card vs CPU: max abs err {err} "
+          f"(largest value {scale})")
+
+    # the tower's share of embed_txt: its CUDA-event time a batch of the pass
+    # times the batches, and the host's tokenization (warm BPE cache) of the
+    # first TOKENIZE_SAMPLE captions, scaled to the pass
+    sample = tsrc.captions_for(tsrc.cap_ids[:TOKENIZE_SAMPLE])
+    t0 = time.perf_counter()
+    sample_ids = torch.from_numpy(tokenize(sample)).cuda()
+    tokenize_s = (time.perf_counter() - t0) * n_caps / TOKENIZE_SAMPLE
+    with torch.no_grad():
+        call_ms = time_ms(torch, lambda: gpu_tower(sample_ids[:batch]), reps=5)
+    tower_ms = call_ms * padded // batch
+    flops = clip_flops(cfg.width, cfg.layers, cfg.context_length, cfg.embed_dim)
+    b_ms, b_by = bound_ms(n_params * 4 + batch * cfg.context_length * 4 + batch * 512 * 4,
+                          batch * flops, PEAK_F32_OPS_S)
+    row = {"embed_txt_s": res["seconds"]["embed_txt"],
+           "phase5_embed_txt_s": frames["seconds"]["embed_txt"],
+           "tower_pass_ms": tower_ms, "tokenize_s": tokenize_s, "batches": padded // batch,
+           "tower_call_ms": call_ms, "tower_call_bound_ms": b_ms, "bound_by": b_by,
+           "pass_bound_s": padded // batch * b_ms / 1e3, "gflop_per_caption": flops / 1e9,
+           "card_vs_cpu_max_abs_err": err, "largest": scale, "seconds": res["seconds"],
+           "smi": smi}
+    log(f"  [strongclip] {padded} clip rows from the live tower ({len(made)} swap); launches "
+        f"{launches} = phase 5's; tower card vs CPU ({CLIP_CHECK_CAPTIONS} captions): max abs "
+        f"err {err:.3g} of {scale:.3g}; embed_txt {row['embed_txt_s']:.2f} s (phase 5, "
+        f"precomputed rows: {row['phase5_embed_txt_s']:.2f} s), the tower "
+        f"{tower_ms / 1e3:.2f} s of CUDA-event time over {padded // batch} batches of {batch} "
+        f"({call_ms:.2f} ms a call, bound {b_ms:.2f} ms, {b_by}: {b_ms / call_ms:.0%}), "
+        f"tokenization {tokenize_s:.2f} s on the host (from {TOKENIZE_SAMPLE} captions) "
+        f"[{smi}]")
+    log("[strongclip] strongclip_timing " + json.dumps(row))
+    os.remove(path)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: End2EndClip on raw frames
+# ---------------------------------------------------------------------------
+
+E2E_WORLDS = (("e2etrain", 256, 2, SEED + 20), ("e2eval", 64, 2, SEED + 21))
+E2E_FRAMES, E2E_FRAME_HW = 12, (240, 320)
+E2E_BATCH = 32
+E2E_WORDS = ("red", "green", "blue", "dark", "light", "grey", "bright", "pale")
+# one step on the card vs the CPU from the same weights and batch (f32 towers,
+# TF32 off): the loss relative, the parameters relative to the largest one
+E2E_STEP_TOL = 1e-4
+E2E_CPU_VIDEOS = 8  # the first videos of the batch in the card-vs-CPU step
+
+
+def build_frame_world(root, coll, n_videos, caps, seed):
+    """A raw-frame collection written with Pillow: each video's frames a
+    colour field with a drifting gradient and noise (JPEG, 240 x 320), its
+    captions naming the colour; id.imagepath.txt, the caption file and the
+    video set."""
+    import numpy as np
+    from PIL import Image
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(seed)
+    h, w = E2E_FRAME_HW
+    img_dir = os.path.join(root, coll, "frames")
+    os.makedirs(img_dir, exist_ok=True)
+    ramp = np.linspace(0, 2 * np.pi, w, dtype=np.float32)
+    colors = rng.integers(0, 256, (n_videos, 3))
+
+    def write_video(i):  # Pillow's encoder releases the GIL
+        vrng = np.random.default_rng([seed, i])
+        for f in range(E2E_FRAMES):
+            field = colors[i] + 40 * np.sin(ramp + f / 2)[None, :, None]
+            noise = vrng.integers(0, 16, (h, w, 3))
+            arr = np.clip(field + noise, 0, 255).astype(np.uint8)
+            Image.fromarray(arr).save(os.path.join(img_dir, f"{coll}_v{i}_{f}.jpg"), quality=90)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write_video, range(n_videos)))
+    id_lines, cap_lines, vids = [], [], []
+    for i, color in enumerate(colors):
+        vid = f"{coll}_v{i}"
+        vids.append(vid)
+        id_lines += [f"{vid}_{f} {os.path.join(img_dir, f'{vid}_{f}.jpg')}"
+                     for f in range(E2E_FRAMES)]
+        words = " ".join(E2E_WORDS[c * len(E2E_WORDS) // 256] for c in color[:2])
+        cap_lines += [f"{vid}#{c} a {words} video clip {c}" for c in range(caps)]
+    for rel, lines in (("id.imagepath.txt", id_lines),
+                       (f"TextData/{coll}.caption.txt", cap_lines),
+                       (f"VideoSets/{coll}.txt", vids)):
+        os.makedirs(os.path.dirname(os.path.join(root, coll, rel)), exist_ok=True)
+        with open(os.path.join(root, coll, rel), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+
+
+def end2end_phase(torch, K, root, smi):
+    """11. End2EndClip (configs/end2end_clip.py: ViT-B/32 vision at 224 px
+    and the ViT-B/32 text tower, 8 frames a video, lr/20) on a raw-frame
+    world written with Pillow (e2etrain 256 videos x 2 captions, e2eval 64
+    x 2, 12 JPEG frames of 240 x 320 a video) at B 32: (a) one step on the
+    card against the CPU from the same weights on the first batch's first
+    E2E_CPU_VIDEOS videos, the step at B 32 timed;
+    (b) two epochs of engine.end2end.main through cli.do_trainer with
+    rank_path 'kernel': finite losses, one sim_rank_wide launch and no gate
+    launch a validation, model_best.pth.tar written, peak device bytes; (c)
+    a validation with --stage_val_features 0 equal to the staged run's last.
+    Returns the run's launches."""
+    import copy
+    import dataclasses
+
+    from laff_tpu_torch.cli import do_trainer
+    from laff_tpu_torch.engine import end2end as E
+    from laff_tpu_torch.engine.prepare import load_config
+
+    t0 = time.perf_counter()
+    for coll, n_videos, caps, seed in E2E_WORLDS:
+        build_frame_world(root, coll, n_videos, caps, seed)
+    log(f"[e2e] raw-frame worlds {[w[:3] for w in E2E_WORLDS]}, {E2E_FRAMES} JPEG frames of "
+        f"{E2E_FRAME_HW} a video, in {time.perf_counter() - t0:.1f} s")
+    argv = ["e2etrain", "e2eval", "--rootpath", root, "--val_set", "no", "--config_name",
+            "end2end_clip", "--num_epochs", "2", "--batch_size", str(E2E_BATCH), "--rank_path",
+            "kernel", "--random_seed", str(SEED), "--model_prefix", "smoke_e2e", "--overwrite",
+            "1"]
+    opt = do_trainer.parse_args(argv)
+    config = load_config(opt.config_name)
+
+    # (a) one step on the card against the CPU, from the same weights and videos
+    feed = E.train_feed(opt, config)
+    t0 = time.perf_counter()
+    batch = next(iter(feed.epoch(0)))
+    decode_s = time.perf_counter() - t0
+    cpu_model = E.build_model(config, SEED)
+    n_params = sum(p.numel() for p in cpu_model.parameters())
+    gpu_model = copy.deepcopy(cpu_model).cuda()
+    steps = {dev: E.End2EndStep(m, E.make_optimizer(config, m), config)
+             for dev, m in (("cuda", gpu_model), ("cpu", cpu_model))}
+
+    def on(dev, rows=None):
+        return [{k: torch.from_numpy(v[:rows]).to(dev) for k, v in batch[side].items()}
+                for side in ("txt", "vis")]
+
+    t0 = time.perf_counter()
+    loss_cpu = float(steps["cpu"](*on("cpu", E2E_CPU_VIDEOS)))
+    cpu_s = time.perf_counter() - t0
+    loss_gpu = float(steps["cuda"](*on("cuda", E2E_CPU_VIDEOS)))
+    sd_c, sd_g = cpu_model.state_dict(), gpu_model.state_dict()
+    p_err = max(float((sd_g[k].cpu() - v).abs().max()) for k, v in sd_c.items())
+    p_scale = max(float(v.abs().max()) for v in sd_c.values())
+    check(abs(loss_gpu - loss_cpu) <= E2E_STEP_TOL * abs(loss_cpu) and p_err <= E2E_STEP_TOL
+          * p_scale, f"[e2e] step card vs CPU: loss {loss_gpu} vs {loss_cpu}, parameters max "
+          f"abs err {p_err} (largest {p_scale})")
+    txt_d, vis_d = on("cuda")
+    step_ms = time_ms(torch, lambda: steps["cuda"](txt_d, vis_d), reps=5)
+    text_cfg, vision_cfg = E.tower_configs(config)
+    images = E2E_BATCH * config.sample_frame
+    tokens = (vision_cfg.image_size // vision_cfg.patch_size) ** 2 + 1
+    step_flops = 3 * (images * clip_flops(vision_cfg.width, vision_cfg.layers, tokens,
+                                          vision_cfg.embed_dim, 3 * vision_cfg.patch_size ** 2)
+                      + E2E_BATCH * clip_flops(text_cfg.width, text_cfg.layers,
+                                               text_cfg.context_length, text_cfg.embed_dim))
+    # bytes: the f32 parameters read twice (forward, backward), the gradient
+    # written, and the optimizer's reads and writes of parameters and moments
+    b_ms, b_by = bound_ms(n_params * 4 * 10, step_flops, PEAK_F32_OPS_S)
+    del cpu_model, gpu_model, steps, txt_d, vis_d
+    log(f"  [e2e] (a) {n_params} parameters; one step on the batch's first {E2E_CPU_VIDEOS} "
+        f"videos x {config.sample_frame} frames, card vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f}, parameters max abs err "
+        f"{p_err:.3g} of {p_scale:.3g} ({cpu_s:.1f} s on the CPU); the step at B {E2E_BATCH} "
+        f"{step_ms:.1f} ms on the card (bound {b_ms:.1f} ms, {b_by}: {b_ms / step_ms:.0%}); the host "
+        f"decoded the first batch's {images} frames in {decode_s:.2f} s [{smi}]")
+
+    # (b) two epochs of engine.end2end.main through the CLI
+    captured, real_main = {}, E.main
+
+    def main_capturing(o):
+        captured["res"] = real_main(o)
+        return captured["res"]
+
+    E.main = main_capturing
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = do_trainer.main(argv)
+    finally:
+        E.main = real_main
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    res = captured["res"]
+    hist = res["history"]
+    check(rc == 0 and len(hist) == 2 and all(h["loss"] == h["loss"] and abs(h["loss"]) < 1e6
+                                             for h in hist),
+          f"[e2e] do_trainer gave {rc}, history {hist}")
+    check(launches == {"sim_rank_wide": 2, "sim_rank_tiled": 0, "gate_attention": 0,
+                       "gate_attention_simple": 0},
+          f"[e2e] two validations launched {launches}, not one wide rank each and no gate")
+    best = os.path.join(res["model_path"], "model_best.pth.tar")
+    check(os.path.exists(best) and res["parameters"] == n_params,
+          f"[e2e] no {best}, or {res['parameters']} parameters")
+
+    # (c) a validation with --stage_val_features 0 against the staged run's last
+    txt_feed, vis_feed = E.validation_feeds(dataclasses.replace(opt, stage_val_features=0),
+                                            config)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    metrics = E.validate(res["model"], txt_feed, vis_feed, torch.device("cuda"),
+                         rank_path="kernel")
+    unstaged_s = time.perf_counter() - t0
+    check(metrics == {k: hist[-1][k] for k in metrics} and K.LAUNCHES["sim_rank_wide"] == 1,
+          f"[e2e] the unstaged validation {metrics} differs from the staged {hist[-1]}")
+    row = {"parameters": n_params, "step_ms": step_ms, "step_bound_ms": b_ms, "bound_by": b_by,
+           "step_tflop": step_flops / 1e12, "first_batch_decode_s": decode_s,
+           "cpu_step_s": cpu_s, "main_wall_s": wall, "peak_device_bytes": peak,
+           "unstaged_validation_s": unstaged_s,
+           "epochs": [{k: h[k] for k in ("loss", "steps", "train_seconds", "feed_wait_seconds",
+                                         "val_seconds", "r1", "mir")} for h in hist],
+           "smi": smi}
+    log(f"  [e2e] (b) two epochs through do_trainer in {wall:.1f} s: losses "
+        f"{[round(h['loss'], 4) for h in hist]}, r1 {[h['r1'] for h in hist]}, steps "
+        f"{[h['steps'] for h in hist]}, train {[h['train_seconds'] for h in hist]} s of which "
+        f"waiting on the frame decode {[h['feed_wait_seconds'] for h in hist]} s, validation "
+        f"{[h['val_seconds'] for h in hist]} s; launches {launches}; peak device "
+        f"{peak / 1e9:.2f} GB; (c) the unstaged validation equals the staged one "
+        f"({unstaged_s:.1f} s) [{smi}]")
+    log("[e2e] end2end_timing " + json.dumps(row))
+    del res, captured
+    return launches
+
+
 def gate_worker(torch, root):
     """Times the gate of the checkout at ``root`` (its own wrapper, sources
     and build) at the headline's (L 4, H 8, dh 512) for each of GATE_BATCHES
@@ -2625,6 +2953,31 @@ def gate_worker(torch, root):
     log("gate_timing " + json.dumps({"root": root, "rows": rows}))
 
 
+def tiled_worker(torch, t, v, hd):
+    """The tiled rank kernel's device time at (t, v, hd), one call in a
+    profiler session in a fresh process, on seeded bf16 unit rows with the
+    ground truths spread over the gallery: a 'tiled_device' JSON line."""
+    sys.path.insert(0, ROOT)
+    from laff_tpu_torch.ops import kernels as K
+
+    K.build_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def unit_rows(n):
+        out = torch.empty((n, hd), dtype=torch.bfloat16, device="cuda")
+        for s in range(0, n, 65536):
+            x = torch.randn(min(65536, n - s), hd, generator=gen, device="cuda")
+            out[s:s + x.shape[0]] = x / x.norm(dim=-1, keepdim=True)
+        return out
+
+    tn, vn = unit_rows(t), unit_rows(v)
+    gt = torch.randint(0, v, (t,), generator=gen, device="cuda", dtype=torch.int32)
+    check(not K.is_wide(v, hd), "the worker's shape takes the wide kernel")
+    device = device_ms(torch, lambda: K.fused_sim_rank(tn, vn, gt, prenormalized=True), reps=1)
+    check(K.LAUNCHES["sim_rank_tiled"] == 2, f"the worker launched {K.LAUNCHES}")
+    log("tiled_device " + json.dumps(device))
+
+
 def gate_timing(roots):
     """Each checkout's gate in its own process, in the order given: to hold
     two trees against each other on one card, unpack the other under build/
@@ -2655,6 +3008,13 @@ def main(argv):
     if argv[:1] == ["--gate-worker"] and len(argv) == 2:
         try:
             gate_worker(torch, argv[1])
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
+        return 0
+    if argv[:1] == ["--tiled-worker"] and len(argv) == 4:
+        try:
+            tiled_worker(torch, *map(int, argv[1:]))
         except SmokeFailure as e:
             print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
             return 1
@@ -2749,8 +3109,12 @@ def main(argv):
         launches_t, launches_tp, trained = train_phase(torch, K, P, root, smi_line)
         log(f"training phase: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        launches_f, launches_fp = frame_phase(torch, K, P, root, smi_line)
+        launches_f, launches_fp, frames_ckpt = frame_phase(torch, K, P, root, smi_line)
         log(f"FrameLAFF phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches_s = strongclip_phase(torch, K, P, root, {**frames_ckpt,
+                                                          "launches": launches_fp}, smi_line)
+        log(f"StrongCLIP phase: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         launches_c, launches_cp = concat_phase(torch, K, P, smi_line)
         zoo_phase(torch, K, trained, smi_line)
@@ -2764,6 +3128,9 @@ def main(argv):
         launches_avs, (by_path_large, tiled_ibench) = avs_phase(
             torch, K, P, root, trained["ckpt_path"], smi_line)
         log(f"AVS and large gallery phases: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches_e = end2end_phase(torch, K, root, smi_line)
+        log(f"End2EndClip phase: {time.perf_counter() - t0:.1f} s")
 
         # launches of the main paths, each counted from 0 around its run:
         # the rtest prediction pass, the LAFF training run's validations and
@@ -2771,14 +3138,16 @@ def main(argv):
         # validation's, the reference file's pass, task3's and task2's
         # validations, the negation-scored pass, the post-processing passes,
         # the three streamed AVS query sets, and phase 9's ibench passes
-        # (cached, uncached, the kernel branch) and int8 gallery; the tiled
-        # kernel's paths are rbig and the kernel branch
+        # (cached, uncached, the kernel branch) and int8 gallery, the
+        # StrongCLIP pass and End2EndClip's validations; the tiled kernel's
+        # paths are rbig and the kernel branch
         by_path = {"laff_predict": launches_k, "laff_train": launches_t,
                    "laff_trained_predict": launches_tp, "frames_train": launches_f,
                    "frames_trained_predict": launches_fp, "concat_train": launches_c,
                    "concat_trained_predict": launches_cp, "hist_validate": launches_h,
                    "reference_predict": launches_r, **by_path_aux, "avs_predict": launches_avs,
-                   **by_path_large}
+                   **by_path_large, "strongclip_predict": launches_s,
+                   "end2end_train": launches_e}
         rows["gate_attention"]["at_l5"] = gate_l5
         rows["sim_rank_tiled"]["at_ibench"] = tiled_ibench
         tiled_paths = {"rbig_predict": launches_b, "ibench_kernel_stream":

@@ -8,15 +8,19 @@ others raise, naming the ROADMAP item that brings them).
 
 At the defaults the train features live on the card when they fit
 ``LAFF_TPU_CACHE_BUDGET`` (4 GiB), K = 8 steps go per dispatch as a CUDA
-graph, and validation batches are staged on the card.
+graph, and validation batches are staged on the card. An End2EndClip
+config (``model_name = 'End2EndClip'``, e.g. ``--config_name end2end_clip``)
+trains on raw frames through ``engine.end2end.main``, as ``laff_tpu``'s CLI
+dispatches it.
 """
 
 import argparse
 import os
 import sys
 
+from laff_tpu_torch.engine import end2end
 from laff_tpu_torch.engine.evaluator import RANK_PATHS
-from laff_tpu_torch.engine.prepare import Options, model_dir_for
+from laff_tpu_torch.engine.prepare import Options, load_config, model_dir_for
 from laff_tpu_torch.engine.trainer import main as train_main
 from laff_tpu_torch.utils import ROOT_PATH, check_to_skip
 
@@ -85,7 +89,10 @@ def main(argv=None) -> int:
     opt = parse_args(argv)
     if check_to_skip(os.path.join(model_dir_for(opt), "model_best.pth.tar"), opt.overwrite):
         return 0
-    train_main(opt)
+    if getattr(load_config(opt.config_name), "model_name", "") == "End2EndClip":
+        end2end.main(opt)
+    else:
+        train_main(opt)
     return 0
 
 

@@ -54,7 +54,9 @@ class TextBatcher:
       ``laff_tpu`` pads to the batch's longest caption, the port to
       max_txtlength, so every batch has one shape (masked tokens add zero)
       'clip' / 'bert': taken from TextSource.precomputed ('CLIP_encoding',
-      'bert_encoding' BigFiles) -> (B, D)
+      'bert_encoding' BigFiles) -> (B, D), or, for a live tower (a featurizer
+      with ``encode_batch``, the StrongCLIP text tower), its (B, D) rows of
+      the captions themselves, as a tensor on the tower's device
     """
 
     _PRECOMPUTED_KEYS = {"clip": "CLIP_encoding", "bert": "bert_encoding"}
@@ -93,9 +95,9 @@ class TextBatcher:
                 batch["netvlad_tokens"], batch["netvlad_mask"] = t2v.encode_tokens_padded(
                     captions, self.max_txtlength)
             elif name in self._PRECOMPUTED_KEYS:
-                if t2v is not None:
-                    raise NotImplementedError(
-                        f"live '{name}' text towers are not ported yet: ROADMAP Queue 1 item 4")
+                if t2v is not None:  # a live tower (the StrongCLIP text tower)
+                    batch[name] = t2v.encode_batch(captions)
+                    continue
                 if precomputed is None:
                     precomputed = self.source.gather_precomputed(cap_ids)
                 batch[name] = precomputed[self._PRECOMPUTED_KEYS[name]]

@@ -51,13 +51,26 @@ it, and not from the embeddings' rank kernel; v2t always comes from the
 score matrix. Every top-K list puts equal scores in decreasing gallery
 index order (``score_rankings``).
 
+A StrongCLIP checkpoint (the config's module, model name or the
+checkpoint's ``opt['config_name']`` says 'StrongCLIP', as
+``FrameLaff_NoFrameFc_StrongCLIP_adjust``, the LAFF-ml headline) swaps in
+the fine-tuned CLIP text tower stored at ``<root>/<test>/TextData/<CLIP
+dir_name>/model_best.pth.tar`` (reference ``predictor.py:170-186``): its
+keys lose the leading ``clip_model.``, a ``ClipModel.`` prefix is detected,
+the tower's shape comes from ``infer_clip_config`` (the ViT-B/32 text tower
+when a key is missing), and the 'clip' rows of every query (and of every
+negation clause) are that tower's output on the card, not the precomputed
+BigFile rows. The file is read through ``torch_import.ReferenceUnpickler``.
+
 Raising instead of running (each names its ROADMAP item or the reason):
-``data_parallel`` (item 5); a StrongCLIP config whose fine-tuned CLIP text
-tower is on disk (item 4). Two results differ from ``laff_tpu`` on
+``data_parallel`` (item 5). Three results differ from ``laff_tpu`` on
 purpose: above the threshold 'kreciprocal' and 'tkb' raise a ``ValueError``
 (they need the gallery-gallery product, which a streamed gallery never
 forms; ``laff_tpu`` crashes there), and so does measure 'hist' (``laff_tpu``
-scores cosine there without a word).
+scores cosine there without a word); a StrongCLIP tower file that exists
+but does not load raises (``laff_tpu`` logs a warning and predicts on the
+precomputed rows, which would hide a failure on the card), while a missing
+file logs ``laff_tpu``'s warning and predicts on the precomputed rows.
 """
 
 from __future__ import annotations
@@ -77,6 +90,8 @@ from ..data import EvalFeed, TextBatcher, TextSource, VisBatcher, read_video_set
 from ..eval.metrics import eval_t2v, eval_v2t, metrics_from_ranks, ranks_from_scores
 from ..eval.rerank import ConceptRerank, k_reciprocal_rerank, load_word_counts, tkb_rerank
 from ..models import LAFFModel
+from ..models.clip import (ClipTextConfig, ClipTextTower, infer_clip_config, text_state_dict,
+                           tokenize)
 from ..ops import flatten_heads, l2norm
 from ..text.textlib import split_negation
 from ..text.txt2vec import BowVec, BowVecNSW, IndexVec, get_txt2vec
@@ -86,6 +101,7 @@ from .evaluator import (LARGE_GALLERY, Embedder, int8_streaming_topk, ordered_to
                         score_matrix, score_matrix_streaming, streaming_benchmark_eval,
                         t2v_ranks)
 from .prepare import build_featurizers, text_precomputed, vision_source, w2v_dir_for
+from .torch_import import read_reference
 
 logger = get_logger(__name__)
 
@@ -356,8 +372,8 @@ def embed_negation_split(embedder: Embedder, txt_feed: EvalFeed, tsrc: TextSourc
     neg_embs, mask), mask 1 where the query has a negation; (None, None,
     mask) when none has. Precomputed text rows (CLIP/BERT BigFiles) are
     keyed by caption id, so a clause reuses its query's rows there; the
-    signal comes from the live features (bow, w2v, GRU), and with none a
-    warning says the scoring is inert."""
+    signal comes from the live features (bow, w2v, GRU, a StrongCLIP text
+    tower), and with none a warning says the scoring is inert."""
     batcher = txt_feed.batcher
     pos_by_id: Dict[str, str] = {}
     neg_by_id: Dict[str, str] = {}
@@ -368,13 +384,15 @@ def embed_negation_split(embedder: Embedder, txt_feed: EvalFeed, tsrc: TextSourc
         mask[i] = 1.0 if has_neg else 0.0
     if not mask.any():
         return None, None, mask
-    if all(name in TextBatcher._PRECOMPUTED_KEYS for name in batcher.featurizers):
+    if all(name in TextBatcher._PRECOMPUTED_KEYS and t2v is None
+           for name, t2v in batcher.featurizers.items()):
         logger.warning(
             "NEGATION SCORING IS INERT: every text modality (%s) is a precomputed feature "
             "store keyed by cap_id, so the synthesized positive/negated clauses reuse the full "
             "query's rows and the negation adjustment carries no signal. Add a live text "
-            "encoder (bow/w2v/gru) to make --task3_caption effective (the reference drops "
-            "precomputed CLIP in its task3 loaders, data_provider.py:517-518).",
+            "encoder (bow/w2v/gru or a StrongCLIP text tower) to make --task3_caption "
+            "effective (the reference drops precomputed CLIP in its task3 loaders, "
+            "data_provider.py:517-518).",
             ", ".join(sorted(batcher.featurizers)))
 
     def clause_feed(clause_by_id):
@@ -434,25 +452,63 @@ def check_options(opt: PredictOptions) -> None:
                                   f"ROADMAP Queue 1 item 5")
 
 
-def check_strongclip(ckpt: Dict, rootpath: str, collection: str) -> None:
-    """``laff_tpu`` swaps a fine-tuned live CLIP text tower in for a
-    StrongCLIP config whenever ``<root>/<collection>/TextData/<CLIP
-    dir_name>/model_best.pth.tar`` loads, and warns when it does not
-    (``laff_tpu/engine/predictor.py:490-503``). The port has no live CLIP
-    tower yet: it raises where that file exists, so the two packages never
-    score with different text features in silence, and warns as
-    ``laff_tpu`` does where it does not."""
+class ClipTextFeaturizer:
+    """A live CLIP text tower as a text featurizer (``TextBatcher``'s live
+    branch): captions tokenized at context 77, encoded on the tower's
+    device under no_grad (the feed calls it from its prefetch thread), (B,
+    embed_dim) float32 rows left there. ``rows`` counts the captions it
+    encoded."""
+
+    def __init__(self, tower: torch.nn.Module, device: torch.device) -> None:
+        self.tower = tower.to(device).eval()
+        self.device = device
+        self.rows = 0
+
+    def encode_batch(self, captions) -> torch.Tensor:
+        ids = torch.from_numpy(tokenize(list(captions))).to(self.device)
+        with torch.no_grad():
+            out = self.tower(ids)
+        self.rows += len(captions)
+        return out
+
+
+def strongclip_text_featurizer(rootpath: str, test_collection: str,
+                               dir_name: str = STRONGCLIP_DIR,
+                               device: torch.device = torch.device("cuda")) -> ClipTextFeaturizer:
+    """The fine-tuned CLIP text tower of ``<root>/<test>/TextData/<dir_name>/
+    model_best.pth.tar`` (``laff_tpu``'s ``strongclip_text_featurizer``), on
+    ``device``."""
+    path = os.path.join(rootpath, test_collection, "TextData", dir_name, "model_best.pth.tar")
+    ckpt = read_reference(path)
+    sd = {k[11:]: v for k, v in ckpt["model"].items()}  # strip 'clip_model.'
+    prefix = "ClipModel." if any(k.startswith("ClipModel.") for k in sd) else ""
+    try:  # the reference build_model's shape sniffing (model/clip/model.py:401-438)
+        cfg = infer_clip_config(sd, prefix=prefix).text
+    except KeyError:  # a partial dump: the ViT-B/32 text tower
+        cfg = ClipTextConfig()
+    tower = ClipTextTower(cfg)
+    tower.load_state_dict(text_state_dict(sd, layers=cfg.layers, prefix=prefix))
+    logger.info("StrongCLIP text tower loaded from %s: %s", path, cfg)
+    return ClipTextFeaturizer(tower, device)
+
+
+def strongclip_swap(ckpt: Dict, featurizers: Dict, rootpath: str, collection: str,
+                    device: torch.device) -> None:
+    """For a StrongCLIP checkpoint, ``featurizers['clip']`` becomes the
+    fine-tuned live text tower when its file exists; a missing file logs
+    ``laff_tpu``'s warning and leaves the precomputed rows; a file that
+    does not load raises (see the module docstring)."""
     config = ckpt["config"]
     named = str(type(config).__module__) + str(getattr(config, "model_name", ""))
     if "StrongCLIP" not in named + str(ckpt.get("opt", {}).get("config_name", "")):
         return
     dir_name = config.text_encoding["CLIP_encoding"].get("dir_name", STRONGCLIP_DIR)
     path = os.path.join(rootpath, collection, "TextData", dir_name, "model_best.pth.tar")
-    if os.path.exists(path):
-        raise NotImplementedError(f"{path}: the StrongCLIP text tower swap is not ported yet: "
-                                  f"ROADMAP Queue 1 item 4")
-    logger.warning("StrongCLIP text tower load failed: [Errno 2] No such file or directory: %r",
-                   path)
+    if not os.path.exists(path):
+        logger.warning("StrongCLIP text tower load failed: [Errno 2] No such file or "
+                       "directory: %r", path)
+        return
+    featurizers["clip"] = strongclip_text_featurizer(rootpath, collection, dir_name, device)
 
 
 def check_streamable(opt: PredictOptions, measure: str, n_videos: int) -> None:
@@ -483,10 +539,10 @@ def main(opt: PredictOptions) -> Dict:
     device = resolve_device(opt.device)
     ckpt = load_checkpoint(opt.model_path)
     config = ckpt["config"]
-    check_strongclip(ckpt, opt.rootpath, opt.testCollection)
     model = rebuild_model(ckpt, device)
     embedder = Embedder(model, device, prefetch_depth=max(2, opt.num_workers))
     featurizers = rebuild_featurizers(ckpt, opt.rootpath)
+    strongclip_swap(ckpt, featurizers, opt.rootpath, opt.testCollection, device)
     parm_adjust = str(ckpt.get("opt", {}).get("parm_adjust_config", "None"))
     coll = opt.testCollection
     measure = getattr(config, "measure", "cosine")

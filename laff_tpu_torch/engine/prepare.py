@@ -38,7 +38,6 @@ import torch
 
 from ..data import PairFeed, TextBatcher, TextSource, VisBatcher, VisionSource, read_video_set
 from ..models.laff import LAFFModel
-from ..models.registry import END2END_NOT_PORTED
 from ..models.spec import (AttentionSpec, GruSpec, LAFFSpec, Task2Spec, Task3Spec, TowerSpec,
                            TransformSpec)
 from ..store import BigFile
@@ -416,9 +415,12 @@ def check_options(opt: Options) -> None:
 
 
 def check_config(config) -> None:
-    """Config features the training slice does not have yet."""
+    """Config features the LAFF training slice does not take: End2EndClip
+    (its own trainer) and a BERT text tower (not ported yet)."""
     if getattr(config, "model_name", "") == "End2EndClip":
-        raise NotImplementedError(END2END_NOT_PORTED)
+        raise ValueError("End2EndClip trains on raw frames through "
+                         "laff_tpu_torch.engine.end2end.main (cli.do_trainer dispatches there), "
+                         "not through trainer.prepare")
     if "no" not in config.text_encoding["bert_encoding"]["name"]:
         raise NotImplementedError("a BERT text tower is not ported yet: ROADMAP Queue 1 item 4")
 

@@ -3,14 +3,16 @@ registry``, reference ``get_model``, ``model/model.py:2501-2519``).
 
 Every W2VVPP-family name builds a ``LAFFModel`` whose behavior the spec
 drives (the reference classes differ only in tower wiring, which the spec
-encodes). 'End2EndClip', the raw-frame CLIP model, raises until its
-ROADMAP item lands.
+encodes); 'End2EndClip' builds the raw-frame CLIP model from its tower
+configs (``get_model('End2EndClip', text_config=..., vision_config=...,
+frozen=...)``).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+from .end2end_clip import End2EndClip
 from .laff import LAFFModel
 from .spec import LAFFSpec
 
@@ -22,13 +24,8 @@ MODEL_NAMES = (
     "End2EndClip",              # raw frames + raw text through CLIP
 )
 
-END2END_NOT_PORTED = ("End2EndClip (raw frames through live CLIP towers) is not ported yet: "
-                      "ROADMAP Queue 1 item 4")
-
 
 def validate_spec_for(model_name: str, spec: LAFFSpec) -> None:
-    if model_name == "End2EndClip":
-        raise NotImplementedError(END2END_NOT_PORTED)
     if model_name == "FrameLAFF" and not spec.vis.frame_features:
         raise ValueError("FrameLAFF requires frame features (config.frame_feat_input "
                          "with vid_frame_feats)")
@@ -37,9 +34,9 @@ def validate_spec_for(model_name: str, spec: LAFFSpec) -> None:
             raise ValueError("W2VVPP uses concat fusion on both towers")
 
 
-def get_model(model_name: str, spec: Optional[LAFFSpec] = None) -> LAFFModel:
+def get_model(model_name: str, spec: Optional[LAFFSpec] = None, **clip_kwargs):
     if model_name == "End2EndClip":
-        raise NotImplementedError(END2END_NOT_PORTED)
+        return End2EndClip(**clip_kwargs)
     if model_name not in MODEL_NAMES:
         raise KeyError(f"unknown model '{model_name}'; known: {MODEL_NAMES}")
     if spec is None:

@@ -21,12 +21,16 @@ both packages, answers the same query sets in both predictors:
   streamed benchmark's running top-k keeps the same rule across gallery
   blocks, where ``laff_tpu`` puts the lower index first:
   ``tests/test_torch_port_large_gallery.py``);
+* a StrongCLIP checkpoint whose fine-tuned CLIP text tower is on disk
+  (plain or 'ClipModel.'-prefixed keys, and with --task3_caption): the
+  live tower's rows in both predictors, equal score files; without the
+  file, laff_tpu's warning; a file that does not load raises in the port
+  (laff_tpu warns);
 * what raises: 'kreciprocal', 'tkb' and measure 'hist' above the threshold
-  (ValueError, where laff_tpu crashes or scores cosine), --data_parallel
-  (item 5), and a StrongCLIP checkpoint whose CLIP text tower is on disk
-  (item 4; without the file, laff_tpu's warning); and what runs now: a
-  large benchmark gallery without post-processing and --int8_gallery 1,
-  which raised naming ROADMAP item 3b until the port served them;
+  (ValueError, where laff_tpu crashes or scores cosine) and --data_parallel
+  (item 5); and what runs now: a large benchmark gallery without
+  post-processing and --int8_gallery 1, which raised naming ROADMAP item 3b
+  until the port served them;
 * ``build_avs_world``'s layout, relevance rule and chunked writes, its
   benchmark over the gallery, and the package data an installed port needs.
 """
@@ -57,6 +61,7 @@ from laff_tpu_torch.engine.evaluator import Embedder, score_matrix_streaming
 from laff_tpu_torch.engine.prepare import build_featurizers, build_spec
 from laff_tpu_torch.engine.weights import from_jax_variables
 from laff_tpu_torch.models import LAFFModel
+from laff_tpu_torch.models.clip import ClipTextConfig, ClipTextTower
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AVS, BENCH, TRAIN, IBENCH = "iacc.3", "avsbench", "avstrain", "ibench"
@@ -125,9 +130,14 @@ def world(tmp_path_factory):
                 mod["bn1"]["var"] = rng.uniform(0.5, 2.0, n).astype(np.float32)
     jcfg.t2v_bow, jcfg.t2v_idx = feats.get("bow"), feats.get("rnn")
     jax_ckpt = os.path.join(root, "jax_model.pth.tar")
-    jax_save({"params": params, "batch_stats": stats, "schedule": {}, "config": jcfg,
-              "opt": {"trainCollection": TRAIN, "parm_adjust_config": "None"},
-              "spec": jspec}, jax_ckpt)
+    jax_payload = {"params": params, "batch_stats": stats, "schedule": {}, "config": jcfg,
+                   "opt": {"trainCollection": TRAIN, "parm_adjust_config": "None"},
+                   "spec": jspec}
+    jax_save(jax_payload, jax_ckpt)
+    jax_strong_ckpt = os.path.join(root, "jax_strong_model.pth.tar")
+    jax_save(dict(jax_payload, opt={**jax_payload["opt"],
+                                    "config_name": "FrameLaff_NoFrameFc_StrongCLIP_adjust"}),
+             jax_strong_ckpt)
     pcfg = _small(port_rehearsal.config())
     pfeats, ptxt_dims, pgru, _, _ = build_featurizers(pcfg, root, TRAIN, capfile)
     model = LAFFModel(build_spec(pcfg, vis_dims, ptxt_dims, pgru))
@@ -143,7 +153,8 @@ def world(tmp_path_factory):
     hist_ckpt = os.path.join(root, "hist_model.pt")
     save_checkpoint(dict(payload, config=dict(payload["config"], measure="hist")), hist_ckpt)
     return {"root": root, "jax_ckpt": jax_ckpt, "port_ckpt": port_ckpt, "avs": avs,
-            "strong_ckpt": strong_ckpt, "hist_ckpt": hist_ckpt}
+            "strong_ckpt": strong_ckpt, "jax_strong_ckpt": jax_strong_ckpt,
+            "hist_ckpt": hist_ckpt}
 
 
 def _port_opt(world, coll, query_sets, sim_name, ckpt=None, **extra):
@@ -331,27 +342,94 @@ def test_cli_accepts_laff_tpu_flags(world):
     assert set(port_predictor.main(opt)) == {"tv16.avs.txt"}
 
 
-@pytest.mark.parametrize("present", [False, True])
+def _strongclip_tower_file(path, prefix=""):
+    """A seeded text tower in the reference's layout ({'model':
+    {'clip_model.<key>': tensor}}), width 64 (one head, as shape inference
+    gives), one layer, embedding as wide as the world's CLIP rows, the real
+    49,408-token vocabulary."""
+    tower = ClipTextTower(ClipTextConfig(width=64, heads=1, layers=1,
+                                         embed_dim=synth.CLIP_DIM))
+    gen = torch.Generator().manual_seed(5)
+    sd = {k: v + 0.05 * torch.randn(v.shape, generator=gen)
+          for k, v in tower.state_dict().items()}
+    torch.save({"model": {f"clip_model.{prefix}{k}": v for k, v in sd.items()}}, path)
+
+
+# present: False (no file), True (the tower file), 'ClipModel' (its keys under
+# a 'ClipModel.' prefix), 'unreadable' (a file torch cannot load), 'negation'
+# (the tower file and --task3_caption on a query with a negated clause)
+@pytest.mark.parametrize("present", [False, True, "ClipModel", "unreadable", "negation"])
 def test_strongclip_tower(world, monkeypatch, caplog, present):
-    """A StrongCLIP checkpoint: laff_tpu swaps in the fine-tuned CLIP text
-    tower stored under the CLIP features' directory when it loads; the port
-    raises there (ROADMAP item 4) and, without the file, logs laff_tpu's
-    warning and predicts."""
+    """A StrongCLIP checkpoint: both predictors swap in the fine-tuned CLIP
+    text tower stored under the CLIP features' directory, whose rows then
+    feed every query (and every negation clause): the port's score file and
+    t2v.pkl equal laff_tpu's. Without the file both log laff_tpu's warning
+    and predict on the precomputed rows. A file that does not load raises in
+    the port, where laff_tpu warns and predicts (ROADMAP Queue 3)."""
     path = os.path.join(world["root"], AVS, "TextData", "clip_synth", "model_best.pth.tar")
-    if present:
+    if present == "unreadable":
         with open(path, "wb") as fh:
             fh.write(b"placeholder")
+    elif present:
+        _strongclip_tower_file(path, "ClipModel." if present == "ClipModel" else "")
     logger = port_predictor.logger
     monkeypatch.setattr(logger, "handlers", [*logger.handlers, caplog.handler])
-    opt = _port_opt(world, AVS, "tv16.avs.txt", f"strong_{present}", ckpt=world["strong_ckpt"])
+    made = []
+
+    def featurizer(*args, **kw):
+        made.append(real(*args, **kw))
+        return made[-1]
+
+    real = port_predictor.strongclip_text_featurizer
+    monkeypatch.setattr(port_predictor, "strongclip_text_featurizer", featurizer)
+    query_set, extra = (("neg.avs.txt", {"task3_caption": "negation"}) if present == "negation"
+                        else ("tv16.avs.txt", {}))
+    opt = _port_opt(world, AVS, query_set, f"strong_{present}", ckpt=world["strong_ckpt"],
+                    **extra)
     try:
-        if present:
-            with pytest.raises(NotImplementedError, match="item 4"):
+        if present == "unreadable":
+            with pytest.raises(pickle.UnpicklingError):
                 port_predictor.main(opt)
-        else:
-            assert set(port_predictor.main(opt)) == {"tv16.avs.txt"}
+            assert not made
+            jax_logs = []
+            monkeypatch.setattr(jax_predictor.logger, "warning",
+                                lambda msg, *a: jax_logs.append(msg % a))
+            jax_predictor.main(jax_predictor.PredictOptions(
+                testCollection=AVS, model_path=world["jax_strong_ckpt"],
+                sim_name="jax_strong_unreadable", rootpath=world["root"],
+                query_sets=query_set, batch_size=16, overwrite=1))
+            assert any(m.startswith("StrongCLIP text tower load failed") for m in jax_logs)
+            return
+        got = port_predictor.main(opt)
+        assert set(got) == {query_set}
+        if not present:
+            assert not made
             assert any(r.message.startswith("StrongCLIP text tower load failed")
                        for r in caplog.records)
+            return
+        # every clip row of the pass came from the live tower: the queries'
+        # batch of 16 (3 topics padded), and with negation both clauses' too
+        assert len(made) == 1 and made[0].rows == 16 * (3 if extra else 1)
+        assert made[0].tower.config == ClipTextConfig(width=64, heads=1, layers=1,
+                                                      embed_dim=synth.CLIP_DIM)
+        jopt = jax_predictor.PredictOptions(
+            testCollection=AVS, model_path=world["jax_strong_ckpt"],
+            sim_name=f"jax_strong_{present}", rootpath=world["root"], query_sets=query_set,
+            batch_size=16, overwrite=1,
+            predict_result_file=os.path.join(world["root"], "result_log", "jax_strong", "r.txt"),
+            **extra)
+        jax_predictor.main(jopt)
+        assert got[query_set]["negated_queries"] == (1 if extra else None)
+        _assert_same_ranking_files(_score_dir(world, AVS, query_set, f"strong_{present}"),
+                                   _score_dir(world, AVS, query_set, f"jax_strong_{present}"),
+                                   True)
+        # the live rows moved the ranking away from the precomputed rows'
+        plain = _read_scores(os.path.join(_score_dir(world, AVS, "tv16.avs.txt", "strong_False"
+                                                     ), "id.sent.score.txt"))
+        live = _read_scores(os.path.join(_score_dir(world, AVS, query_set, f"strong_{present}"
+                                                    ), "id.sent.score.txt"))
+        if not extra:
+            assert any(not np.allclose(plain[t][1], live[t][1]) for t in live)
     finally:
         if present:
             os.remove(path)
@@ -414,6 +492,9 @@ def test_package_data_ships_the_port_sources():
         data = tomllib.load(fh)["tool"]["setuptools"]["package-data"]
     assert data["laff_tpu_torch.native"] == ["fastfeat.cpp"]
     assert data["laff_tpu_torch.eval.trecvid"] == ["sample_eval.pl"]
+    assert data["laff_tpu_torch.models.clip"] == ["assets/*"]  # the BPE merge table
+    assert os.path.exists(os.path.join(ROOT, "laff_tpu_torch", "models", "clip", "assets",
+                                       "bpe_simple_vocab_16e6.txt.gz"))
     for package, files in data.items():
         if package.startswith("laff_tpu_torch"):
             base = os.path.join(ROOT, *package.split("."))

@@ -29,7 +29,7 @@ print(len(names), "modules;", "forbidden:", bad, covered)
 # modules the walk must reach: the native featurizer, the FrameLAFF configs,
 # the checkpoint interchange, the registry, the configs that reference
 # checkpoints name, the re-rankers, the TRECVID harness with its CLI, the
-# int8 gallery and the host data CLIs
+# int8 gallery, the host data CLIs, the live CLIP towers and End2EndClip
 REQUIRED = ("laff_tpu_torch.native", "laff_tpu_torch.eval.rerank",
             "laff_tpu_torch.ops.quantized", "laff_tpu_torch.data.check",
             "laff_tpu_torch.cli.build_vocab", "laff_tpu_torch.cli.txt2bin",
@@ -41,7 +41,13 @@ REQUIRED = ("laff_tpu_torch.native", "laff_tpu_torch.eval.rerank",
             "laff_tpu_torch.configs.FrameLaff_NoFrameFc_StrongCLIP_adjust",
             "laff_tpu_torch.engine.torch_import", "laff_tpu_torch.engine.torch_export",
             "laff_tpu_torch.models.registry", "laff_tpu_torch.configs.tiny",
-            "laff_tpu_torch.configs.tiny_tied", "laff_tpu_torch.configs.concat_rehearsal")
+            "laff_tpu_torch.configs.tiny_tied", "laff_tpu_torch.configs.concat_rehearsal",
+            "laff_tpu_torch.models.clip", "laff_tpu_torch.models.clip.tokenizer",
+            "laff_tpu_torch.models.clip.towers", "laff_tpu_torch.models.clip.resnet",
+            "laff_tpu_torch.models.clip.load", "laff_tpu_torch.models.end2end_clip",
+            "laff_tpu_torch.data.frames", "laff_tpu_torch.data.end2end",
+            "laff_tpu_torch.engine.end2end", "laff_tpu_torch.configs.end2end_clip",
+            "laff_tpu_torch.configs.e2e_tiny")
 
 
 def _run(args, cwd):

@@ -501,11 +501,15 @@ def test_dispatch_defaults_equal_laff_tpu(option, where):
     {"text_encoding": dict(port_rehearsal.config.text_encoding,
                            bert_encoding={"name": "bert-base-uncased"})}])
 def test_config_features_not_ported_raise(world, monkeypatch, change):
+    """A BERT text tower raises naming its ROADMAP item; an End2EndClip
+    config (ported: engine.end2end) is sent there by the LAFF trainer."""
     monkeypatch.setattr(port_prepare, "load_config",
                         lambda name, parm="None": types.SimpleNamespace(
                             **{**vars(port_rehearsal.config), **change}))
     opt = port_prepare.Options(device="cpu", **_base(world))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    error, match = ((ValueError, "engine.end2end.main") if "model_name" in change
+                    else (NotImplementedError, "ROADMAP Queue 1 item 4"))
+    with pytest.raises(error, match=match):
         port_prepare.prepare(opt)
 
 

@@ -35,6 +35,8 @@ from laff_tpu_torch.engine import trainer as port_trainer
 from laff_tpu_torch.engine.weights import from_jax_variables
 from laff_tpu_torch.models import attention as PA
 from laff_tpu_torch.models import registry
+from laff_tpu_torch.models.clip import ClipTextConfig, ClipVisionConfig
+from laff_tpu_torch.models.end2end_clip import End2EndClip
 from laff_tpu_torch.models.laff import LAFFModel
 from laff_tpu_torch.models.spec import spec_from_dict
 from laff_tpu_torch.ops import hist_scores, hist_sim
@@ -270,8 +272,11 @@ def test_registry():
     assert isinstance(registry.get_model("W2VVPP", spec), LAFFModel)
     with pytest.raises(ValueError, match="concat fusion"):
         registry.get_model("W2VVPP", spec_from_dict(dataclasses.asdict(_spec())))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        registry.get_model("End2EndClip", spec)
+    tiny = dict(text_config=ClipTextConfig(vocab_size=100, context_length=8, width=16, heads=2,
+                                           layers=1, embed_dim=8),
+                vision_config=ClipVisionConfig(image_size=32, patch_size=16, width=16, heads=2,
+                                               layers=1, embed_dim=8))
+    assert isinstance(registry.get_model("End2EndClip", spec, **tiny), End2EndClip)
     with pytest.raises(KeyError):
         registry.get_model("nope", spec)
     assert registry.MODEL_NAMES == __import__("laff_tpu.models.registry",
