@@ -55,8 +55,11 @@ class TextBatcher:
       max_txtlength, so every batch has one shape (masked tokens add zero)
       'clip' / 'bert': taken from TextSource.precomputed ('CLIP_encoding',
       'bert_encoding' BigFiles) -> (B, D), or, for a live tower (a featurizer
-      with ``encode_batch``, the StrongCLIP text tower), its (B, D) rows of
-      the captions themselves, as a tensor on the tower's device
+      with ``encode_batch``: the StrongCLIP text tower, a frozen BERT), its
+      (B, D) rows of the captions themselves, as a tensor on the tower's
+      device; for the in-graph BERT tower (a featurizer with
+      ``emit_tokens``) the token arrays 'bert_ids', 'bert_mask' and
+      'bert_type' (B, max_length) int32
     """
 
     _PRECOMPUTED_KEYS = {"clip": "CLIP_encoding", "bert": "bert_encoding"}
@@ -95,7 +98,10 @@ class TextBatcher:
                 batch["netvlad_tokens"], batch["netvlad_mask"] = t2v.encode_tokens_padded(
                     captions, self.max_txtlength)
             elif name in self._PRECOMPUTED_KEYS:
-                if t2v is not None:  # a live tower (the StrongCLIP text tower)
+                if getattr(t2v, "emit_tokens", False):  # the in-graph tower: its tokens
+                    batch.update(t2v.encode_tokens(captions))
+                    continue
+                if t2v is not None:  # a live tower (StrongCLIP's, a frozen BERT)
                     batch[name] = t2v.encode_batch(captions)
                     continue
                 if precomputed is None:

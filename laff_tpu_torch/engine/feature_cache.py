@@ -88,8 +88,10 @@ class DeviceTxtCache(_RowCache):
         t0 = time.perf_counter()
         caps = list(cap_ids if cap_ids is not None else text_batcher.source.cap_ids)
         parts = [text_batcher(caps[s:s + chunk]) for s in range(0, len(caps), chunk)]
-        # every array the batcher makes has a fixed width (max_txtlength)
-        arrays = {n: np.concatenate([p[n] for p in parts]) for n in parts[0]}
+        # every array the batcher makes has a fixed width (max_txtlength, or
+        # BERT's max_length); a live tower's rows are tensors on its device
+        arrays = {n: torch.cat([p[n] for p in parts]) if isinstance(parts[0][n], torch.Tensor)
+                  else np.concatenate([p[n] for p in parts]) for n in parts[0]}
         super().__init__(caps, arrays, bf16, device, "text", t0)
 
 

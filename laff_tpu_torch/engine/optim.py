@@ -13,6 +13,14 @@ differ from ``torch.optim``:
   ``nu`` from 0, no bias correction (``torch.optim.RMSprop`` has alpha
   0.99 and eps outside the root).
 
+``scaled`` parameters (an in-graph BERT tower, ``laff_tpu``'s
+``optax.masked(optax.scale(1 / 20))`` after the optimizer, the reference's
+backbone learning rate of lr/20) have their updates multiplied by
+``scale``: the clip still takes the global norm of every gradient. The
+scaled parameters are contiguous runs of the flat buffers (a submodule's
+parameters are), so the scale is an in-place multiply of those slices: no
+host sync and no extra buffer, and a CUDA graph of the step keeps it.
+
 With ``skip_nonfinite`` (the bf16 towers) a step whose gradients are not
 all finite leaves the parameters, the moments and the count as they were.
 Every gradient lives in one flat f32 buffer (``p.grad`` is a view of it),
@@ -24,18 +32,21 @@ graph captured over a step keeps reading and writing the live state.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Tuple
 
 import torch
 
 _B1, _B2, _ADAM_EPS = 0.9, 0.999, 1e-4
 _RMS_DECAY, _RMS_EPS = 0.9, 1e-8
 OPTIMIZERS = ("adam", "rmsprop")
+BACKBONE_SCALE = 1.0 / 20.0  # the reference's backbone lr/20 (model/model.py:2013-2020)
+BACKBONE_PREFIX = "txt_net.bert."  # the in-graph BERT tower's parameters
 
 
 class OptaxChain:
     def __init__(self, params: Iterable[torch.nn.Parameter], kind: str, lr: float,
-                 grad_clip: float = 0.0, skip_nonfinite: bool = False) -> None:
+                 grad_clip: float = 0.0, skip_nonfinite: bool = False,
+                 scaled: Iterable[torch.nn.Parameter] = (), scale: float = 1.0) -> None:
         if kind not in OPTIMIZERS:
             raise ValueError(f"optimizer {kind!r} is not one of {OPTIMIZERS}")
         self.kind = kind
@@ -55,6 +66,8 @@ class OptaxChain:
         self.count = torch.zeros((), dtype=torch.int32, device=device)
         self.mu = torch.zeros_like(self.grad) if kind == "adam" else None
         self.nu = torch.zeros_like(self.grad)
+        self.scale = float(scale)
+        self.scaled_segments = _segments(self.params, sizes, {id(p) for p in scaled})
 
     def set_learning_rate(self, lr: float) -> None:
         self.lr.fill_(lr)
@@ -85,6 +98,8 @@ class OptaxChain:
             nu = torch.add(g * g * (1.0 - _RMS_DECAY), self.nu, alpha=_RMS_DECAY)
             update = torch.rsqrt(nu + _RMS_EPS) * g
         torch.mul(update, -self.lr, out=self._update)
+        for start, stop in self.scaled_segments:
+            self._update[start:stop].mul_(self.scale)
         if finite is not None:
             torch.where(finite, self._update, torch.zeros((), device=g.device),
                         out=self._update)
@@ -117,11 +132,30 @@ class OptaxChain:
             self.mu.copy_(state["mu"])
 
 
+def _segments(params: List[torch.nn.Parameter], sizes: List[int],
+              scaled: set) -> List[Tuple[int, int]]:
+    """[start, stop) runs of the flat buffers that hold the ``scaled``
+    parameters, adjacent runs merged."""
+    out: List[Tuple[int, int]] = []
+    offset = 0
+    for p, n in zip(params, sizes):
+        if id(p) in scaled:
+            if out and out[-1][1] == offset:
+                out[-1] = (out[-1][0], offset + n)
+            else:
+                out.append((offset, offset + n))
+        offset += n
+    return out
+
+
 def make_optimizer(config, model: torch.nn.Module, bf16: bool = False) -> OptaxChain:
     """The optax chain of ``laff_tpu.engine.trainer.make_optimizer`` over the
-    model's parameters; ``bf16`` turns on the finite-gradient skip."""
+    model's parameters: an in-graph BERT tower's updates (``BACKBONE_PREFIX``)
+    scaled by 1/20; ``bf16`` turns on the finite-gradient skip."""
+    backbone = [p for name, p in model.named_parameters() if name.startswith(BACKBONE_PREFIX)]
     return OptaxChain(model.parameters(), config.optimizer, config.lr,
-                      grad_clip=getattr(config, "grad_clip", 0) or 0, skip_nonfinite=bf16)
+                      grad_clip=getattr(config, "grad_clip", 0) or 0, skip_nonfinite=bf16,
+                      scaled=backbone, scale=BACKBONE_SCALE)
 
 
 class LRController:

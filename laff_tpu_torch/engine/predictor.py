@@ -100,7 +100,8 @@ from .checkpoint import load_checkpoint, vocab_from_dict
 from .evaluator import (LARGE_GALLERY, Embedder, int8_streaming_topk, ordered_topk,
                         score_matrix, score_matrix_streaming, streaming_benchmark_eval,
                         t2v_ranks)
-from .prepare import build_featurizers, text_precomputed, vision_source, w2v_dir_for
+from .prepare import (bert_tokens_featurizer, build_featurizers, text_precomputed,
+                      vision_source, w2v_dir_for)
 from .torch_import import read_reference
 
 logger = get_logger(__name__)
@@ -159,24 +160,28 @@ def rebuild_model(ckpt: Dict, device: torch.device) -> LAFFModel:
     return model.to(device).eval()
 
 
-def rebuild_featurizers(ckpt: Dict, rootpath: str) -> Dict:
+def rebuild_featurizers(ckpt: Dict, rootpath: str, device="cuda") -> Dict:
     """The text featurizer bank from the checkpoint's vocabularies (w2v
-    vectors come from the word2vec dump under ``rootpath``). A reference
-    checkpoint without its pickled vocabularies gets them rebuilt from its
-    train collection's captions (``opt['trainCollection']``), as
-    ``laff_tpu``'s predictor does."""
+    vectors come from the word2vec dump under ``rootpath``; an in-graph
+    BERT tower's tokenizer from the config's vocab file or checkout, a
+    frozen BERT's rows precomputed). A reference checkpoint without its
+    pickled vocabularies gets them rebuilt from its train collection's
+    captions (``opt['trainCollection']``), as ``laff_tpu``'s predictor
+    does; a frozen BERT of a local checkout then runs on ``device``."""
     config = ckpt["config"]
     vocab = ckpt.get("vocab")
     if vocab is None:
         train = ckpt.get("opt", {}).get("trainCollection", "")
         capfile = os.path.join(rootpath, train, "TextData", f"{train}.caption.txt")
-        return build_featurizers(config, rootpath, train, capfile)[0]
+        return build_featurizers(config, rootpath, train, capfile, device=device)[0]
     te = config.text_encoding
     featurizers: Dict[str, object] = {}
     if te["rnn_encoding"]["name"].split("_", 1)[0] in ("gru", "bigru"):
         featurizers["rnn"] = IndexVec(vocab_from_dict(vocab["rnn"]))
     if "no" not in te["bert_encoding"]["name"]:
-        featurizers["bert"] = None
+        featurizers["bert"] = None  # the precomputed rows
+        if not getattr(config, "bert_frozen", True):  # the in-graph tower: its tokens
+            featurizers["bert"] = bert_tokens_featurizer(config)
     if "no" not in te["bow_encoding"]["name"]:
         bow = vocab["bow"]
         featurizers["bow"] = _BOW_CLASSES[bow["class"]](vocab_from_dict(bow), norm=bow["norm"])
@@ -541,7 +546,7 @@ def main(opt: PredictOptions) -> Dict:
     config = ckpt["config"]
     model = rebuild_model(ckpt, device)
     embedder = Embedder(model, device, prefetch_depth=max(2, opt.num_workers))
-    featurizers = rebuild_featurizers(ckpt, opt.rootpath)
+    featurizers = rebuild_featurizers(ckpt, opt.rootpath, device)
     strongclip_swap(ckpt, featurizers, opt.rootpath, opt.testCollection, device)
     parm_adjust = str(ckpt.get("opt", {}).get("parm_adjust_config", "None"))
     coll = opt.testCollection

@@ -1,9 +1,9 @@
 """Config -> text featurizers, model spec, feeds, and a seeded model.
 
 The parts of ``laff_tpu.engine.prepare`` that prediction and training
-need: ``load_config``, ``build_featurizers`` (BoW / w2v / GRU ids /
-precomputed CLIP, in the reference's encoder order), ``build_spec``, the
-trainer's ``Options`` and ``prepare`` (``train_strategy`` 'usual' or
+need: ``load_config``, ``build_featurizers`` (BoW / w2v / GRU ids / BERT
+tokens or rows / precomputed CLIP, in the reference's encoder order),
+``build_spec``, the trainer's ``Options`` and ``prepare`` (``train_strategy`` 'usual' or
 'subset', an optional ``trainCollection2``, the indexed text feed of
 ``device_text_featurize``), and ``init_checkpoint``, which seeds a model for
 a collection as the trainer does before its first step. Vocabularies are
@@ -37,9 +37,10 @@ import numpy as np
 import torch
 
 from ..data import PairFeed, TextBatcher, TextSource, VisBatcher, VisionSource, read_video_set
+from ..models.bert import BertTokensFeaturizer, LiveBertTextFeaturizer, import_bert_params
 from ..models.laff import LAFFModel
-from ..models.spec import (AttentionSpec, GruSpec, LAFFSpec, Task2Spec, Task3Spec, TowerSpec,
-                           TransformSpec)
+from ..models.spec import (AttentionSpec, BertSpec, GruSpec, LAFFSpec, Task2Spec, Task3Spec,
+                           TowerSpec, TransformSpec)
 from ..store import BigFile
 from ..text import build_vocab, get_txt2vec
 from ..text.txt2vec import IndexVec, load_vocab_pickle
@@ -124,9 +125,21 @@ def text_precomputed(config, capfile: str) -> Dict[str, BigFile]:
     return out
 
 
-def build_featurizers(config, rootpath: str, vocab_collection: str, train_capfile: str):
+def bert_tokens_featurizer(config) -> BertTokensFeaturizer:
+    """The in-graph BERT tower's tokenizer, as the config names it."""
+    return BertTokensFeaturizer(config.text_encoding["bert_encoding"]["name"],
+                                do_lower_case=getattr(config, "bert_do_lower_case", True),
+                                max_length=getattr(config, "bert_max_length", 64),
+                                vocab_file=getattr(config, "bert_vocab_file", ""))
+
+
+def build_featurizers(config, rootpath: str, vocab_collection: str, train_capfile: str,
+                      device="cuda"):
     """Text featurizer bank for the feed and the text-tower feature dims,
     in the reference's encoder order (rnn, bert, bow, w2v, clip, netvlad).
+    'bert' is the in-graph tower's tokenizer (``bert_frozen=False``), a
+    frozen tower of a local checkout on ``device`` (its pooler rows), or
+    the precomputed rows (None), as ``laff_tpu`` chooses.
     Returns (featurizers, txt_dims, gru_spec, gru_vocab, w2v_dir)."""
     txt_dims: Dict[str, int] = {}
     featurizers: Dict[str, object] = {}
@@ -147,7 +160,14 @@ def build_featurizers(config, rootpath: str, vocab_collection: str, train_capfil
         )
     if "no" not in te["bert_encoding"]["name"]:
         txt_dims["bert"] = config.bert_size
-        featurizers["bert"] = None  # precomputed via TextSource
+        bert_name = te["bert_encoding"]["name"]
+        if not getattr(config, "bert_frozen", True):  # the feed ships token ids
+            featurizers["bert"] = bert_tokens_featurizer(config)
+        elif os.path.isdir(os.path.expanduser(bert_name)):  # frozen, local weights
+            featurizers["bert"] = LiveBertTextFeaturizer(
+                bert_name, do_lower_case=config.bert_do_lower_case, device=device)
+        else:
+            featurizers["bert"] = None  # precomputed via TextSource
     bow_encoding = te["bow_encoding"]["name"]
     if "no" not in bow_encoding:
         bow_vocab = _ensure_vocab(rootpath, vocab_collection, bow_encoding,
@@ -220,8 +240,8 @@ def build_spec(config, vis_dims: Dict[str, int], txt_dims: Dict[str, int],
                frame_dims: Optional[Dict[str, int]] = None, task3: bool = False,
                task2: Optional[Task2Spec] = None) -> LAFFSpec:
     """config + discovered feature dims (``frame_dims``: FrameLAFF's frame
-    features) -> frozen LAFFSpec (``laff_tpu.engine.prepare.build_spec``
-    without a live BERT). ``task3`` adds the config's negation-loss knobs;
+    features) -> frozen LAFFSpec (``laff_tpu.engine.prepare.build_spec``;
+    an in-graph BERT tower as its ``BertSpec``). ``task3`` adds the config's negation-loss knobs;
     ``task2`` is the spec ``prepare_task2`` built. The NetVLAD cluster
     count is the config's (``NetVLAD_opt``), whose product with the w2v
     width is the 'netvlad' feature's."""
@@ -250,6 +270,14 @@ def build_spec(config, vis_dims: Dict[str, int], txt_dims: Dict[str, int],
             batch_norm=co["transform_batch_norm"])))
 
     compute_dtype = "bfloat16" if getattr(config, "float16", False) else "float32"
+    bert_spec = None
+    if "bert" in txt_dims and not getattr(config, "bert_frozen", True):
+        kwargs = dict(getattr(config, "bert_config_kwargs", {}) or {})
+        bert_spec = BertSpec(
+            name_or_path=config.text_encoding["bert_encoding"]["name"],
+            hidden_size=config.bert_size, max_length=getattr(config, "bert_max_length", 64),
+            do_lower_case=config.bert_do_lower_case,
+            config_kwargs=tuple(sorted(kwargs.items())))
     txt = TowerSpec(
         features=tuple(txt_dims.items()), common_dim=txt_common,
         attention=_attn_spec(config, config.txt_attention), no_transform=txt_nt,
@@ -257,8 +285,8 @@ def build_spec(config, vis_dims: Dict[str, int], txt_dims: Dict[str, int],
         expert_embedding=config.txt_expert_embedding["expert"],
         expert_l2norm=config.txt_expert_embedding["l2norm"],
         dropout=config.dropout, batch_norm=config.batch_norm,
-        activation=config.activation, gru=gru_spec, compute_dtype=compute_dtype,
-        netvlad_clusters=int(config.NetVLAD_opt["num_clusters"]),
+        activation=config.activation, gru=gru_spec, bert=bert_spec,
+        compute_dtype=compute_dtype, netvlad_clusters=int(config.NetVLAD_opt["num_clusters"]),
     )
     vis = TowerSpec(
         features=tuple(vis_dims.items()), common_dim=vis_common,
@@ -301,12 +329,20 @@ def frame_feature_dims(rootpath: str, collection: str, config) -> Dict[str, int]
 def seeded_model(spec: LAFFSpec, seed: int, we: Optional[np.ndarray] = None) -> LAFFModel:
     """A model with the JAX package's init distributions from ``seed``
     (xavier transforms, torch-default gates and GRU, BatchNorm at its
-    identity running stats), with ``we`` in the GRU embedding if given."""
+    identity running stats, BERT at flax's N(0, 0.02)), with ``we`` in the
+    GRU embedding if given, and an in-graph BERT tower's weights from its
+    ``name_or_path`` when that is a local checkout (``laff_tpu``'s
+    ``init_state``; ``bert.imported_from`` names it)."""
     model = LAFFModel(spec)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     if we is not None:
         with torch.no_grad():
             model.txt_net.gru.we.weight.copy_(torch.from_numpy(we))
+    if model.txt_net.bert is not None:
+        pretrained = import_bert_params(spec.txt.bert.name_or_path)
+        if pretrained is not None:
+            model.txt_net.bert.load_state_dict(pretrained)
+            model.txt_net.bert.imported_from = os.path.expanduser(spec.txt.bert.name_or_path)
     return model
 
 
@@ -332,7 +368,7 @@ def init_checkpoint(config_name: str, rootpath: str, collection: str, seed: int,
     config = load_config(config_name, parm_adjust_config)
     capfile = os.path.join(rootpath, collection, "TextData", f"{collection}.caption.txt")
     featurizers, txt_dims, gru_spec, gru_vocab, w2v_dir = build_featurizers(
-        config, rootpath, collection, capfile)
+        config, rootpath, collection, capfile, device="cpu")  # only its vocabularies are kept
     spec = build_spec(config, vis_feature_dims(rootpath, collection, config),
                       txt_dims, gru_spec, frame_feature_dims(rootpath, collection, config))
     we = gru_init_we(config, gru_vocab, w2v_dir, np.random.default_rng(seed))
@@ -415,14 +451,12 @@ def check_options(opt: Options) -> None:
 
 
 def check_config(config) -> None:
-    """Config features the LAFF training slice does not take: End2EndClip
-    (its own trainer) and a BERT text tower (not ported yet)."""
+    """A config the LAFF training slice does not take: End2EndClip (its own
+    trainer)."""
     if getattr(config, "model_name", "") == "End2EndClip":
         raise ValueError("End2EndClip trains on raw frames through "
                          "laff_tpu_torch.engine.end2end.main (cli.do_trainer dispatches there), "
                          "not through trainer.prepare")
-    if "no" not in config.text_encoding["bert_encoding"]["name"]:
-        raise NotImplementedError("a BERT text tower is not ported yet: ROADMAP Queue 1 item 4")
 
 
 def model_dir_for(opt) -> str:
@@ -588,7 +622,7 @@ def prepare(opt: Options) -> Prepared:
     config.vis_fc_layers[0].update(frame_dims)
     vocab_collection = train if train2 == "None" else f"{train}_{train2}"
     featurizers, txt_dims, gru_spec, gru_vocab, w2v_dir = build_featurizers(
-        config, rootpath, vocab_collection, train_capfile)
+        config, rootpath, vocab_collection, train_capfile, device=opt.device)
     if isinstance(config.txt_fc_layers, str):
         config.txt_fc_layers = [0, int(config.txt_fc_layers.split("-")[1])]
     config.txt_fc_layers[0] = int(sum(txt_dims.values()))

@@ -47,8 +47,15 @@
   and ``task3val/*`` scalars. task2 (``--task2_intended 1``): the step
   adds ``_task2_loss`` over the concept heads' logits.
 
-Left for later slices (ROADMAP Queue 1): data_parallel, the BERT lr/20
-mask, and TensorBoard (``scalars.tsv`` only).
+* An in-graph BERT tower (``spec.txt.bert``) starts from its local
+  checkout's weights when ``name_or_path`` is one (``seeded_model``), is
+  updated at lr/20 (``make_optimizer``), draws its dropout from the epoch's
+  generator like every other mask, and rides the default dispatch: its
+  int32 token rows sit in the text cache, and the step with it is the CUDA
+  graph replayed K times.
+
+Left for later slices (ROADMAP Queue 1): data_parallel and TensorBoard
+(``scalars.tsv`` only).
 """
 
 from __future__ import annotations
@@ -288,9 +295,12 @@ def host_tensors(arrays: Dict[str, np.ndarray], pin: bool,
                  bf16: bool = False) -> Dict[str, torch.Tensor]:
     """Feed arrays as CPU tensors, float ones rounded to bf16 for bf16
     towers, in pinned memory when the copies go to the card (run in the
-    prefetch thread)."""
+    prefetch thread). A live tower's rows (a frozen BERT's) are on the card
+    already and stay there."""
     out = host_cast_bf16(arrays, bf16)
-    return {k: v.pin_memory() for k, v in out.items()} if pin else out
+    if not pin:
+        return out
+    return {k: v.pin_memory() if v.device.type == "cpu" else v for k, v in out.items()}
 
 
 def host_batch(batch: Dict, pin: bool, cast_txt: bool = False,
@@ -733,7 +743,8 @@ def main(opt: Options, prepared: Optional[Prepared] = None) -> Dict:
     {best_perf, epochs, prepare_seconds, history (one entry per epoch:
     loss, lr, steps, metrics, train/val/wall seconds), dispatch (what the
     dispatch rules chose: cache bytes and build seconds, K, graph, staged
-    validation), model_path, model (the trained model)}."""
+    validation, the graph's capture seconds), pretrained_bert (the checkout an in-graph BERT tower
+    started from, or None), model_path, model (the trained model)}."""
     device = resolve_device(opt.device)
     t_prepare = time.time()
     if prepared is None:
@@ -742,6 +753,8 @@ def main(opt: Options, prepared: Optional[Prepared] = None) -> Dict:
     config, spec, model_path = prepared.config, prepared.spec, prepared.model_path
 
     model = seeded_model(spec, opt.random_seed, prepared.we)
+    bert = model.txt_net.bert
+    pretrained_bert = bert.imported_from if bert is not None else None
     if opt.pretrained_file_path != "None":
         warm_start(model, opt.pretrained_file_path)
     model.to(device)
@@ -795,6 +808,7 @@ def main(opt: Options, prepared: Optional[Prepared] = None) -> Dict:
     vis_cache, txt_cache = dispatch["vis_cache"], dispatch["txt_cache"]
     result = {"best_perf": best_perf, "epochs": start_epoch,
               "prepare_seconds": round(prepare_seconds, 1), "history": [],
+              "pretrained_bert": pretrained_bert,
               "dispatch": {
                   "vis_cache_bytes": vis_cache.nbytes if vis_cache else None,
                   "vis_cache_seconds": vis_cache.build_seconds if vis_cache else None,
@@ -905,6 +919,8 @@ def main(opt: Options, prepared: Optional[Prepared] = None) -> Dict:
     logger.info(message)
     with open(os.path.join(model_path, "val_perf.txt"), "w") as fh:
         fh.write(message)
+    multi_step = dispatch["multi_step"]
+    result["dispatch"]["capture_seconds"] = multi_step.capture_seconds if multi_step else None
     result["best_perf"] = best_perf
     result["model_path"] = model_path
     result["model"] = model

@@ -18,6 +18,11 @@ plus these layout changes:
                                       (packed r, z, n in both; '_rev' ->
                                       '_reverse')
   schedule <...>.global_emb_weight -> the attention's buffer of that name
+  txt_net.bert.<...>               -> txt_net.bert.<...> (the in-graph BERT:
+                                      transformers' flax names are its
+                                      PyTorch names) with <dense>.kernel ->
+                                      .weight transposed, <embed>.embedding
+                                      -> .weight, LayerNorm.scale -> .weight
 
 ``gate_kernel`` (H, dh), ``gate_bias`` (H,), the pre-LN parameters, the
 expert embedding, LinearCombine's ``kernel`` (L, 1) and ``bias``, the MHA's
@@ -69,7 +74,20 @@ def _flatten(tree: Dict, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
             yield path, np.asarray(value)
 
 
+def bert_param_name(path: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+    """A flax BERT parameter path (``FlaxBertModule``'s tree) -> the
+    ``models.bert.BertModel`` state-dict key and value."""
+    head, _, leaf = path.rpartition(".")
+    if leaf == "kernel":
+        return f"{head}.weight", value.T
+    if leaf in ("embedding", "scale"):
+        return f"{head}.weight", value
+    return path, value
+
+
 def _param_name(path: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+    if path.startswith("txt_net.bert."):
+        return bert_param_name(path, value)
     head, _, leaf = path.rpartition(".")
     owner = head.rpartition(".")[2]
     if leaf == "kernel" and _DENSE.match(owner):

@@ -37,8 +37,15 @@ TransformNets use it as their fc, each with its own dropout and
 BatchNorm; the pair ('__concat__', '__concat__') ties the concat
 transform. The 'netvlad' text feature pools the caption's per-token w2v
 vectors ('netvlad_tokens' (B, T, D) under 'netvlad_mask' (B, T)) with
-``NetVLAD`` inside the tower. A live BERT tower comes with a later slice
-and raises here.
+``NetVLAD`` inside the tower.
+
+The 'bert' text feature: with an in-graph tower (``spec.bert``, the
+config's ``bert_frozen=False``) the tower's ``bert`` (``models.bert.BertModel``
+over ``BertConfig(spec.bert.config_kwargs)``) runs on the batch's
+'bert_ids' and 'bert_mask' ('bert_type' when given) in f32 and its pooler
+output is the raw feature, its dropout drawn from the step's generator;
+otherwise, or when the batch carries no token ids, the batch's
+precomputed 'bert' row is the feature, as in ``laff_tpu``.
 
 task2 (``spec.task2``, ``laff_tpu``'s concept-space intent): two heads
 ``task2_vis_head`` and ``task2_txt_head``, TransformNets in f32 from the
@@ -59,6 +66,7 @@ from torch import nn
 
 from ..ops.norms import l2norm
 from .attention import GateAttention, NetVLAD, get_attention_layer
+from .bert import BertConfig, BertModel
 from .gru import GruEncoder
 from .initializers import normal_, xavier_uniform_
 from .layers import TransformNet
@@ -137,9 +145,6 @@ class FusionTower(nn.Module):
                 spec.frame_attention.kind, fdim, spec.frame_attention))
         self.features = _tower_features(spec)
         dims = dict(self.features)
-        if "bert" in dims:
-            raise NotImplementedError("text feature 'bert' is not ported yet: "
-                                      "ROADMAP Queue 1 item 4")
         self.expert_embedding = None
         if self.concat:
             self._raw_encoders(dims)
@@ -172,6 +177,8 @@ class FusionTower(nn.Module):
         self.gru = GruEncoder(spec.gru) if "rnn" in dims else None
         self.netvlad = (NetVLAD(dims["netvlad"] // spec.netvlad_clusters,
                                 spec.netvlad_clusters) if "netvlad" in dims else None)
+        self.bert = (BertModel(BertConfig.from_kwargs(spec.bert.config_kwargs))
+                     if "bert" in dims and spec.bert is not None else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for name, module in self.named_children():
@@ -200,11 +207,15 @@ class FusionTower(nn.Module):
             pooled[fname] = out.reshape(out.shape[0], -1)  # multi-head: flattened
         return pooled
 
-    def _raw_feature(self, name: str, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _raw_feature(self, name: str, inputs: Dict[str, torch.Tensor],
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if name == "rnn":
             return self.gru(inputs["rnn_ids"], inputs["rnn_len"])
         if name == "netvlad":
             return self.netvlad(inputs["netvlad_tokens"], inputs.get("netvlad_mask"))
+        if name == "bert" and self.bert is not None and "bert_ids" in inputs:
+            return self.bert(inputs["bert_ids"], inputs["bert_mask"], inputs.get("bert_type"),
+                             generator=generator)[1]
         return inputs[name]
 
     def forward(self, inputs: Dict[str, torch.Tensor],
@@ -215,11 +226,12 @@ class FusionTower(nn.Module):
         if spec.frame_features:
             inputs = {**inputs, **self._pool_frames(inputs)}
         if self.concat:
-            cat = torch.cat([self._raw_feature(n, inputs) for n, _ in self.features], dim=1)
+            cat = torch.cat([self._raw_feature(n, inputs, generator) for n, _ in self.features],
+                            dim=1)
             return self.transform(cat, generator)
         locals_ = []
         for name, dim in self.features:
-            feat = self._raw_feature(name, inputs)
+            feat = self._raw_feature(name, inputs, generator)
             if self.is_visual and self.training:
                 # decided on the card: no host sync; drawn in f32 whatever
                 # the feature's type, so a host bf16 cast draws the same

@@ -346,9 +346,13 @@ def _strongclip_tower_file(path, prefix=""):
     """A seeded text tower in the reference's layout ({'model':
     {'clip_model.<key>': tensor}}), width 64 (one head, as shape inference
     gives), one layer, embedding as wide as the world's CLIP rows, the real
-    49,408-token vocabulary."""
-    tower = ClipTextTower(ClipTextConfig(width=64, heads=1, layers=1,
-                                         embed_dim=synth.CLIP_DIM))
+    49,408-token vocabulary. Its initial weights come from a seed of their
+    own, not from whatever the process's global generator holds, so the
+    world does not change with the tests run before it."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        tower = ClipTextTower(ClipTextConfig(width=64, heads=1, layers=1,
+                                             embed_dim=synth.CLIP_DIM))
     gen = torch.Generator().manual_seed(5)
     sd = {k: v + 0.05 * torch.randn(v.shape, generator=gen)
           for k, v in tower.state_dict().items()}

@@ -1,5 +1,7 @@
 """The port stands alone: importing every laff_tpu_torch module (and
-chip_smoke.py) loads neither JAX nor the JAX package, and chip_smoke.py
+chip_smoke.py) loads neither JAX nor the JAX package nor transformers (the
+card's machine may have none, or a version without the Flax classes: the
+BERT tower and its tokenizer are the port's own), and chip_smoke.py
 refuses to run without a card or without the package beside it."""
 
 import os
@@ -20,8 +22,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "jaxlib", "flax", "laff_tpu")
-             or k.startswith(("jax.", "jaxlib.", "flax.", "laff_tpu.")))
+             if k in ("jax", "jaxlib", "flax", "laff_tpu", "transformers")
+             or k.startswith(("jax.", "jaxlib.", "flax.", "laff_tpu.", "transformers.")))
 covered = all(n in names for n in {required!r})
 print(len(names), "modules;", "forbidden:", bad, covered)
 """
@@ -29,7 +31,8 @@ print(len(names), "modules;", "forbidden:", bad, covered)
 # modules the walk must reach: the native featurizer, the FrameLAFF configs,
 # the checkpoint interchange, the registry, the configs that reference
 # checkpoints name, the re-rankers, the TRECVID harness with its CLI, the
-# int8 gallery, the host data CLIs, the live CLIP towers and End2EndClip
+# int8 gallery, the host data CLIs, the live CLIP towers and End2EndClip,
+# the BERT tower, the retrieval server and its full-width BERT config
 REQUIRED = ("laff_tpu_torch.native", "laff_tpu_torch.eval.rerank",
             "laff_tpu_torch.ops.quantized", "laff_tpu_torch.data.check",
             "laff_tpu_torch.cli.build_vocab", "laff_tpu_torch.cli.txt2bin",
@@ -47,7 +50,9 @@ REQUIRED = ("laff_tpu_torch.native", "laff_tpu_torch.eval.rerank",
             "laff_tpu_torch.models.clip.load", "laff_tpu_torch.models.end2end_clip",
             "laff_tpu_torch.data.frames", "laff_tpu_torch.data.end2end",
             "laff_tpu_torch.engine.end2end", "laff_tpu_torch.configs.end2end_clip",
-            "laff_tpu_torch.configs.e2e_tiny")
+            "laff_tpu_torch.configs.e2e_tiny", "laff_tpu_torch.models.bert",
+            "laff_tpu_torch.engine.service", "laff_tpu_torch.cli.do_server",
+            "laff_tpu_torch.configs.bert_rehearsal")
 
 
 def _run(args, cwd):

@@ -499,18 +499,37 @@ def test_dispatch_defaults_equal_laff_tpu(option, where):
 @pytest.mark.parametrize("change", [
     {"model_name": "End2EndClip"},
     {"text_encoding": dict(port_rehearsal.config.text_encoding,
-                           bert_encoding={"name": "bert-base-uncased"})}])
-def test_config_features_not_ported_raise(world, monkeypatch, change):
-    """A BERT text tower raises naming its ROADMAP item; an End2EndClip
-    config (ported: engine.end2end) is sent there by the LAFF trainer."""
-    monkeypatch.setattr(port_prepare, "load_config",
-                        lambda name, parm="None": types.SimpleNamespace(
-                            **{**vars(port_rehearsal.config), **change}))
+                           bert_encoding={"name": "bert-base-uncased"}),
+     "bert_vocab_file": "<vocab.txt>"}])
+def test_config_features_not_ported_raise(world, monkeypatch, tmp_path, change):
+    """An End2EndClip config (ported: engine.end2end) is sent there by the
+    LAFF trainer; a BERT text tower (ported) prepares: an in-graph BERT-base
+    spec, its tokenizer in the feed (the vocabulary from the config's
+    bert_vocab_file, no checkout), its token arrays in a batch."""
+    change = dict(change)
+    if "bert_vocab_file" in change:
+        words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "the", "dog"]
+        change["bert_vocab_file"] = str(tmp_path / "vocab.txt")
+        (tmp_path / "vocab.txt").write_text("\n".join(words) + "\n")
+
+    def load(name, parm="None"):
+        config = _small(port_rehearsal.config())
+        for k, v in change.items():
+            setattr(config, k, v)
+        return config
+
+    monkeypatch.setattr(port_prepare, "load_config", load)
     opt = port_prepare.Options(device="cpu", **_base(world))
-    error, match = ((ValueError, "engine.end2end.main") if "model_name" in change
-                    else (NotImplementedError, "ROADMAP Queue 1 item 4"))
-    with pytest.raises(error, match=match):
-        port_prepare.prepare(opt)
+    if "model_name" in change:
+        with pytest.raises(ValueError, match="engine.end2end.main"):
+            port_prepare.prepare(opt)
+        return
+    prepared = port_prepare.prepare(opt)
+    bert = prepared.spec.txt.bert
+    assert bert is not None and bert.max_length == 64 and bert.config_kwargs == ()
+    assert dict(prepared.spec.txt.features)["bert"] == 768
+    batch = next(iter(prepared.train_feed.epoch(0)))["txt"]
+    assert batch["bert_ids"].shape == (16, 64) and batch["bert_ids"].dtype == np.int32
 
 
 def test_trainer_needs_a_card_unless_told_cpu(world, monkeypatch):
