@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Prediction CLI for benchmark and AVS collections; the argument surface
-is ``laff_tpu.cli.do_predictor``'s (``--data_parallel`` is accepted and
-raises ``NotImplementedError`` for a value other than 0, naming its ROADMAP
-item). ``--int8_gallery 1`` holds an AVS gallery above ``LARGE_GALLERY``
+is ``laff_tpu.cli.do_predictor``'s (``--data_parallel`` above 0 logs
+``laff_tpu``'s warning and predicts on the one device when fewer than two
+cards are visible, and raises ``NotImplementedError`` naming its ROADMAP
+item over two or more). ``--int8_gallery 1`` holds an AVS gallery above ``LARGE_GALLERY``
 as int8 rows on the device: candidates are nominated on the int8 product
 and embedded again for exact scores.
 
@@ -42,8 +43,9 @@ def parse_args(argv=None) -> PredictOptions:
     parser.add_argument("--adjust_weight_predict", type=int, default=0, choices=[0, 1],
                         help="accepted for parity; the reference parses it and never reads it")
     parser.add_argument("--data_parallel", type=int, default=0,
-                        help="sharded inference over several devices (not ported: any value "
-                             "but 0 raises)")
+                        help="sharded inference over several devices: with fewer than two "
+                             "visible, a warning and the one device; over two or more not "
+                             "ported (raises)")
     parser.add_argument("--int8_gallery", type=int, default=0, choices=[0, 1],
                         help="an AVS gallery above LARGE_GALLERY held on the device as int8 "
                              "rows: int8 nomination, exact rescoring of the candidates")

@@ -20,7 +20,7 @@ import sys
 
 from laff_tpu_torch.engine import end2end
 from laff_tpu_torch.engine.evaluator import RANK_PATHS
-from laff_tpu_torch.engine.prepare import Options, load_config, model_dir_for
+from laff_tpu_torch.engine.prepare import Options, check_data_parallel, load_config, model_dir_for
 from laff_tpu_torch.engine.trainer import main as train_main
 from laff_tpu_torch.utils import ROOT_PATH, check_to_skip
 
@@ -90,6 +90,7 @@ def main(argv=None) -> int:
     if check_to_skip(os.path.join(model_dir_for(opt), "model_best.pth.tar"), opt.overwrite):
         return 0
     if getattr(load_config(opt.config_name), "model_name", "") == "End2EndClip":
+        check_data_parallel(opt.data_parallel, opt.device)  # trainer.main's prepare checks it
         end2end.main(opt)
     else:
         train_main(opt)

@@ -63,7 +63,8 @@ negation clause) are that tower's output on the card, not the precomputed
 BigFile rows. The file is read through ``torch_import.ReferenceUnpickler``.
 
 Raising instead of running (each names its ROADMAP item or the reason):
-``data_parallel`` (item 5). Three results differ from ``laff_tpu`` on
+``data_parallel`` over two or more visible cards (item 5; over one device
+it logs ``laff_tpu``'s warning and predicts there). Three results differ from ``laff_tpu`` on
 purpose: above the threshold 'kreciprocal' and 'tkb' raise a ``ValueError``
 (they need the gallery-gallery product, which a streamed gallery never
 forms; ``laff_tpu`` crashes there), and so does measure 'hist' (``laff_tpu``
@@ -100,8 +101,8 @@ from .checkpoint import load_checkpoint, vocab_from_dict
 from .evaluator import (LARGE_GALLERY, Embedder, int8_streaming_topk, ordered_topk,
                         score_matrix, score_matrix_streaming, streaming_benchmark_eval,
                         t2v_ranks)
-from .prepare import (bert_tokens_featurizer, build_featurizers, text_precomputed,
-                      vision_source, w2v_dir_for)
+from .prepare import (bert_tokens_featurizer, build_featurizers, check_data_parallel,
+                      text_precomputed, vision_source, w2v_dir_for)
 from .torch_import import read_reference
 
 logger = get_logger(__name__)
@@ -127,7 +128,7 @@ class PredictOptions:
     device: str = "cuda"
     rank_path: str = "auto"
     adjust_weight_predict: int = 0  # parity: parsed and never read, as in the reference
-    data_parallel: int = 0  # not ported: ROADMAP Queue 1 item 5
+    data_parallel: int = 0  # one device: a warning; several: raises (item 5)
     int8_gallery: int = 0  # an AVS gallery above LARGE_GALLERY held as int8 rows
     task3_caption: str = "no_task3_caption"  # any other value: negation scoring
     neg_method: str = "sub"  # negation adjustment: sub | mul
@@ -452,9 +453,7 @@ def each_head_outputs(opt: PredictOptions, output_dir: str, txt_embs: torch.Tens
 
 def check_options(opt: PredictOptions) -> None:
     """Options whose paths are not ported raise before any work."""
-    if opt.data_parallel:
-        raise NotImplementedError(f"data_parallel={opt.data_parallel} is not ported yet: "
-                                  f"ROADMAP Queue 1 item 5")
+    check_data_parallel(opt.data_parallel, opt.device)
 
 
 class ClipTextFeaturizer:

@@ -431,21 +431,32 @@ class Options:
     stage_val_features: int = 1
     # opt in to the task2 concept loss; task2_caption alone is inert
     task2_intended: int = 0
-    # laff_tpu's option that raises here until its ROADMAP item lands
+    # over one visible device a warning, then the single-device path; over
+    # several it raises until its ROADMAP item lands (check_data_parallel)
     data_parallel: int = 0
 
 
-# option, the values the port runs, the ROADMAP item that brings the others
-_NOT_PORTED = (
-    ("data_parallel", lambda v: v in (0, 1), "data_parallel (ROADMAP Queue 1 item 5)"),
-)
+def visible_devices(device: str) -> int:
+    """The devices a data-parallel run could spread over: the visible
+    cards for a CUDA device, one for the CPU."""
+    return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+
+
+def check_data_parallel(requested: int, device: str) -> None:
+    """``--data_parallel`` as ``laff_tpu`` takes it on one device: a value
+    above 0 over fewer than two devices logs its warning and runs on the
+    one device; over two or more it raises, naming the ROADMAP item."""
+    if requested <= 0:
+        return
+    visible = visible_devices(device)
+    if min(requested, visible) > 1:
+        raise NotImplementedError(f"data_parallel={requested} over {visible} devices is not "
+                                  f"ported yet: ROADMAP Queue 1 item 5")
+    logger.warning("data_parallel requested but only %d device(s)", visible)
 
 
 def check_options(opt: Options) -> None:
-    for name, ported, later in _NOT_PORTED:
-        value = getattr(opt, name)
-        if not ported(value):
-            raise NotImplementedError(f"{name}={value!r} is not ported yet: {later}")
+    check_data_parallel(opt.data_parallel, opt.device)
     if opt.train_strategy not in ("usual", "subset"):
         raise ValueError(f"train_strategy {opt.train_strategy!r} is not 'usual' or 'subset'")
 
@@ -489,6 +500,10 @@ class Prepared:
     # validation captions re-evaluated after each validation as 'task3_*'
     # metrics (reference trainer.py:120-122, 596-607)
     negationset_path: Optional[str] = None
+    # the GRU vocabulary and the w2v dump its embedding starts from, for a
+    # seed sweep's per-seed ``gru_init_we``
+    gru_vocab: Optional[object] = None
+    w2v_dir: Optional[str] = None
 
 
 def _vis_files(rootpath: str, collection: str, names) -> Dict[str, BigFile]:
@@ -694,4 +709,5 @@ def prepare(opt: Options) -> Prepared:
         val_vis_batcher=VisBatcher(val_vsource), val_vis_ids=val_ids,
         featurizers=featurizers, we=we, train2_feed=train2_feed, w2v_table=w2v_table,
         negationset_path=(os.path.join(rootpath, val, "TextData", val_set,
-                                       f"{val}.caption.negationset.txt") if task3 else None))
+                                       f"{val}.caption.negationset.txt") if task3 else None),
+        gru_vocab=gru_vocab, w2v_dir=w2v_dir)

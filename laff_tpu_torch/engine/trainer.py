@@ -24,11 +24,14 @@
   steps run eagerly, through the same grouping in ``train_one_epoch``.
 * ``train_one_epoch`` keeps the losses on the card and reads them once
   every ``log_every`` steps; the host featurizes (or looks up the row
-  indices of) the next batches in a prefetch thread meanwhile.
-* ``main`` runs the reference epoch loop (``trainer.py:315-443``) with
-  ``laff_tpu``'s dispatch rules (``trainer.py:862-946``): the caches when
-  their estimate fits ``LAFF_TPU_CACHE_BUDGET`` (4 GiB), the text cache
-  only beside the visual one, K = min(8, steps) only with both; then set
+  indices of) the next batches in a prefetch thread meanwhile. It drains
+  an ``EpochStream``, which sends one dispatch at a time, so that a seed
+  sweep (``engine/sweep.py``) can take several runs' dispatches in turn.
+* ``main`` drives one ``TrainRun`` through the reference epoch loop
+  (``trainer.py:315-443``) with ``laff_tpu``'s dispatch rules
+  (``trainer.py:862-946``): the caches when their estimate fits
+  ``LAFF_TPU_CACHE_BUDGET`` (4 GiB), the text cache only beside the visual
+  one, K = min(8, steps) only with both; then set
   the learning rate, anneal every ``global_emb_weight``, train (and
   ``trainCollection2``'s epoch in single steps), ``validate`` (eval forward
   with the gate kernel, ranks on the ``rank_path``, batches staged on the
@@ -54,8 +57,10 @@
   int32 token rows sit in the text cache, and the step with it is the CUDA
   graph replayed K times.
 
-Left for later slices (ROADMAP Queue 1): data_parallel and TensorBoard
-(``scalars.tsv`` only).
+``ScalarLogger`` writes ``scalars.tsv``, and TensorBoard events beside it
+with ``LAFF_TPU_TENSORBOARD=1``. Left for a later slice (ROADMAP Queue 1
+item 5): data_parallel over two or more cards (over one device it warns
+and trains there).
 """
 
 from __future__ import annotations
@@ -99,6 +104,7 @@ METRICS = ("r1", "r5", "r10", "medr", "meanr", "mir", "mAP")
 CACHE_BUDGET_ENV = "LAFF_TPU_CACHE_BUDGET"
 CACHE_BUDGET_DEFAULT = 4 * 1024**3  # bytes of device memory for both train caches
 GRAPH_WARMUP = 3  # eager steps on a side stream before a capture (torch's advice)
+TENSORBOARD_ENV = "LAFF_TPU_TENSORBOARD"  # "1": TensorBoard events beside scalars.tsv
 
 Batch = Union[torch.Tensor, Dict[str, torch.Tensor]]  # arrays, or cache row indices
 # task3 rides the text batch: the false caption's arrays under this prefix,
@@ -474,16 +480,124 @@ class MultiStep:
 
 
 class ScalarLogger:
-    """``scalars.tsv`` in the model directory: step, tag, value per line."""
+    """``scalars.tsv`` in the model directory (step, tag, value per line),
+    and with ``LAFF_TPU_TENSORBOARD=1`` the same scalars as TensorBoard
+    events there (``laff_tpu``'s ``ScalarLogger``). Where TensorBoard does
+    not import, it logs a warning and writes the TSV alone, where
+    ``laff_tpu`` says nothing."""
 
     def __init__(self, logdir: str) -> None:
-        self._fh = open(os.path.join(logdir, "scalars.tsv"), "a")
+        self.path = os.path.join(logdir, "scalars.tsv")
+        self._fh = open(self.path, "a")
+        self._tb = None
+        if os.environ.get(TENSORBOARD_ENV) == "1":
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:
+                logger.warning("%s=1 but TensorBoard does not import (%s): writing %s only",
+                               TENSORBOARD_ENV, e, self.path)
+            else:
+                self._tb = SummaryWriter(log_dir=logdir, flush_secs=5)
 
     def add_scalar(self, tag: str, value: float, step: int) -> None:
         self._fh.write(f"{step}\t{tag}\t{value}\n")
+        if self._tb is not None:
+            self._tb.add_scalar(tag, value, step)
 
     def close(self) -> None:
         self._fh.close()
+        if self._tb is not None:
+            self._tb.close()
+
+
+class EpochStream:
+    """One epoch of ``train_one_epoch``, a dispatch at a time: each
+    ``advance`` sends the next K batches (one with no ``multi_step``) to the
+    card, the epoch's last group with fewer, and returns False once the
+    epoch is through; ``finish`` reads the losses still on the card and
+    returns (mean loss, steps run). ``engine.sweep`` advances several runs'
+    streams in turn; ``train_one_epoch`` drains one."""
+
+    def __init__(self, step, feed: PairFeed, epoch: int, device: torch.device,
+                 generator: Optional[torch.Generator] = None,
+                 scalar_log: Optional[ScalarLogger] = None, log_every: int = 50,
+                 prefetch_depth: int = 3, step0: int = 0, sync_debug: bool = False,
+                 multi_step: Optional[MultiStep] = None,
+                 vis_cache: Optional[DeviceVisCache] = None,
+                 txt_cache: Optional[DeviceTxtCache] = None,
+                 cast_txt: bool = False, cast_vis: bool = False) -> None:
+        self.step, self.multi_step, self.device = step, multi_step, device
+        self.generator, self.scalar_log = generator, scalar_log
+        self.log_every, self.step0 = log_every, step0
+        self.batch_size = feed.batch_size
+        self.meter = AverageMeter()
+        self.progress = Progress(feed.steps_per_epoch() * feed.batch_size, f"epoch {epoch}")
+        self.debug = sync_debug and device.type == "cuda"
+        self.k = multi_step.k if multi_step is not None else 1
+        self.pending: List[torch.Tensor] = []
+        self.n = self.n_pending = 0
+        self.done = False
+        pin = device.type == "cuda"
+
+        def host_args(batch):  # in the prefetch thread
+            txt = (txt_cache.indices(batch["cap_ids"]) if txt_cache is not None
+                   else host_tensors(step_text(batch), pin, cast_txt))
+            vis = (vis_cache.indices(batch["vis_ids"]) if vis_cache is not None
+                   else host_tensors(batch["vis"], pin, cast_vis))
+            return txt, vis
+
+        self.batches = Prefetcher((host_args(b) for b in feed.epoch(epoch)),
+                                  depth=prefetch_depth)
+
+    def _read(self, in_window: bool) -> None:
+        if in_window and self.debug:
+            torch.cuda.set_sync_debug_mode(0)
+        vals = torch.cat(self.pending).cpu().numpy()
+        if in_window and self.debug:
+            torch.cuda.set_sync_debug_mode("error")
+        for v in vals:
+            self.meter.update(float(v))
+        if self.scalar_log is not None:
+            self.scalar_log.add_scalar("train/Loss", float(vals[-1]), self.step0 + self.n)
+        self.pending.clear()
+        self.n_pending = 0
+
+    def _dispatch(self, batches) -> None:
+        if self.multi_step is not None:
+            self.pending.append(self.multi_step(batches, self.generator))
+        else:
+            txt, vis = batches[0]
+            self.pending.append(self.step(_to(txt, self.device), _to(vis, self.device),
+                                          self.generator)[None])
+        self.n += len(batches)
+        self.n_pending += len(batches)
+
+    def advance(self) -> bool:
+        if self.done:
+            return False
+        group = []
+        if self.debug:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for args in self.batches:
+                group.append(args)
+                self.progress.add(self.batch_size)
+                if len(group) == self.k:
+                    break
+            if group:
+                self._dispatch(group)
+                if self.n_pending >= self.log_every:
+                    self._read(True)
+        finally:
+            if self.debug:
+                torch.cuda.set_sync_debug_mode(0)
+        self.done = len(group) < self.k  # the prefetcher is through: never read it again
+        return bool(group)
+
+    def finish(self):
+        if self.pending:
+            self._read(False)
+        return self.meter.avg, self.n
 
 
 def train_one_epoch(step, feed: PairFeed, epoch: int, device: torch.device,
@@ -503,65 +617,12 @@ def train_one_epoch(step, feed: PairFeed, epoch: int, device: torch.device,
     ``sync_debug`` (on the card) the steps between two reads run under
     ``set_sync_debug_mode("error")``, so any host sync in them raises.
     Returns (mean loss, steps run)."""
-    meter = AverageMeter()
-    progress = Progress(feed.steps_per_epoch() * feed.batch_size, f"epoch {epoch}")
-    pin = device.type == "cuda"
-    debug = sync_debug and device.type == "cuda"
-    pending, group = [], []
-    n = n_pending = 0
-
-    def host_args(batch):  # in the prefetch thread
-        txt = (txt_cache.indices(batch["cap_ids"]) if txt_cache is not None
-               else host_tensors(step_text(batch), pin, cast_txt))
-        vis = (vis_cache.indices(batch["vis_ids"]) if vis_cache is not None
-               else host_tensors(batch["vis"], pin, cast_vis))
-        return txt, vis
-
-    def read(in_window: bool) -> None:
-        nonlocal n_pending
-        if in_window and debug:
-            torch.cuda.set_sync_debug_mode(0)
-        vals = torch.cat(pending).cpu().numpy()
-        if in_window and debug:
-            torch.cuda.set_sync_debug_mode("error")
-        for v in vals:
-            meter.update(float(v))
-        if scalar_log is not None:
-            scalar_log.add_scalar("train/Loss", float(vals[-1]), step0 + n)
-        pending.clear()
-        n_pending = 0
-
-    def dispatch(batches) -> None:
-        nonlocal n, n_pending
-        if multi_step is not None:
-            pending.append(multi_step(batches, generator))
-        else:
-            txt, vis = batches[0]
-            pending.append(step(_to(txt, device), _to(vis, device), generator)[None])
-        n += len(batches)
-        n_pending += len(batches)
-
-    batches = Prefetcher((host_args(b) for b in feed.epoch(epoch)), depth=prefetch_depth)
-    k = multi_step.k if multi_step is not None else 1
-    try:
-        if debug:
-            torch.cuda.set_sync_debug_mode("error")
-        for args in batches:
-            group.append(args)
-            if len(group) == k:
-                dispatch(group)
-                group = []
-            progress.add(feed.batch_size)
-            if n_pending >= log_every:
-                read(True)
-        if group:  # the epoch's short last group: fewer replays
-            dispatch(group)
-    finally:
-        if debug:
-            torch.cuda.set_sync_debug_mode(0)
-    if pending:
-        read(False)
-    return meter.avg, n
+    stream = EpochStream(step, feed, epoch, device, generator, scalar_log, log_every,
+                         prefetch_depth, step0, sync_debug, multi_step, vis_cache, txt_cache,
+                         cast_txt, cast_vis)
+    while stream.advance():
+        pass
+    return stream.finish()
 
 
 def host_copy(tensors) -> Dict[str, torch.Tensor]:
@@ -623,20 +684,24 @@ def _check_fits(what: str, nbytes: int, device: torch.device) -> None:
 
 
 def setup_dispatch(opt: Options, prepared: Prepared, base: TrainStep, device: torch.device,
-                   cast_txt: bool, cast_vis: bool) -> Dict:
+                   cast_txt: bool, cast_vis: bool, shared: Optional[Dict] = None) -> Dict:
     """``laff_tpu``'s dispatch rules (``trainer.py:862-946``): the caches,
     the step wrappers around ``base``, K, the prefetch depth. task3 draws
     new false captions and augmented captions every epoch, so its text side
     is not cached: auto declines the text cache and ``--device_text_cache
     1`` raises; task2's labels ride the visual cache. Returns
-    {step, fed_step, multi_step, vis_cache, txt_cache, steps_per_dispatch,
-    prefetch_depth}; turns the train feed's featurization off for the sides
-    a cache holds."""
+    {step, fed_step, multi_step, vis_cache, txt_cache, w2v_table,
+    steps_per_dispatch, prefetch_depth}; turns the train feed's
+    featurization off for the sides a cache holds. ``shared``, another
+    run's dispatch over the same prepared data, lends its caches and w2v
+    table instead of building new ones (``engine.sweep``)."""
+    if shared is not None:
+        return _wrap_dispatch(opt, prepared, base, device, shared["vis_cache"],
+                              shared["txt_cache"], shared["w2v_table"])
     feed = prepared.train_feed
-    step = base
+    w2v_table = None
     if prepared.w2v_table is not None:
-        step = make_w2v_pooled_train_step(step, torch.from_numpy(prepared.w2v_table).to(device))
-    fed_step = step
+        w2v_table = torch.from_numpy(prepared.w2v_table).to(device)
     budget = int(os.environ.get(CACHE_BUDGET_ENV, CACHE_BUDGET_DEFAULT))
 
     vis_cache = None
@@ -651,7 +716,6 @@ def setup_dispatch(opt: Options, prepared: Prepared, base: TrainStep, device: to
     if want_vis:
         _check_fits("device_feature_cache", vis_bytes, device)
         vis_cache = DeviceVisCache(feed.vis_batcher, device, bf16=cast_vis)
-        step = make_cached_train_step(step, vis_cache)
 
     txt_cache = None
     want_txt = int(opt.device_text_cache)
@@ -678,6 +742,22 @@ def setup_dispatch(opt: Options, prepared: Prepared, base: TrainStep, device: to
         _check_fits("device_text_cache", txt_bytes, device)
         txt_cache = DeviceTxtCache(feed.text_batcher, device, cap_ids=feed.cap_ids,
                                    bf16=cast_txt)
+    return _wrap_dispatch(opt, prepared, base, device, vis_cache, txt_cache, w2v_table)
+
+
+def _wrap_dispatch(opt: Options, prepared: Prepared, base: TrainStep, device: torch.device,
+                   vis_cache: Optional[DeviceVisCache], txt_cache: Optional[DeviceTxtCache],
+                   w2v_table: Optional[torch.Tensor]) -> Dict:
+    """``setup_dispatch``'s step wrappers, K and prefetch depth around
+    ``base`` over caches already built."""
+    feed = prepared.train_feed
+    step = base
+    if w2v_table is not None:
+        step = make_w2v_pooled_train_step(step, w2v_table)
+    fed_step = step
+    if vis_cache is not None:
+        step = make_cached_train_step(step, vis_cache)
+    if txt_cache is not None:
         step = make_txt_cached_train_step(step, txt_cache)
     feed.featurize_txt = txt_cache is None
     feed.featurize_vis = vis_cache is None
@@ -696,8 +776,8 @@ def setup_dispatch(opt: Options, prepared: Prepared, base: TrainStep, device: to
                 "eager" if multi_step is None or device.type != "cuda" else "CUDA graph",
                 prefetch_depth)
     return {"step": step, "fed_step": fed_step, "multi_step": multi_step,
-            "vis_cache": vis_cache, "txt_cache": txt_cache, "steps_per_dispatch": spd,
-            "prefetch_depth": prefetch_depth}
+            "vis_cache": vis_cache, "txt_cache": txt_cache, "w2v_table": w2v_table,
+            "steps_per_dispatch": spd, "prefetch_depth": prefetch_depth}
 
 
 def read_negationset(path: Optional[str]) -> Optional[set]:
@@ -738,6 +818,234 @@ def warm_start(model: torch.nn.Module, path: str) -> Dict:
     return ckpt
 
 
+class TrainRun:
+    """One run of ``main``'s epoch loop, an epoch at a time: the seeded model
+    (its GRU embedding from ``prepared.we``), the warm start, the optimizer,
+    the dispatch, the LR controller, the best / early-stop counters, the
+    checkpoints and logs in ``prepared.model_path``. ``main`` drives one;
+    ``engine.sweep.sweep_main`` drives several over the same data, each with
+    its own seed, feed and model directory, the device caches lent by the
+    first (``shared``) and the validation feeds (``val_feeds``) staged once
+    for all.
+
+    Per epoch: ``begin_epoch``, then ``train_epoch`` (or the dispatches of
+    ``epoch_stream`` and ``finish_stream``), then ``end_epoch``, which
+    validates, writes and returns True once the run stops; ``close`` and
+    ``result`` at the end."""
+
+    def __init__(self, opt: Options, prepared: Prepared, device: torch.device,
+                 prepare_seconds: float = 0.0, shared: Optional[Dict] = None,
+                 val_feeds: Optional[tuple] = None) -> None:
+        self.opt, self.prepared, self.device = opt, prepared, device
+        config, spec = prepared.config, prepared.spec
+        self.config, self.spec, self.model_path = config, spec, prepared.model_path
+        model = seeded_model(spec, opt.random_seed, prepared.we)
+        bert = model.txt_net.bert
+        pretrained_bert = bert.imported_from if bert is not None else None
+        if opt.pretrained_file_path != "None":
+            warm_start(model, opt.pretrained_file_path)
+        self.model = model.to(device)
+        bf16 = "bfloat16" in (spec.txt.compute_dtype, spec.vis.compute_dtype)
+        self.optimizer = make_optimizer(config, model, bf16=bf16)
+        self.base = TrainStep(model, self.optimizer, spec)
+        # bf16 towers round their inputs to bf16 as their first op: rounding on
+        # the host gives the same tensors and halves the bytes to the card
+        self.cast_txt = spec.txt.compute_dtype == "bfloat16"
+        self.cast_vis = spec.vis.compute_dtype == "bfloat16"
+        self.dispatch = setup_dispatch(opt, prepared, self.base, device, self.cast_txt,
+                                       self.cast_vis, shared=shared)
+        multiple = int(getattr(config, "device_batch_multiple", 1) or 1)
+        if opt.batch_size % multiple:
+            raise ValueError(f"batch_size {opt.batch_size} must be a multiple of {multiple} "
+                             f"(config.device_batch_multiple)")
+
+        self.lr_ctl = LRController(config.lr, config.lr_decay_rate)
+        self.val_feeds = val_feeds or validation_feeds(opt, prepared)
+        self.embedder = Embedder(model, device, prefetch_depth=max(2, int(opt.workers) + 1))
+        self.generator = torch.Generator(device=device)  # reseeded each epoch
+        self.negationset = read_negationset(prepared.negationset_path)
+        self.best_perf, self.no_impr, self.mean_last = 0.0, 0, []
+        self.start_epoch = self.global_step = 0
+        self.resume_path = os.path.join(self.model_path, "model_resume.pth.tar")
+        if opt.resume and os.path.exists(self.resume_path):
+            rk = load_checkpoint(self.resume_path)
+            model.load_state_dict(rk["state_dict"])
+            self.optimizer.load_state_dict(rk["optimizer"])
+            self.lr_ctl.__dict__.update(rk["lr_ctl"])
+            self.best_perf, self.no_impr = rk["best_perf"], rk["no_impr"]
+            self.mean_last = rk["mean_last"]
+            self.start_epoch, self.global_step = rk["epoch"], rk["global_step"]
+            logger.info("resumed from %s at epoch %d (best %.4f)", self.resume_path,
+                        self.start_epoch, self.best_perf)
+        self.opt_dict = dataclasses.asdict(opt)
+        vis_cache, txt_cache = self.dispatch["vis_cache"], self.dispatch["txt_cache"]
+        self.stopped = False
+        self.results = {
+            "best_perf": self.best_perf, "epochs": self.start_epoch,
+            "prepare_seconds": round(prepare_seconds, 1), "history": [],
+            "pretrained_bert": pretrained_bert,
+            "dispatch": {
+                "vis_cache_bytes": vis_cache.nbytes if vis_cache else None,
+                "vis_cache_seconds": vis_cache.build_seconds if vis_cache else None,
+                "txt_cache_bytes": txt_cache.nbytes if txt_cache else None,
+                "txt_cache_seconds": txt_cache.build_seconds if txt_cache else None,
+                "steps_per_dispatch": self.dispatch["steps_per_dispatch"],
+                "graph": self.dispatch["multi_step"] is not None and device.type == "cuda",
+                "stage_val_features": bool(opt.stage_val_features)}}
+        self.saver = AsyncSaver()
+        self.scalar_log = ScalarLogger(self.model_path)
+        self.hist = open(os.path.join(self.model_path, "val_perf_hist.txt"),
+                         "a" if self.start_epoch else "w")
+
+    def ckpt_payload(self, epoch: int) -> Dict:
+        """The checkpoint with host copies of the weights, taken now."""
+        payload = checkpoint_payload(host_copy(self.model.state_dict().items()), self.spec,
+                                     self.config, self.prepared.featurizers, self.opt_dict)
+        payload.update(epoch=epoch + 1, best_perf=self.best_perf)
+        return payload
+
+    def begin_epoch(self, epoch: int) -> None:
+        self.t_epoch = time.time()
+        self.lr = self.lr_ctl.current()
+        self.optimizer.set_learning_rate(self.lr)
+        anneal_schedule(self.model, self.config.txt_attention_global_decay_rate)
+        self.base.set_epoch(epoch)
+        self.scalar_log.add_scalar("train/learning_rate", self.lr, epoch)
+        logger.info("Epoch %d/%d lr=%.6g", epoch, self.opt.num_epochs, self.lr)
+
+    def epoch_stream(self, epoch: int) -> EpochStream:
+        """The epoch's main feed as an ``EpochStream`` of this run's dispatch."""
+        d, opt = self.dispatch, self.opt
+        return EpochStream(
+            d["step"], self.prepared.train_feed, epoch, self.device,
+            generator=epoch_generator(self.device, opt.random_seed, epoch, self.generator),
+            scalar_log=self.scalar_log, prefetch_depth=d["prefetch_depth"],
+            step0=self.global_step, sync_debug=bool(opt.sync_debug),
+            multi_step=d["multi_step"], vis_cache=d["vis_cache"], txt_cache=d["txt_cache"],
+            cast_txt=self.cast_txt, cast_vis=self.cast_vis)
+
+    def finish_stream(self, stream: EpochStream):
+        loss, steps = stream.finish()
+        self.global_step += steps
+        return loss, steps
+
+    def train_epoch(self, epoch: int):
+        """The epoch's steps: the main feed, then ``trainCollection2``'s in
+        single fed steps, as laff_tpu. Returns (main feed's mean loss, its
+        steps)."""
+        stream = self.epoch_stream(epoch)
+        while stream.advance():
+            pass
+        train_loss, steps = self.finish_stream(stream)
+        opt = self.opt
+        if self.prepared.train2_feed is not None:
+            _, steps2 = train_one_epoch(
+                self.dispatch["fed_step"], self.prepared.train2_feed, epoch, self.device,
+                generator=epoch_generator(self.device, opt.random_seed, epoch, self.generator),
+                scalar_log=self.scalar_log, prefetch_depth=max(2, int(opt.workers) + 1),
+                step0=self.global_step, sync_debug=bool(opt.sync_debug),
+                cast_txt=self.cast_txt, cast_vis=self.cast_vis)
+            self.global_step += steps2
+        return train_loss, steps
+
+    def end_epoch(self, epoch: int, train_loss: float, steps: int, epoch_time: float) -> bool:
+        """Validation, the logs, the LR controller, the checkpoints and the
+        early stop of one epoch; True once the run stops."""
+        opt, model_path, scalar_log = self.opt, self.model_path, self.scalar_log
+        t0 = time.time()
+        val_txt_feed, val_vis_feed = self.val_feeds
+        metrics = validate(self.embedder, val_txt_feed, val_vis_feed, measure=self.spec.measure,
+                           rank_path=opt.rank_path)
+        val_time = time.time() - t0
+        cur_perf = metrics[opt.metric]
+        for tag in METRICS:
+            scalar_log.add_scalar(f"val/{tag}", metrics[tag], epoch)
+        logger.info("epoch %d: loss=%.3f r1=%.2f r5=%.2f r10=%.2f medr=%.0f mir=%.4f "
+                    "(%.1fs train, %.1fs validate)", epoch, train_loss, metrics["r1"],
+                    metrics["r5"], metrics["r10"], metrics["medr"], metrics["mir"],
+                    epoch_time, val_time)
+        self.hist.write("epoch_%d:\nText2Video(%s): %f\n" % (epoch, opt.metric, cur_perf))
+        self.hist.flush()
+        entry = {"epoch": epoch, "loss": float(train_loss), "lr": float(self.lr), "steps": steps,
+                 "train_seconds": round(epoch_time, 2), "val_seconds": round(val_time, 2),
+                 **{k: float(metrics[k]) for k in METRICS}}
+        if self.negationset is not None:
+            t3, n_sub = negation_subset_metrics(metrics, self.negationset)
+            if n_sub:
+                for tag, v in t3.items():
+                    scalar_log.add_scalar(f"task3val/{tag}", v, epoch)
+                entry.update({f"task3_{k}": float(v) for k, v in t3.items()})
+                logger.info("epoch %d negation subset (%d caps): r1=%.2f mir=%.4f", epoch,
+                            n_sub, t3["r1"], t3["mir"])
+        self.results["history"].append(entry)
+
+        self.lr_ctl.step(cur_perf)
+        is_best = cur_perf > self.best_perf
+        self.best_perf = max(cur_perf, self.best_perf)
+        if is_best:
+            self.saver.submit(save_checkpoint_dance, self.ckpt_payload(epoch), True,
+                              logdir=model_path, filename=f"checkpoint_epoch_{epoch}.pth.tar")
+            self.no_impr = 0
+            self.mean_last = []
+        elif opt.save_mean_last == 1:
+            self.mean_last.append(host_copy(self.model.named_parameters()))
+            if len(self.mean_last) > 1:
+                payload = self.ckpt_payload(epoch)
+                payload["state_dict"].update(average_states(self.mean_last))
+                self.saver.submit(save_checkpoint, payload,
+                                  os.path.join(model_path, "mean_last10.pth.tar"))
+
+        self.no_impr += 1
+        entry["wall_seconds"] = round(time.time() - self.t_epoch, 2)
+        if opt.resume:
+            payload = self.ckpt_payload(epoch)
+            payload.update(optimizer=self.optimizer.state_dict(), global_step=self.global_step,
+                           lr_ctl=dict(self.lr_ctl.__dict__), no_impr=self.no_impr,
+                           mean_last=list(self.mean_last))
+            self.saver.submit(save_checkpoint, payload, self.resume_path)
+        if self.no_impr > opt.early_stop_patience or epoch == opt.num_epochs - 1:
+            self.saver.join()
+            save_checkpoint_dance(self.ckpt_payload(epoch), is_best=False, logdir=model_path,
+                                  filename=f"checkpoint_epoch_{epoch}.pth.tar", only_best=True)
+            logger.info("Early stopping or finished at epoch %d.", epoch)
+            self.results["epochs"] = epoch + 1
+            self.stopped = True
+        return self.stopped
+
+    def close(self) -> None:
+        self.hist.close()
+        self.scalar_log.close()
+
+    def result(self) -> Dict:
+        """Writes ``val_perf.txt``; the run's result (``main``'s)."""
+        message = "best performance on validation:\n Text to video(%s): %f" % (
+            self.opt.metric, self.best_perf)
+        logger.info(message)
+        with open(os.path.join(self.model_path, "val_perf.txt"), "w") as fh:
+            fh.write(message)
+        multi_step = self.dispatch["multi_step"]
+        result = self.results
+        result["dispatch"]["capture_seconds"] = (multi_step.capture_seconds if multi_step
+                                                 else None)
+        result["best_perf"] = self.best_perf
+        result["model_path"] = self.model_path
+        result["model"] = self.model
+        return result
+
+
+def validation_feeds(opt: Options, prepared: Prepared):
+    """The validation caption and video feeds; the features do not change
+    between epochs, so they are kept on the card after the first pass
+    (budget-guarded, the same tensors replayed)."""
+    eval_batch = getattr(prepared.config, "eval_batch_size", 1024)
+    val_txt_feed = EvalFeed(prepared.val_txt_source.cap_ids, prepared.val_txt_batcher,
+                            batch_size=eval_batch)
+    val_vis_feed = EvalFeed(prepared.val_vis_ids, prepared.val_vis_batcher,
+                            batch_size=eval_batch)
+    val_txt_feed.stage_on_device = val_vis_feed.stage_on_device = bool(opt.stage_val_features)
+    return val_txt_feed, val_vis_feed
+
+
 def main(opt: Options, prepared: Optional[Prepared] = None) -> Dict:
     """A full training run (reference ``trainer.main``). Returns
     {best_perf, epochs, prepare_seconds, history (one entry per epoch:
@@ -749,179 +1057,18 @@ def main(opt: Options, prepared: Optional[Prepared] = None) -> Dict:
     t_prepare = time.time()
     if prepared is None:
         prepared = prepare(opt)
-    prepare_seconds = time.time() - t_prepare
-    config, spec, model_path = prepared.config, prepared.spec, prepared.model_path
-
-    model = seeded_model(spec, opt.random_seed, prepared.we)
-    bert = model.txt_net.bert
-    pretrained_bert = bert.imported_from if bert is not None else None
-    if opt.pretrained_file_path != "None":
-        warm_start(model, opt.pretrained_file_path)
-    model.to(device)
-    bf16 = "bfloat16" in (spec.txt.compute_dtype, spec.vis.compute_dtype)
-    optimizer = make_optimizer(config, model, bf16=bf16)
-    base = TrainStep(model, optimizer, spec)
-    # bf16 towers round their inputs to bf16 as their first op: rounding on
-    # the host gives the same tensors and halves the bytes to the card
-    cast_txt = spec.txt.compute_dtype == "bfloat16"
-    cast_vis = spec.vis.compute_dtype == "bfloat16"
-    dispatch = setup_dispatch(opt, prepared, base, device, cast_txt, cast_vis)
-    multiple = int(getattr(config, "device_batch_multiple", 1) or 1)
-    if opt.batch_size % multiple:
-        raise ValueError(f"batch_size {opt.batch_size} must be a multiple of {multiple} "
-                         f"(config.device_batch_multiple)")
-
-    lr_ctl = LRController(config.lr, config.lr_decay_rate)
-    eval_batch = getattr(config, "eval_batch_size", 1024)
-    val_txt_feed = EvalFeed(prepared.val_txt_source.cap_ids, prepared.val_txt_batcher,
-                            batch_size=eval_batch)
-    val_vis_feed = EvalFeed(prepared.val_vis_ids, prepared.val_vis_batcher,
-                            batch_size=eval_batch)
-    # validation features do not change between epochs: kept on the card
-    # after the first pass (budget-guarded, the same tensors replayed)
-    val_txt_feed.stage_on_device = val_vis_feed.stage_on_device = bool(opt.stage_val_features)
-    prefetch_depth = dispatch["prefetch_depth"]
-    embedder = Embedder(model, device, prefetch_depth=max(2, int(opt.workers) + 1))
-
-    generator = torch.Generator(device=device)  # reseeded each epoch
-    negationset = read_negationset(prepared.negationset_path)
-    best_perf, no_impr, mean_last, start_epoch, global_step = 0.0, 0, [], 0, 0
-    resume_path = os.path.join(model_path, "model_resume.pth.tar")
-    if opt.resume and os.path.exists(resume_path):
-        rk = load_checkpoint(resume_path)
-        model.load_state_dict(rk["state_dict"])
-        optimizer.load_state_dict(rk["optimizer"])
-        lr_ctl.__dict__.update(rk["lr_ctl"])
-        best_perf, no_impr, mean_last = rk["best_perf"], rk["no_impr"], rk["mean_last"]
-        start_epoch, global_step = rk["epoch"], rk["global_step"]
-        logger.info("resumed from %s at epoch %d (best %.4f)", resume_path, start_epoch,
-                    best_perf)
-    opt_dict = dataclasses.asdict(opt)
-
-    def ckpt_payload(epoch: int) -> Dict:
-        """The checkpoint with host copies of the weights, taken now."""
-        payload = checkpoint_payload(host_copy(model.state_dict().items()), spec, config,
-                                     prepared.featurizers, opt_dict)
-        payload.update(epoch=epoch + 1, best_perf=best_perf)
-        return payload
-
-    vis_cache, txt_cache = dispatch["vis_cache"], dispatch["txt_cache"]
-    result = {"best_perf": best_perf, "epochs": start_epoch,
-              "prepare_seconds": round(prepare_seconds, 1), "history": [],
-              "pretrained_bert": pretrained_bert,
-              "dispatch": {
-                  "vis_cache_bytes": vis_cache.nbytes if vis_cache else None,
-                  "vis_cache_seconds": vis_cache.build_seconds if vis_cache else None,
-                  "txt_cache_bytes": txt_cache.nbytes if txt_cache else None,
-                  "txt_cache_seconds": txt_cache.build_seconds if txt_cache else None,
-                  "steps_per_dispatch": dispatch["steps_per_dispatch"],
-                  "graph": dispatch["multi_step"] is not None and device.type == "cuda",
-                  "stage_val_features": bool(opt.stage_val_features)}}
-    saver = AsyncSaver()
-    scalar_log = ScalarLogger(model_path)
-    hist = open(os.path.join(model_path, "val_perf_hist.txt"), "a" if start_epoch else "w")
+    run = TrainRun(opt, prepared, device, prepare_seconds=time.time() - t_prepare)
     try:
-        for epoch in range(start_epoch, opt.num_epochs):
-            t_epoch = time.time()
-            lr = lr_ctl.current()
-            optimizer.set_learning_rate(lr)
-            anneal_schedule(model, config.txt_attention_global_decay_rate)
-            base.set_epoch(epoch)
-            scalar_log.add_scalar("train/learning_rate", lr, epoch)
-            logger.info("Epoch %d/%d lr=%.6g", epoch, opt.num_epochs, lr)
-
+        for epoch in range(run.start_epoch, opt.num_epochs):
+            run.begin_epoch(epoch)
             t0 = time.time()
-            train_loss, steps = train_one_epoch(
-                dispatch["step"], prepared.train_feed, epoch, device,
-                generator=epoch_generator(device, opt.random_seed, epoch, generator),
-                scalar_log=scalar_log, prefetch_depth=prefetch_depth, step0=global_step,
-                sync_debug=bool(opt.sync_debug), multi_step=dispatch["multi_step"],
-                vis_cache=vis_cache, txt_cache=txt_cache, cast_txt=cast_txt,
-                cast_vis=cast_vis)
-            global_step += steps
-            if prepared.train2_feed is not None:  # single fed steps, as laff_tpu
-                _, steps2 = train_one_epoch(
-                    dispatch["fed_step"], prepared.train2_feed, epoch, device,
-                    generator=epoch_generator(device, opt.random_seed, epoch, generator),
-                    scalar_log=scalar_log, prefetch_depth=max(2, int(opt.workers) + 1),
-                    step0=global_step, sync_debug=bool(opt.sync_debug), cast_txt=cast_txt,
-                    cast_vis=cast_vis)
-                global_step += steps2
-            epoch_time = time.time() - t0
-
-            t0 = time.time()
-            metrics = validate(embedder, val_txt_feed, val_vis_feed, measure=spec.measure,
-                               rank_path=opt.rank_path)
-            val_time = time.time() - t0
-            cur_perf = metrics[opt.metric]
-            for tag in METRICS:
-                scalar_log.add_scalar(f"val/{tag}", metrics[tag], epoch)
-            logger.info("epoch %d: loss=%.3f r1=%.2f r5=%.2f r10=%.2f medr=%.0f mir=%.4f "
-                        "(%.1fs train, %.1fs validate)", epoch, train_loss, metrics["r1"],
-                        metrics["r5"], metrics["r10"], metrics["medr"], metrics["mir"],
-                        epoch_time, val_time)
-            hist.write("epoch_%d:\nText2Video(%s): %f\n" % (epoch, opt.metric, cur_perf))
-            hist.flush()
-            entry = {"epoch": epoch, "loss": float(train_loss), "lr": float(lr), "steps": steps,
-                     "train_seconds": round(epoch_time, 2), "val_seconds": round(val_time, 2),
-                     **{k: float(metrics[k]) for k in METRICS}}
-            if negationset is not None:
-                t3, n_sub = negation_subset_metrics(metrics, negationset)
-                if n_sub:
-                    for tag, v in t3.items():
-                        scalar_log.add_scalar(f"task3val/{tag}", v, epoch)
-                    entry.update({f"task3_{k}": float(v) for k, v in t3.items()})
-                    logger.info("epoch %d negation subset (%d caps): r1=%.2f mir=%.4f", epoch,
-                                n_sub, t3["r1"], t3["mir"])
-            result["history"].append(entry)
-
-            lr_ctl.step(cur_perf)
-            is_best = cur_perf > best_perf
-            best_perf = max(cur_perf, best_perf)
-            if is_best:
-                saver.submit(save_checkpoint_dance, ckpt_payload(epoch), True,
-                             logdir=model_path, filename=f"checkpoint_epoch_{epoch}.pth.tar")
-                no_impr = 0
-                mean_last = []
-            elif opt.save_mean_last == 1:
-                mean_last.append(host_copy(model.named_parameters()))
-                if len(mean_last) > 1:
-                    payload = ckpt_payload(epoch)
-                    payload["state_dict"].update(average_states(mean_last))
-                    saver.submit(save_checkpoint, payload,
-                                 os.path.join(model_path, "mean_last10.pth.tar"))
-
-            no_impr += 1
-            entry["wall_seconds"] = round(time.time() - t_epoch, 2)
-            if opt.resume:
-                payload = ckpt_payload(epoch)
-                payload.update(optimizer=optimizer.state_dict(), global_step=global_step,
-                               lr_ctl=dict(lr_ctl.__dict__), no_impr=no_impr,
-                               mean_last=list(mean_last))
-                saver.submit(save_checkpoint, payload, resume_path)
-            if no_impr > opt.early_stop_patience or epoch == opt.num_epochs - 1:
-                saver.join()
-                save_checkpoint_dance(ckpt_payload(epoch), is_best=False, logdir=model_path,
-                                      filename=f"checkpoint_epoch_{epoch}.pth.tar",
-                                      only_best=True)
-                logger.info("Early stopping or finished at epoch %d.", epoch)
-                result["epochs"] = epoch + 1
+            train_loss, steps = run.train_epoch(epoch)
+            if run.end_epoch(epoch, train_loss, steps, time.time() - t0):
                 break
-        saver.join()
+        run.saver.join()
     except BaseException:
-        saver.join_quietly()
+        run.saver.join_quietly()
         raise
     finally:
-        hist.close()
-        scalar_log.close()
-    message = "best performance on validation:\n Text to video(%s): %f" % (opt.metric,
-                                                                           best_perf)
-    logger.info(message)
-    with open(os.path.join(model_path, "val_perf.txt"), "w") as fh:
-        fh.write(message)
-    multi_step = dispatch["multi_step"]
-    result["dispatch"]["capture_seconds"] = multi_step.capture_seconds if multi_step else None
-    result["best_perf"] = best_perf
-    result["model_path"] = model_path
-    result["model"] = model
-    return result
+        run.close()
+    return run.result()

@@ -58,6 +58,10 @@ _NEG_INF = -1e30
 
 
 class MultiHeadGateAttention(nn.Module):
+    # set by ``models.laff.get_attention_weights``: the forward takes the
+    # plain path and keeps its (B, L, H) softmax weights in ``weights``
+    record_weights = False
+
     def __init__(
         self,
         dim: int,
@@ -110,7 +114,7 @@ class MultiHeadGateAttention(nn.Module):
             self.global_emb_weight.fill_(1.0)
 
     def _kernel_applies(self, x, raw_global_emb, mask) -> bool:
-        return (x.is_cuda and not torch.is_grad_enabled()
+        return (x.is_cuda and not torch.is_grad_enabled() and not self.record_weights
                 and self.split_head and raw_global_emb is None and mask is None
                 and not (self.l2norm_each_head or self.pre_layer_norm
                          or self.distinct_fc or self.fusion_mix)
@@ -175,6 +179,8 @@ class MultiHeadGateAttention(nn.Module):
             logits = torch.where(mask[:, :, None] > 0, logits,
                                  torch.full_like(logits, _NEG_INF))
         weights = torch.softmax(logits, dim=1)  # (B, L, H)
+        if self.record_weights:
+            self.weights = weights.detach()
         out = torch.einsum("blh,blhd->bhd", weights, x)
 
         if self.with_ave or self.fusion_mix:
@@ -195,6 +201,8 @@ class GateAttention(nn.Module):
     """Attention_1 (reference ``Attention.py:40-105``): one gate ``Linear(D,
     1)`` over the L axis. Masked positions get logit -1e30; the mean and
     the residual count only valid positions, the count clamped at 1."""
+
+    record_weights = False  # as MultiHeadGateAttention's: (B, L) weights
 
     def __init__(self, dim: int, with_ave: bool = True, mul: bool = False) -> None:
         super().__init__()
@@ -233,6 +241,8 @@ class GateAttention(nn.Module):
         if mask is not None:
             logits = torch.where(mask > 0, logits, torch.full_like(logits, _NEG_INF))
         weights = torch.softmax(logits, dim=1)
+        if self.record_weights:
+            self.weights = weights.detach()
         out = torch.sum(weights[..., None] * x.float(), dim=1)
         if self.with_ave:
             # the reference adds g * mean at every position before the sum

@@ -61,6 +61,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -351,3 +352,27 @@ class LAFFModel(nn.Module):
             txt_inputs = densify_bow(txt_inputs, dict(self.spec.txt.features)["bow"])
         txt_embs, vis_embs = self(txt_inputs, vis_inputs, generator)
         return (txt_embs, vis_embs, *self.encode_concepts(txt_inputs, vis_inputs, generator))
+
+
+@torch.no_grad()
+def get_attention_weights(model: LAFFModel, inputs: Dict[str, torch.Tensor],
+                          side: str = "txt") -> Optional[np.ndarray]:
+    """A batch's fusion-gate weights in eval mode (``laff_tpu``'s
+    ``get_attention_weights``; reference ``get_attention_weight``,
+    ``Attention.py:75-76`` / ``model.py:1707-1709``): (B, L) for the
+    single-head gate, (B, L, H) for the multi-head LAFF gate, None for a
+    fusion without gate weights. The forward takes the plain gate path (the
+    gate kernel returns no weights); the model's mode is put back."""
+    tower = model.txt_net if side == "txt" else model.vis_net
+    attn = tower.attention
+    if not hasattr(attn, "record_weights"):
+        return None
+    was_training = model.training
+    model.eval()
+    attn.record_weights, attn.weights = True, None
+    try:
+        tower(inputs)
+        return attn.weights.cpu().numpy()
+    finally:
+        attn.record_weights, attn.weights = False, None
+        model.train(was_training)

@@ -1,3 +1,3 @@
-from .bigfile import BigFile, txt2bin, write_bigfile
+from .bigfile import BigFile, StreamFile, txt2bin, write_bigfile
 
-__all__ = ["BigFile", "txt2bin", "write_bigfile"]
+__all__ = ["BigFile", "StreamFile", "txt2bin", "write_bigfile"]

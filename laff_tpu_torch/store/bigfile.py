@@ -71,6 +71,41 @@ class BigFile:
         return [self.nr_of_images, self.ndims]
 
 
+class StreamFile:
+    """Sequential iterator over a BigFile directory, (name, vector as a list
+    of floats) in row order (reference ``bigfile.py:243-281``; ``laff_tpu``'s
+    ``StreamFile``). ``open`` rewinds."""
+
+    def __init__(self, datadir: str) -> None:
+        self._big = BigFile(datadir)
+        self._cursor = 0
+
+    def open(self) -> None:
+        self._cursor = 0
+
+    def close(self) -> None:
+        pass
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._cursor >= self._big.nr_of_images:
+            raise StopIteration
+        name = self._big.names[self._cursor]
+        vec = np.asarray(self._big._mmap[self._cursor]).tolist()
+        self._cursor += 1
+        return name, vec
+
+    @property
+    def names(self) -> List[str]:
+        return self._big.names
+
+    @property
+    def ndims(self) -> int:
+        return self._big.ndims
+
+
 def write_bigfile(resultdir: str, names: Sequence[str], matrix: np.ndarray) -> None:
     """Write a (N, D) float32 matrix in BigFile format."""
     matrix = np.ascontiguousarray(matrix, dtype=np.float32)

@@ -27,10 +27,13 @@ both packages, answers the same query sets in both predictors:
   file, laff_tpu's warning; a file that does not load raises in the port
   (laff_tpu warns);
 * what raises: 'kreciprocal', 'tkb' and measure 'hist' above the threshold
-  (ValueError, where laff_tpu crashes or scores cosine) and --data_parallel
-  (item 5); and what runs now: a large benchmark gallery without
-  post-processing and --int8_gallery 1, which raised naming ROADMAP item 3b
-  until the port served them;
+  (ValueError, where laff_tpu crashes or scores cosine); and what runs now:
+  a large benchmark gallery without post-processing and --int8_gallery 1,
+  which raised naming ROADMAP item 3b until the port served them, and
+  --data_parallel 2 on one device, which raised naming item 5;
+* --data_parallel 1 and 2 through both CLIs on one device: laff_tpu's
+  warning, then the single-device run; with two or more cards visible both
+  raise naming item 5;
 * ``build_avs_world``'s layout, relevance rule and chunked writes, its
   benchmark over the gallery, and the package data an installed port needs.
 """
@@ -315,8 +318,8 @@ RAISES = {
                            {"pass1", "pass2"}),
     "int8_gallery": ("port_ckpt", AVS, "tv16.avs.txt", {"int8_gallery": 1}, None,
                      {"int8_stream", "nominate", "reembed", "exact_topk"}),
-    "data_parallel": ("port_ckpt", AVS, "tv16.avs.txt", {"data_parallel": 2},
-                      NotImplementedError, "item 5"),
+    "data_parallel": ("port_ckpt", AVS, "tv16.avs.txt", {"data_parallel": 2}, None,
+                      {"stream", "score_file"}),
 }
 
 
@@ -340,6 +343,61 @@ def test_cli_accepts_laff_tpu_flags(world):
                     data_parallel=0, int8_gallery=0)
     assert (opt.adjust_weight_predict, opt.data_parallel, opt.int8_gallery) == (1, 0, 0)
     assert set(port_predictor.main(opt)) == {"tv16.avs.txt"}
+
+
+def _capture_warnings(monkeypatch, caplog, *loggers):
+    """The port's loggers do not propagate: hand ``caplog`` their records."""
+    for log in loggers:
+        monkeypatch.setattr(log, "handlers", [*log.handlers, caplog.handler])
+
+
+def _trainer_argv(world, prefix, value):
+    return [TRAIN, TRAIN, "--rootpath", world["root"], "--config_name", "rehearsal",
+            "--val_set", "no", "--device", "cpu", "--num_epochs", "1", "--batch_size", "16",
+            "--overwrite", "1",
+            "--model_prefix", prefix, "--data_parallel", str(value)]
+
+
+@pytest.mark.parametrize("value", [1, 2])
+@pytest.mark.parametrize("entry", ["do_predictor", "do_trainer"])
+def test_data_parallel_on_one_device(world, monkeypatch, caplog, entry, value):
+    """laff_tpu's one-device behaviour: its warning, then the single-device
+    run, through either CLI."""
+    from laff_tpu_torch.cli import do_predictor, do_trainer
+    from laff_tpu_torch.engine import prepare as port_prepare
+
+    _capture_warnings(monkeypatch, caplog, port_prepare.logger)
+    if entry == "do_predictor":
+        sim = f"dp_{value}"
+        opt = _port_opt(world, AVS, "tv16.avs.txt", sim, data_parallel=value)
+        assert set(port_predictor.main(opt)) == {"tv16.avs.txt"}
+        assert os.path.exists(os.path.join(_score_dir(world, AVS, "tv16.avs.txt", sim),
+                                           "id.sent.score.txt"))
+    else:
+        monkeypatch.setattr(port_prepare, "load_config",
+                            lambda name, parm="None": _small(port_rehearsal.config()))
+        assert do_trainer.main(_trainer_argv(world, f"dp_{value}", value)) == 0
+        opt = do_trainer.parse_args(_trainer_argv(world, f"dp_{value}", value))
+        assert os.path.exists(os.path.join(port_prepare.model_dir_for(opt),
+                                           "model_best.pth.tar"))
+    assert [r.message for r in caplog.records
+            if "data_parallel" in r.message] == ["data_parallel requested but only 1 device(s)"]
+    assert do_predictor.parse_args([AVS, "m", "s", "--data_parallel", str(value)]).data_parallel
+
+
+@pytest.mark.parametrize("entry", ["do_predictor", "do_trainer"])
+def test_data_parallel_over_several_cards_raises(world, monkeypatch, entry):
+    from laff_tpu_torch.cli import do_trainer
+    from laff_tpu_torch.engine import prepare as port_prepare
+
+    monkeypatch.setattr(port_prepare, "visible_devices", lambda device: 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+        if entry == "do_predictor":
+            port_predictor.main(_port_opt(world, AVS, "tv16.avs.txt", "dp_raise",
+                                          data_parallel=2))
+        else:
+            do_trainer.main(_trainer_argv(world, "dp_raise", 2))
+    assert not os.path.exists(_score_dir(world, AVS, "tv16.avs.txt", "dp_raise"))
 
 
 def _strongclip_tower_file(path, prefix=""):

@@ -32,7 +32,8 @@ print(len(names), "modules;", "forbidden:", bad, covered)
 # the checkpoint interchange, the registry, the configs that reference
 # checkpoints name, the re-rankers, the TRECVID harness with its CLI, the
 # int8 gallery, the host data CLIs, the live CLIP towers and End2EndClip,
-# the BERT tower, the retrieval server and its full-width BERT config
+# the BERT tower, the retrieval server and its full-width BERT config, the
+# seed sweep, the orchestrator and its two CLIs
 REQUIRED = ("laff_tpu_torch.native", "laff_tpu_torch.eval.rerank",
             "laff_tpu_torch.ops.quantized", "laff_tpu_torch.data.check",
             "laff_tpu_torch.cli.build_vocab", "laff_tpu_torch.cli.txt2bin",
@@ -52,7 +53,9 @@ REQUIRED = ("laff_tpu_torch.native", "laff_tpu_torch.eval.rerank",
             "laff_tpu_torch.engine.end2end", "laff_tpu_torch.configs.end2end_clip",
             "laff_tpu_torch.configs.e2e_tiny", "laff_tpu_torch.models.bert",
             "laff_tpu_torch.engine.service", "laff_tpu_torch.cli.do_server",
-            "laff_tpu_torch.configs.bert_rehearsal")
+            "laff_tpu_torch.configs.bert_rehearsal", "laff_tpu_torch.engine.sweep",
+            "laff_tpu_torch.engine.orchestrate", "laff_tpu_torch.cli.retrieval_task",
+            "laff_tpu_torch.cli.all_run")
 
 
 def _run(args, cwd):
@@ -67,7 +70,7 @@ def test_port_imports_no_jax_and_no_laff_tpu():
                 ROOT)
     assert proc.returncode == 0, proc.stderr
     count, _, rest = proc.stdout.strip().partition(" modules;")
-    assert int(count) >= 55  # every module was walked, the TRECVID harness's included
+    assert int(count) >= 59  # every module was walked, the orchestrator's included
     assert rest.strip() == "forbidden: [] True", proc.stdout
 
 

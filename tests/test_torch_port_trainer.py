@@ -472,7 +472,10 @@ def test_resume_gives_the_uninterrupted_result(world, monkeypatch):
 
 
 @pytest.mark.parametrize("option,value", [("data_parallel", 4)])
-def test_options_not_ported_raise(world, option, value):
+def test_options_not_ported_raise(world, monkeypatch, option, value):
+    # data_parallel raises only with two or more devices visible; over one it
+    # warns and trains there (tests/test_torch_port_avs.py)
+    monkeypatch.setattr(port_prepare, "visible_devices", lambda device: 2)
     opt = port_prepare.Options(device="cpu", **_base(world), **{option: value})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         port_prepare.prepare(opt)
