@@ -3,6 +3,7 @@
 
   python3 chip_smoke.py          # from the repository root; needs one GPU
   python3 chip_smoke.py --sweep  # phases 1 and 14 alone
+  python3 chip_smoke.py --multi  # phases 1 and 15 (a)-(d) over four cards
   python3 chip_smoke.py --gate-timing DIR [DIR ...]
                                  # the gate of each checkout DIR in turn
 
@@ -254,10 +255,43 @@ Phases, each asserting; any failure exits non-zero before the last line:
    first checkpoint, training skipped: 1 + 329 gate launches, the TRECVID
    xml, infAP at least 5x the random run's.
 
+15. The mesh paths (``laff_tpu_torch.parallel``) over an NCCL group of one:
+   (a) inside phase 3, on rtest's resident embeddings, sharded_t2v_ranks,
+   sharded_topk and sharded_int8_topk (512 queries, k 1,000) bit for bit
+   against the one-card functions (the flat ranks, blocked_topk); (b) after
+   phase 12, RetrievalService(mesh=) on its BERT checkpoint over bval, bf16
+   and int8, bit for bit against the one-card service (searches, an ingest,
+   the snapshot the mesh writes restored on one card).
+
 Prints the kernels JSON line (all three kernels; launches: each main path
-counted from 0 around its run, summed, and by path, phases 10-14's
+counted from 0 around its run, summed, and by path, phases 10-15's
 included; rbig and phase 9(c) for the tiled kernel), then ``{"ok": true,
 "device": ...}`` last.
+
+``--multi`` needs four cards of one host and runs phase 1, then
+spawns four ranks through ``laff_tpu_torch.parallel.launch``, one a card
+(NCCL), each through (a)-(d); rank 0 checks against one card's results,
+which it computes on its card while the others wait: (a) sim_engine at the
+MV-test3k shape (ranks, exactly) and over an iacc.3-sized bf16 gallery
+(335,944 x 4,096; the f32 and int8 top 1,000 of 512 queries, exactly; rows
+duplicated across the shard boundaries), timed against one card; (b)
+RetrievalService(mesh=) over iacc.3 on a seeded bert_rehearsal checkpoint,
+bf16 (snapshotted, an ingest of 1,024, a restart) and int8, lists equal to
+one card's but near ties (1e-6), builds and searches timed; (c)
+predictor.main with data_parallel 4 on rtest (rank_path 'kernel'): the gate
+on every card and the wide rank kernel on rank 0 alone, metrics within
+1e-5 of one card's run at the per-card batch, its rows written once; (d)
+the trainer with data_parallel 4 on rtrain -> rtest at global B 128 (K 8
+graphed, dropout on): the first dispatch's losses (1e-4 relative) and
+parameters (f32 towers: 1e-4 of each tensor's largest; bf16: 0.05 of it
+and 1.5 of one card's update in norm, the tensors that the dispatch's Adam
+steps made left out) against one card's
+run from the same seed, and a control run whose gradient all-reduce loses
+a rank's share, read the same way; two epochs (the loss falls, R@1 above
+chance), ms per graphed step, the all-reduce and a profiled dispatch (the
+device's idle share from the union of its non-NCCL kernels), then an
+epoch at 128 a card. It prints
+the figures as one JSON line, then the ``{"ok": true, ...}`` line.
 Everything it writes goes under build/ in the repository.
 
 ``--bert-serve`` runs phases 1, 12 and 13 alone (13 on phase 8's world).
@@ -267,6 +301,7 @@ commit unpacked under build/) in its own process, with its own wrapper and
 kernel sources, held against its plain version and timed as in phase 2.
 """
 
+import contextlib
 import itertools
 import json
 import os
@@ -299,8 +334,17 @@ class SmokeFailure(Exception):
     pass
 
 
+# a --multi rank's failed checks: raised after its last collective, so that a
+# failing check on one rank never leaves the others waiting in a collective
+DEFERRED = None
+
+
 def check(cond, msg):
     if not cond:
+        if DEFERRED is not None:
+            DEFERRED.append(msg)
+            log(f"chip_smoke: FAIL (raised at the end of the ranks' run): {msg}")
+            return
         raise SmokeFailure(msg)
 
 
@@ -675,12 +719,13 @@ def run_predictor(torch, K, P, root, coll, ckpt, rank_path):
     return res, launches
 
 
-def reembed_and_check(torch, K, P, root, coll, ckpt, res_kernel, res_flat=None):
+def reembed_and_check(torch, K, P, root, coll, ckpt, res_kernel, res_flat=None, resident=None):
     """Embed the same inputs again (same model, feeds and batches, so the
     same embeddings) and hold the runs' ranks against them: kernel ranks
     against the rank kernel's plain version on the same bf16 operands (near
     ties within SCORE_TIE_TOL: f32 accumulation order), and, given a flat
-    run, its ranks against the f32 scores (near ties within 1e-5)."""
+    run, its ranks against the f32 scores (near ties within 1e-5).
+    ``resident(txt, vis, txt_ids, vis_ids)`` is called on the embeddings."""
     from laff_tpu_torch.engine.checkpoint import load_checkpoint
     from laff_tpu_torch.engine.evaluator import Embedder
     from laff_tpu_torch.ops import flatten_heads
@@ -704,6 +749,8 @@ def reembed_and_check(torch, K, P, root, coll, ckpt, res_kernel, res_flat=None):
         norms = torch.cat([txt.norm(dim=-1).flatten(), vis.norm(dim=-1).flatten()])
         check(float((norms - 1).abs().max()) < 1e-4, "gate outputs are not unit per head")
 
+    if resident is not None:
+        resident(txt, vis, txt_ids, vis_ids)
     vid_index = {v: i for i, v in enumerate(vis_ids)}
     gt = torch.as_tensor([vid_index[t.split("#")[0]] for t in txt_ids], device="cuda")
     tn, vn = flatten_heads(txt), flatten_heads(vis)
@@ -910,6 +957,38 @@ def profiled(torch, fn):
         elif e.self_cpu_time_total:
             host[e.key] = (e.self_cpu_time_total / 1e3, e.count)
     return device, host, launches, wall
+
+
+def profiled_spans(torch, fn):
+    """``fn`` once, then once under torch.profiler: the (start, end) us of
+    each device activity other than an NCCL kernel, those of the NCCL
+    kernels apart, and the wall ms (synchronized)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans, nccl = [], []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            (nccl if "nccl" in e.name.lower() else spans).append(
+                (e.time_range.start, e.time_range.end))
+    return spans, nccl, wall
+
+
+def union_ms(spans):
+    """The ms that the union of (start, end) us intervals covers."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
 
 
 def log_profile(what, device_ms, host_ms, n_kernels, prof_wall, step_ms, steps=1):
@@ -3309,7 +3388,7 @@ def serve_phase(torch, K, root, ckpt, smi):
         tn = svc.embed_queries(queries[:b])
         for k in SERVE_KS:
             got = svc.search(queries[:b], k=k)
-            vals, idx = S.blocked_topk(svc.score_block(tn), n, k)
+            vals, idx = S.blocked_topk(svc.score_block(tn), n, k, S.SCORE_BLOCK)
             ids_svc = [[i for i, _ in row] for row in got]
             check(ids_svc == [[svc.vis_ids[j] for j in r] for r in idx.tolist()],
                   f"[serve] search() and its scoring disagree at bucket {b}, k {k}")
@@ -3318,7 +3397,8 @@ def serve_phase(torch, K, root, ckpt, smi):
             check(ok, f"[serve] bucket {b}, k {k}: {moved} places differ from the plain "
                   f"product beyond near ties, scores within {err}")
             search_ms = time_ms(torch, lambda: svc.search(queries[:b], k=k), reps=3)
-            score_ms = time_ms(torch, lambda: S.blocked_topk(svc.score_block(tn), n, k), reps=3)
+            score_ms = time_ms(torch, lambda: S.blocked_topk(svc.score_block(tn), n, k,
+                                                             S.SCORE_BLOCK), reps=3)
             plain_ms = time_ms(torch, lambda: plain_search(torch, svc, tn, k), reps=3)
             b_ms, b_by = bound_ms(n * width * 2, 2 * b * n * width, PEAK_F32_OPS_S)
             timing[f"b{b}_k{k}"] = {"search_ms": search_ms, "score_ms": score_ms,
@@ -3841,6 +3921,829 @@ def bert_serve_only(torch, K, P, smi):
         shutil.rmtree(WORK, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 15 and --multi: the mesh paths (laff_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+MULTI_RANKS = 4  # --multi: one rank a card, four cards of one host
+MV_T, MV_V, MV_CAPS = 59_800, 2_990, 20  # MV-test3k: captions x videos, 20 a video
+HD = 8 * 512
+MULTI_QUERIES, MULTI_K = 512, 1000  # sim_engine's top k and the served searches
+MULTI_TIE = 1e-6  # sharded vs one-card service lists: near ties and score distance
+MULTI_METRIC_TOL = 1e-5  # the data-parallel predictor's metrics against one card's
+MULTI_LOSS_RTOL = 1e-4  # the data-parallel dispatch's losses against one card's
+MULTI_PARAM_TOL = 1e-4  # its parameters (f32 towers), of each tensor's largest magnitude
+# the same in the config's bf16, over the tensors the dispatch did not make
+# (multi_train_phase), and each one's distance in norm of one card's update in
+# norm: the sound run read 0.0384 and 0.995, a run whose all-reduce lost a
+# rank's share 0.0389 and 2.70 (PERF.md §6)
+MULTI_PARAM_TOL_BF16 = 0.05
+MULTI_UPDATE_TOL_BF16 = 1.5
+MULTI_BATCH = 128  # (d)'s global batch, and its per-card batch in the last epoch
+MESH_ONE_K = 1000
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """An NCCL group of one (this process on card 0), its mesh; destroyed at
+    the end."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from laff_tpu_torch.parallel import data_parallel_mesh
+
+    os.makedirs(WORK, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=WORK) as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            yield data_parallel_mesh()
+        finally:
+            dist.destroy_process_group()
+
+
+def one_card_topk(torch, tn, score_block, n, k):
+    """The one-card top k of the sim_engine's scoring over all ``n`` rows
+    (``ops.similarity.blocked_topk`` at the engine's block)."""
+    from laff_tpu_torch.ops.similarity import blocked_topk
+    from laff_tpu_torch.parallel.sim_engine import TOPK_BLOCK
+
+    vals, idx = blocked_topk(score_block, n, k, TOPK_BLOCK)
+    return vals.cpu().numpy(), idx.cpu().numpy()
+
+
+def mesh_one_sim_phase(torch, txt, vis, txt_ids, vis_ids):
+    """15 (a). parallel.sim_engine over an NCCL group of one on rtest's
+    resident embeddings (phase 3's model), bit for bit against the one-card
+    functions: the flat ranks (evaluator.t2v_ranks), and the top 1,000 of
+    the f32 and the int8 products (blocked_topk)."""
+    import numpy as np
+
+    from laff_tpu_torch.engine.evaluator import t2v_ranks
+    from laff_tpu_torch.ops import flatten_heads, int8_scores, quantize_rows
+    from laff_tpu_torch.parallel import sim_engine as E
+
+    index = {v: i for i, v in enumerate(vis_ids)}
+    gt = torch.as_tensor([index[t.split("#")[0]] for t in txt_ids], device="cuda")
+    vn = flatten_heads(vis)
+    vq, vs = quantize_rows(vn)
+    q = flatten_heads(txt[:MULTI_QUERIES]).float()  # as the engine flattens its queries
+    tq, ts = quantize_rows(q)
+    t0 = time.perf_counter()
+    with world_of_one() as mesh:
+        ranks = E.sharded_t2v_ranks(txt, vis, gt, mesh)
+        vals, idx = E.sharded_topk(txt[:MULTI_QUERIES], vis, MESH_ONE_K, mesh)
+        vals8, idx8 = E.sharded_int8_topk(txt[:MULTI_QUERIES], vq, vs, MESH_ONE_K, mesh)
+    seconds = time.perf_counter() - t0
+    ref = t2v_ranks(txt, vis, txt_ids, vis_ids, rank_path="flat")
+    check(np.array_equal(ranks, ref), "[mesh 1] sharded_t2v_ranks differs from the one-card "
+          f"flat ranks on {int((ranks != ref).sum())} captions")
+    ref_vals, ref_idx = one_card_topk(torch, q, lambda s, e: q @ vn[s:e].float().T,
+                                      vn.shape[0], MESH_ONE_K)
+    check(np.array_equal(vals, ref_vals) and np.array_equal(idx, ref_idx),
+          "[mesh 1] sharded_topk differs from the one-card top k")
+    ref8 = one_card_topk(torch, q, lambda s, e: int8_scores(tq, ts, vq[s:e], vs[s:e]),
+                         vn.shape[0], MESH_ONE_K)
+    check(np.array_equal(vals8, ref8[0]) and np.array_equal(idx8, ref8[1]),
+          "[mesh 1] sharded_int8_topk differs from the one-card top k")
+    log(f"[mesh 1] sim_engine over an NCCL group of one on rtest's embeddings ({len(txt_ids)} x "
+        f"{len(vis_ids)}): ranks, the f32 top {MESH_ONE_K} and the int8 top {MESH_ONE_K} of "
+        f"{MULTI_QUERIES} queries equal the one-card functions' bit for bit ({seconds:.1f} s)")
+    return {"sim_engine_s": seconds}
+
+
+def service_lists_equal(got, want):
+    """Two services' result lists are the same, bit for bit."""
+    return all(a == b for a, b in zip(got, want)) and len(got) == len(want)
+
+
+def mesh_one_serve_phase(torch, K, root, ckpt, smi):
+    """15 (b). RetrievalService(mesh=) over an NCCL group of one on phase 12's
+    BERT checkpoint over bval, bf16 and int8, bit for bit against the
+    one-card service: searches at buckets 1 and 64, an ingest of 64 copies,
+    and the snapshot the mesh writes restored by the one-card service.
+    Returns the launches of the mesh services' builds, searches and
+    ingests."""
+    import numpy as np
+
+    from laff_tpu_torch.engine import service as S
+    from laff_tpu_torch.store import BigFile
+
+    coll = "bval"
+    with open(os.path.join(root, coll, "TextData", f"{coll}.caption.txt")) as fh:
+        queries = [line.split(" ", 1)[1] for line in fh.read().splitlines()[:64]]
+    snap = os.path.join(WORK, "mesh_one_gallery.npz")
+    launches = {}
+    t0 = time.perf_counter()
+
+    def session(svc):
+        out = [svc.search(queries[:1], k=10), svc.search(queries, k=100)]
+        src = [row[0][0] for row in out[1]]
+        feats = {name: BigFile(os.path.join(root, coll, "FeatureData", name)).gather(src)[1]
+                 for name in svc.config.vid_feats}
+        svc.add_videos([f"copy_{i}" for i in range(len(src))], feats)
+        out.append(svc.search(queries, k=100))
+        check(any(i.startswith("copy_") for row in out[-1] for i, _ in row),
+              "[mesh 1] the ingested copies are not found")
+        return out
+
+    for dtype in ("bf16", "int8"):
+        cache = snap if dtype == "bf16" else None
+        with world_of_one() as mesh:
+            K.reset_launches()
+            svc = S.RetrievalService(ckpt, root, coll, gallery_dtype=dtype, capacity=1000,
+                                     gallery_cache=cache, mesh=mesh)
+            got = session(svc)
+            svc.close()
+            launches = {k: launches.get(k, 0) + v for k, v in K.LAUNCHES.items()}
+        one = S.RetrievalService(ckpt, root, coll, gallery_dtype=dtype, capacity=1000)
+        check(service_lists_equal(session(one), got),
+              f"[mesh 1] the {dtype} service over a mesh of one differs from one card's")
+        if cache:
+            restored = S.RetrievalService(ckpt, root, coll, capacity=1000, gallery_cache=snap)
+            check(service_lists_equal([restored.search(queries[:1], k=10)], got[:1]),
+                  "[mesh 1] the snapshot the mesh wrote does not restore on one card")
+            del restored
+        del svc, one
+    check(launches["gate_attention"] >= 2, f"[mesh 1] the services launched {launches}")
+    log(f"[mesh 1] RetrievalService over an NCCL group of one on {coll} (bf16 and int8): "
+        f"searches at buckets 1 and 64, an ingest of 64 copies and the snapshot bit for bit "
+        f"against one card's in {time.perf_counter() - t0:.1f} s; launches {launches} [{smi}]")
+    return launches
+
+
+# -- --multi: four ranks ----------------------------------------------------
+
+def sign_rows(torch, gen, n, device):
+    """``n`` rows of +-1/64 (unit rows whose l2 norm is exact in any order of
+    summation), bf16."""
+    r = torch.randint(0, 2, (n, HD), generator=gen, device=device, dtype=torch.int8)
+    return (r.to(torch.bfloat16) * 2 - 1) / 64
+
+
+def rank_counts(mesh, counts):
+    """Every rank's ``counts``, in rank order (rank 0 reads them)."""
+    import torch.distributed as dist
+
+    out = [None] * mesh.size
+    dist.all_gather_object(out, counts)
+    return out
+
+
+def multi_sim_phase(torch, mesh, smi):
+    """(a) sim_engine over the four cards. The ranks at the MV-test3k shape
+    (59,800 x 2,990 x 4,096, f32; 20 captions a video; the gallery's rows
+    duplicated across each shard boundary) against one card's flat ranks
+    (evaluator.t2v_ranks), exactly; the top 1,000 of 512 queries over an
+    iacc.3-sized bf16 gallery (335,944 x 4,096, 2.75 GB: 0.69 GB a card;
+    duplicates across the boundaries, and queries equal to them) and of its
+    int8 rows against one card's top k in the port's order, exactly. Gallery
+    rows are +-1/64 codes, so their l2 normalization is exact on either side
+    and only the sharding is compared. ms a call against one card's."""
+    import numpy as np
+
+    from laff_tpu_torch.engine.evaluator import t2v_ranks
+    from laff_tpu_torch.ops import flatten_heads, int8_scores, quantize_rows
+    from laff_tpu_torch.parallel import sim_engine as E
+
+    dev, main = mesh.device, mesh.is_main
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    vis = sign_rows(torch, gen, MV_V, dev).float()
+    shard = -(-MV_V // mesh.size)
+    for b in range(shard, MV_V, shard):  # four equal rows straddle each boundary
+        vis[b - 2:b + 2] = vis[b - 2]
+    gt = torch.arange(MV_T, device=dev) // MV_CAPS
+    txt = 0.03 * vis[gt] + torch.randn((MV_T, HD), generator=gen, device=dev) / 64
+    local, v = E.shard_gallery(vis, mesh)
+    ranks = E.sharded_t2v_ranks(txt, local, gt, mesh, v)
+    ms = time_ms(torch, lambda: E.sharded_t2v_ranks(txt, local, gt, mesh, v), reps=3)
+    if main:
+        vis_ids = [str(i) for i in range(MV_V)]
+        txt_ids = [f"{g}#{i}" for i, g in enumerate(gt.tolist())]
+        ref = t2v_ranks(txt, vis, txt_ids, vis_ids, rank_path="flat")
+        one_ms = time_ms(torch, lambda: t2v_ranks(txt, vis, txt_ids, vis_ids,
+                                                  rank_path="flat"), reps=3)
+        tied = int((ranks[(gt >= shard - 2).cpu().numpy() & (gt < shard + 2).cpu().numpy()]
+                    > 1).sum())
+        check(np.array_equal(ranks, ref), f"[multi a] sharded_t2v_ranks differs from one card's "
+              f"flat ranks on {int((ranks != ref).sum())} captions")
+        out["ranks"] = {"ms": ms, "one_card_ms": one_ms}
+        log(f"[multi a] sharded_t2v_ranks at {MV_T} x {MV_V} x {HD} over {mesh.size} cards: "
+            f"{int((ranks != ref).sum())} captions rank otherwise than on one card's flat path "
+            f"(R@1 {100 * float((ranks == 1).mean()):.2f}; "
+            f"{tied} captions of the boundary's duplicated videos rank behind a tied copy): "
+            f"{ms:.3f} ms a call against {one_ms:.3f} ms on one card [{smi}]")
+    mesh.barrier()
+    del vis, txt, local
+
+    # the iacc.3-sized gallery: every rank draws it in the same chunks and keeps its slab
+    chunk = 32768
+    rows = []
+    for c0 in range(0, AVS_SHOTS, chunk):
+        g = torch.Generator(device=dev).manual_seed(SEED + 30 + c0 // chunk)
+        rows.append(sign_rows(torch, g, min(chunk, AVS_SHOTS - c0), dev))
+    gallery = torch.cat(rows)
+    del rows
+    shard = -(-AVS_SHOTS // mesh.size)
+    for b in range(shard, AVS_SHOTS, shard):
+        gallery[b - 2:b + 2] = gallery[b - 2]
+    q = torch.randn((MULTI_QUERIES, HD), generator=gen, device=dev)
+    for i, b in enumerate(range(shard, AVS_SHOTS, shard)):
+        q[i] = gallery[b - 2].float()
+    local, v = E.shard_gallery(gallery, mesh)
+    local = local.clone()
+    if not main:
+        del gallery
+    vq, vs = quantize_rows(flatten_heads(local))
+    calls = {"topk": lambda: E.sharded_topk(q, local, MULTI_K, mesh, v),
+             "int8": lambda: E.sharded_int8_topk(q, vq, vs, MULTI_K, mesh, v)}
+    got = {name: fn() for name, fn in calls.items()}
+    times = {name: time_ms(torch, fn, reps=3) for name, fn in calls.items()}
+    if main:
+        tn = flatten_heads(q).float()
+        vn = flatten_heads(gallery)
+        fq, fs = quantize_rows(vn)
+        tq, ts = quantize_rows(tn)
+        blocks = {"topk": lambda s, e: tn @ vn[s:e].float().T,
+                  "int8": lambda s, e: int8_scores(tq, ts, fq[s:e], fs[s:e])}
+        for name, block in blocks.items():
+            ref = one_card_topk(torch, tn, block, AVS_SHOTS, MULTI_K)
+            vals, idx = got[name]
+            same = np.array_equal(vals, ref[0]) and np.array_equal(idx, ref[1])
+            check(same, f"[multi a] sharded {name} differs from one card's top {MULTI_K}: "
+                  f"{int((idx != ref[1]).sum())} places, scores within "
+                  f"{float(np.abs(vals - ref[0]).max()):.3g}")
+            ties = int((np.diff(vals[:mesh.size - 1], axis=1) == 0).sum())
+            one_ms = time_ms(torch, lambda: one_card_topk(torch, tn, block, AVS_SHOTS, MULTI_K),
+                             reps=3)
+            out[name] = {"ms": times[name], "one_card_ms": one_ms}
+            kind = "int8" if name == "int8" else "bf16"
+            log(f"[multi a] sharded_{'int8_' if name == 'int8' else ''}topk: {MULTI_QUERIES} "
+                f"queries, top {MULTI_K} of {AVS_SHOTS} x {HD} ({kind}; "
+                f"{local.numel() * local.element_size() / 1e9:.2f} GB of bf16 a card): equal to "
+                f"one card's lists in the port's order: {same} ({ties} tied places among the "
+                f"boundary queries): {times[name]:.2f} ms a call against {one_ms:.2f} ms on one "
+                f"card")
+        del vn, fq, fs
+    mesh.barrier()
+    return out
+
+
+def served_lists_agree(got, want, tol):
+    """(ok, places that differ, max score distance): ids equal but at near
+    ties (within ``tol`` of a neighbour in ``want``), scores within ``tol``."""
+    moved, err, ok = 0, 0.0, True
+    for row_g, row_w in zip(got, want):
+        vals = [s for _, s in row_w]
+        for i, ((id_g, s_g), (id_w, s_w)) in enumerate(zip(row_g, row_w)):
+            err = max(err, abs(s_g - s_w))
+            if id_g != id_w:
+                moved += 1
+                ok = ok and near_tie(vals, i, tol)
+    return ok and err <= tol and len(got) == len(want), moved, err
+
+
+def multi_serve_phase(torch, K, mesh, root, ckpt, smi):
+    """(b) RetrievalService(mesh=) over iacc.3 on the four cards, bf16 and
+    int8, against the one-card service (rank 0, card 0) on the BERT
+    checkpoint's 512 btrain captions: searches at buckets 1 (k 10) and 512
+    (k 1,000), an ingest of 1,024 copies, a restart from the snapshot rank 0
+    wrote (bit for bit); the builds and searches timed. Returns rank 0's
+    figures and every rank's launches."""
+    import numpy as np
+
+    from laff_tpu_torch.engine import service as S
+    from laff_tpu_torch.store import BigFile
+
+    main = mesh.is_main
+    with open(os.path.join(root, "btrain", "TextData", "btrain.caption.txt")) as fh:
+        queries = [line.split(" ", 1)[1] for line in fh.read().splitlines()[:MULTI_QUERIES]]
+    asks = ((1, 10), (MULTI_QUERIES, MULTI_K))
+    snap = os.path.join(WORK, "multi_gallery.npz")
+    cap = AVS_SHOTS + SERVE_INGEST
+    out, launches = {}, {}
+
+    def timed(svc):
+        return {f"b{b}": time_ms(torch, lambda: svc.search(queries[:b], k=k), reps=3)
+                for b, k in asks}
+
+    def ingest(svc, src):
+        feats = {name: BigFile(os.path.join(root, AVS_COLLECTION, "FeatureData",
+                                            name)).gather(src)[1]
+                 for name in svc.config.vid_feats}
+        t0 = time.perf_counter()
+        svc.add_videos([f"ingested_{i}" for i in range(SERVE_INGEST)], feats)
+        return time.perf_counter() - t0
+
+    def session(svc, src=None):
+        """Searches, an ingest of copies of ``src`` (by default the top
+        videos of the first 8 queries) and a search after it."""
+        res = {f"b{b}": svc.search(queries[:b], k=k) for b, k in asks}
+        if src is None:
+            first = [row[0][0] for row in svc.search(queries[:8], k=1)]
+            src = [first[i % len(first)] for i in range(SERVE_INGEST)]
+        res["src"] = src
+        res["ingest_s"] = ingest(svc, src)
+        res["after"] = svc.search(queries, k=MULTI_K)
+        check(any(i.startswith("ingested_") for row in res["after"] for i, _ in row),
+              "[multi b] the ingested copies are not found")
+        return res
+
+    # bf16 over the mesh, snapshotted; every rank embeds its slab
+    K.reset_launches()
+    t0 = time.perf_counter()
+    svc = S.RetrievalService(ckpt, root, AVS_COLLECTION, capacity=cap, gallery_cache=snap,
+                             mesh=mesh)
+    build_s = time.perf_counter() - t0
+    launches["build"] = rank_counts(mesh, dict(K.LAUNCHES))
+    if main:
+        got = session(svc)
+        times = timed(svc)
+        svc.close()
+    else:
+        svc.follow()
+    del svc
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    svc = S.RetrievalService(ckpt, root, AVS_COLLECTION, capacity=cap, gallery_cache=snap,
+                             mesh=mesh)
+    restart_s = time.perf_counter() - t0
+    if main:
+        check(service_lists_equal([svc.search(queries, k=MULTI_K)], [got[f"b{MULTI_QUERIES}"]]),
+              "[multi b] the restart from the snapshot differs")
+        svc.close()
+    else:
+        svc.follow()
+    del svc
+    if main:  # one card's service, the same session
+        t0 = time.perf_counter()
+        one = S.RetrievalService(ckpt, root, AVS_COLLECTION, capacity=cap,
+                                 device=str(mesh.device))
+        one_build_s = time.perf_counter() - t0
+        ref = session(one, got["src"])
+        one_times = timed(one)
+        del one
+        for key in (*(f"b{b}" for b, _ in asks), "after"):
+            ok, moved, err = served_lists_agree(got[key], ref[key], MULTI_TIE)
+            check(ok, f"[multi b] bf16 {key}: {moved} places differ from one card's beyond "
+                  f"near ties, scores within {err}")
+        out["bf16"] = {"build_s": build_s, "restart_s": restart_s, "one_card_build_s":
+                       one_build_s, "ingest_s": got["ingest_s"],
+                       "one_card_ingest_s": ref["ingest_s"], "search_ms": times,
+                       "one_card_search_ms": one_times}
+        log(f"[multi b] bf16 gallery of {AVS_SHOTS} over {mesh.size} cards built in "
+            f"{build_s:.1f} s (one card {one_build_s:.1f} s; phase 13's 10.1-12.8 s), restarted "
+            f"from rank 0's snapshot in {restart_s:.1f} s; a search {times['b1']:.2f} ms at "
+            f"bucket 1 and {times[f'b{MULTI_QUERIES}']:.2f} ms at {MULTI_QUERIES} (one card "
+            f"{one_times['b1']:.2f} and {one_times[f'b{MULTI_QUERIES}']:.2f}); ingest of "
+            f"{SERVE_INGEST} {got['ingest_s']:.2f} s; lists equal one card's but near ties "
+            f"({MULTI_TIE}); build launches by rank {launches['build']} [{smi}]")
+    mesh.barrier()
+    torch.cuda.empty_cache()
+
+    # int8 over the mesh against one card's
+    K.reset_launches()
+    t0 = time.perf_counter()
+    svc = S.RetrievalService(ckpt, root, AVS_COLLECTION, gallery_dtype="int8", capacity=cap,
+                             mesh=mesh)
+    int8_build_s = time.perf_counter() - t0
+    launches["int8_build"] = rank_counts(mesh, dict(K.LAUNCHES))
+    if main:
+        got8 = {f"b{b}": svc.search(queries[:b], k=k) for b, k in asks}
+        svc.close()
+    else:
+        svc.follow()
+    del svc
+    if main:
+        one = S.RetrievalService(ckpt, root, AVS_COLLECTION, gallery_dtype="int8", capacity=cap,
+                                 device=str(mesh.device))
+        for b, k in asks:
+            ok, moved, err = served_lists_agree(got8[f"b{b}"], one.search(queries[:b], k=k),
+                                                MULTI_TIE)
+            check(ok, f"[multi b] int8 bucket {b}: {moved} places differ from one card's "
+                  f"beyond near ties, scores within {err}")
+        del one
+        out["int8"] = {"build_s": int8_build_s}
+        log(f"[multi b] int8 gallery over {mesh.size} cards built in {int8_build_s:.1f} s; lists "
+            f"equal one card's but near ties")
+    for rank, counts in enumerate(launches["build"]):
+        check(counts["gate_attention"] >= 1, f"[multi b] rank {rank} embedded no slab: {counts}")
+    mesh.barrier()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def multi_predict_phase(torch, K, P, mesh, root, ckpt, smi):
+    """(c) predictor.main with data_parallel 4 on rtest (the rehearsal
+    model's seeded weights, rank_path 'kernel'): every card runs the gate on
+    its rows and rank 0 alone runs the wide rank kernel; the metrics against
+    one card's run at the per-card batch (256 rows a call, so the towers'
+    GEMMs have the same shapes), within MULTI_METRIC_TOL, and the TSV rows
+    written once."""
+    import dataclasses
+
+    import numpy as np
+
+    opt = P.PredictOptions(testCollection="rtest", model_path=ckpt, sim_name="multi_dp",
+                           rootpath=root, query_sets="rtest.caption.txt", overwrite=1,
+                           device=str(mesh.device), rank_path="kernel",
+                           data_parallel=mesh.size,
+                           predict_result_file=os.path.join(root, "result_log", "multi_dp.txt"))
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = P.main(opt, mesh=mesh).get("rtest.caption.txt")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rank_counts(mesh, dict(K.LAUNCHES))
+    out = {}
+    if mesh.is_main:
+        for rank, counts in enumerate(launches):
+            check(counts["gate_attention"] >= 1 and (counts["sim_rank_wide"] >= 1) == (rank == 0),
+                  f"[multi c] rank {rank} launched {counts}")
+        one_opt = dataclasses.replace(opt, sim_name="multi_one", data_parallel=0,
+                                      batch_size=opt.batch_size // mesh.size,
+                                      predict_result_file=os.path.join(root, "result_log",
+                                                                       "multi_one.txt"))
+        t0 = time.perf_counter()
+        one = P.main(one_opt)["rtest.caption.txt"]
+        one_wall = time.perf_counter() - t0
+        for key in ("t2v", "v2t"):
+            diff = float(np.abs(np.asarray(res[key]) - np.asarray(one[key])).max())
+            check(diff <= MULTI_METRIC_TOL, f"[multi c] {key} {res[key]} against one card's "
+                  f"{one[key]}")
+        moved = int((np.asarray(res["t2v_ranks"]) != np.asarray(one["t2v_ranks"])).sum())
+        for side in ("TextToVideo", "VideoToText"):
+            with open(os.path.join(root, "result_log", side, "multi_dp.txt")) as fh:
+                rows = fh.read().splitlines()
+            check(len(rows) == 1, f"[multi c] {side} holds {len(rows)} rows of the run")
+        out = {"wall_s": wall, "one_card_wall_s": one_wall, "ranks_moved": moved,
+               "seconds": res["seconds"]}
+        log(f"[multi c] predictor data_parallel {mesh.size} on rtest: {wall:.1f} s (one card at "
+            f"{one_opt.batch_size} a call {one_wall:.1f} s); t2v r1 {res['t2v'][0]:.3f} mir "
+            f"{res['t2v'][5]:.5f}, metrics within {MULTI_METRIC_TOL} of one card's, {moved} "
+            f"ranks differ; the rows written once; launches by rank {launches} [{smi}]")
+    mesh.barrier()
+    return out, launches
+
+
+class LosingReduce:
+    """A control fault for (d): the mesh of a run whose gradient all-reduce
+    loses the last rank's share (that rank zeroes its buffer first)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def all_reduce(self, t):
+        if self.mesh.rank == self.mesh.size - 1:
+            t.zero_()
+        return self.mesh.all_reduce(t)
+
+
+@contextlib.contextmanager
+def f32_towers():
+    """Inside, ``prepare.load_config`` gives configs with float16 off: f32
+    towers, as the CPU parity tests run them."""
+    from laff_tpu_torch.engine import prepare as PR
+
+    load = PR.load_config
+
+    def load_f32(name, parm="None"):
+        config = load(name, parm)
+        config.float16 = False
+        return config
+
+    PR.load_config = load_f32
+    try:
+        yield
+    finally:
+        PR.load_config = load
+
+
+def multi_train_phase(torch, K, mesh, root, smi):
+    """(d) the trainer with data_parallel 4 on rtrain -> rtest (rehearsal,
+    global B 128: 32 rows a card, K 8 graphed, dropout on). The first
+    dispatch against one card's run from the same seed and batches (rank 0
+    alone first), twice: with f32 towers, where its 8 losses must lie within
+    1e-4 relative and every parameter tensor within 1e-4 of its largest; and
+    in the config's bf16, where the losses must lie within 1e-4 and the
+    parameters within MULTI_PARAM_TOL_BF16 of their largest and
+    MULTI_UPDATE_TOL_BF16 of one card's update in norm (each card rounds its
+    partial gradient sums to bf16 before the all-reduce, and Adam turns that
+    rounding into steps of lr: the CPU probe of PERF.md §6).
+    The bf16 limit leaves out the tensors that the dispatch made, those
+    whose largest magnitude on one card is within 2 K lr of zero (they start
+    at zero, so their largest is Adam's steps alone). A control run whose
+    gradient all-reduce loses the last rank's share is read the same way.
+    The ranks' parameters must be equal bit for bit after each. Then the
+    bf16 run goes on: two epochs (the loss falls, R@1 above chance), ms per
+    graphed step against one card's, the all-reduce of the flat gradients
+    timed, a profiled dispatch; then one epoch at 128 a card (global 512).
+    Returns rank 0's figures and every rank's launches of the two
+    epochs."""
+    import dataclasses
+
+    from laff_tpu_torch.engine import trainer as T
+    from laff_tpu_torch.engine.prepare import Options
+
+    main = mesh.is_main
+    opt = Options(trainCollection="rtrain", valCollection="rtest", rootpath=root,
+                  val_set="no", config_name="rehearsal", num_epochs=2,
+                  batch_size=MULTI_BATCH, device=str(mesh.device), rank_path="kernel",
+                  random_seed=SEED, model_prefix="multi", data_parallel=mesh.size)
+    out = {}
+
+    def first_dispatch(run):
+        """Epoch 0's stream after its first dispatch, the dispatch's losses
+        and the parameters before and after it."""
+        before = {n: p.detach().clone() for n, p in run.model.named_parameters()}
+        run.begin_epoch(0)
+        stream = run.epoch_stream(0)
+        stream.advance()
+        first = stream.pending[0].detach().cpu()
+        after = {n: p.detach().clone() for n, p in run.model.named_parameters()}
+        return stream, first, before, after
+
+    def held(first, params, init, ref):
+        """A data-parallel first dispatch against one card's: the losses'
+        largest relative distance, then per tensor (worst first) the largest
+        distance of its largest magnitude, the distance in norm of one
+        card's update in norm, and its name."""
+        rel = float(((first - ref["first"]).abs() / ref["first"].abs()).max())
+        errs = []
+        for n, p in params.items():
+            one = ref["params"][n]
+            upd = float((one - init[n]).norm())
+            errs.append((float((p - one).abs().max() / one.abs().max()),
+                         float((p - one).norm()) / upd if upd else 0.0, n))
+        return rel, sorted(errs, reverse=True)
+
+    def rest_of_epoch(run, stream):
+        """(ms a step over the epoch's later dispatches, loss, steps)."""
+        torch.cuda.synchronize()
+        t0, steps0 = time.perf_counter(), stream.n
+        while stream.advance():
+            pass
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / max(1, stream.n - steps0)
+        loss, steps = run.finish_stream(stream)
+        return step_ms, loss, steps
+
+    def against_one_card(tag, opt, prepared, timed, control=False):
+        """The data-parallel run after its first dispatch, against one card's:
+        (run, stream, figures); with ``timed`` one card's epoch is timed, with
+        ``control`` a run whose all-reduce loses a rank's share is read too."""
+        ref = {}
+        if main:  # one card first, the others wait
+            one = T.TrainRun(dataclasses.replace(opt, data_parallel=0,
+                                                 model_prefix=f"multi_one_{tag}"),
+                             prepared, mesh.device)
+            t0 = time.time()
+            one_stream, ref["first"], _, ref["params"] = first_dispatch(one)
+            made = 2 * len(ref["first"]) * float(one.optimizer.lr)  # 2 K lr
+            ref["made"] = {n for n, p in ref["params"].items() if float(p.abs().max()) <= made}
+            if timed:
+                ref["step_ms"] = rest_of_epoch(one, one_stream)[0]
+                ref["epoch_s"] = time.time() - t0
+            one.close()
+            del one, one_stream
+            torch.cuda.empty_cache()
+        mesh.barrier()
+        run = T.TrainRun(dataclasses.replace(opt, model_prefix=f"multi_{tag}"), prepared,
+                         mesh.device, mesh=mesh)
+        stream, first, init, params = first_dispatch(run)
+        flat = torch.cat([p.flatten() for p in params.values()])
+        replicas = mesh.all_gather(flat[None])
+        same = all(torch.equal(replicas[0], r) for r in replicas[1:])
+        del replicas, flat
+        figures = {"replicas_equal": same}
+        limit = MULTI_PARAM_TOL if tag == "f32" else MULTI_PARAM_TOL_BF16
+        update_limit = float("inf") if tag == "f32" else MULTI_UPDATE_TOL_BF16
+        if main:
+            rel, errs = held(first, params, init, ref)
+            kept = [e for e in errs if tag == "f32" or e[2] not in ref["made"]]
+            figures.update(loss_rel=rel, first_losses=first.tolist(),
+                           one_card_first_losses=ref["first"].tolist(),
+                           param_worst=errs[:5], tensors=len(errs), limit=limit,
+                           left_out=sorted(set(n for *_, n in errs) - set(n for *_, n in kept)),
+                           kept_worst=kept[:5], kept_worst_norm=max(e[1] for e in kept),
+                           tensors_over=sum(e[0] > limit for e in kept),
+                           one_card_step_ms=ref.get("step_ms"),
+                           one_card_epoch_s=ref.get("epoch_s"))
+            log(f"[multi d] {tag} towers, data_parallel {mesh.size} at global B {MULTI_BATCH}: the "
+                f"first dispatch's 8 losses within {rel:.3g} of one card's ({first.tolist()} "
+                f"against {ref['first'].tolist()}); {figures['tensors_over']} of {len(kept)} "
+                f"parameter tensors held further than {limit} of their largest from one card's "
+                f"(worst held {[(f'{e:.3g}', f'{u:.3g}', n) for e, u, n in kept[:5]]}, largest "
+                f"distance in norm of one card's update {figures['kept_worst_norm']:.3g}; "
+                f"{len(errs) - len(kept)} left out as made by the dispatch: "
+                f"{figures['left_out']}; worst of all {[(f'{e:.3g}', n) for e, _, n in errs[:3]]});"
+                f" the ranks' parameters equal bit for bit: {same} [{smi}]")
+            check(rel <= MULTI_LOSS_RTOL, f"[multi d] {tag}: the first dispatch's losses "
+                  f"{rel:.3g} relative from one card's")
+            check(kept[0][0] <= limit, f"[multi d] {tag}: {kept[0][2]} after the first dispatch "
+                  f"{kept[0][0]:.3g} of its largest from one card's (limit {limit})")
+            check(figures["kept_worst_norm"] <= update_limit, f"[multi d] {tag}: a tensor after "
+                  f"the first dispatch {figures['kept_worst_norm']:.3g} of one card's update in "
+                  f"norm from one card's (limit {update_limit})")
+        check(same, f"[multi d] {tag}: the ranks' parameters differ after the first dispatch")
+        if control:
+            ctl = T.TrainRun(dataclasses.replace(opt, model_prefix=f"multi_ctl_{tag}"), prepared,
+                             mesh.device, mesh=mesh)
+            ctl.optimizer.mesh = LosingReduce(mesh)
+            ctl_stream, ctl_first, ctl_init, ctl_params = first_dispatch(ctl)
+            ctl.close()
+            del ctl, ctl_stream
+            if main:
+                rel, errs = held(ctl_first, ctl_params, ctl_init, ref)
+                kept = [e for e in errs if e[2] not in ref["made"]]
+                figures["control"] = {"loss_rel": rel, "kept_worst": kept[:5],
+                                      "kept_worst_norm": max(e[1] for e in kept),
+                                      "tensors_over": sum(e[0] > limit for e in kept),
+                                      "caught": (rel > MULTI_LOSS_RTOL or kept[0][0] > limit
+                                                 or max(e[1] for e in kept) > update_limit)}
+                log(f"[multi d] {tag} control, the all-reduce losing rank {mesh.size - 1}'s "
+                    f"share: losses within {rel:.3g} of one card's; {figures['control']['tensors_over']}"
+                    f" of {len(kept)} held tensors further than {limit} (worst "
+                    f"{[(f'{e:.3g}', f'{u:.3g}', n) for e, u, n in kept[:5]]}, largest distance "
+                    f"in norm {figures['control']['kept_worst_norm']:.3g}); caught by the checks: "
+                    f"{figures['control']['caught']}")
+            del ctl_params, ctl_init
+            torch.cuda.empty_cache()
+            mesh.barrier()
+        return run, stream, figures
+
+    # f32 towers: the parameters held tensor by tensor
+    opt32 = dataclasses.replace(opt, model_prefix="multi32")
+    with f32_towers():
+        prepared32 = T.prepare_ranks(opt32, mesh)
+    run32, stream32, out["f32"] = against_one_card("f32", opt32, prepared32, False)
+    run32.close()
+    del run32, stream32, prepared32
+    torch.cuda.empty_cache()
+
+    # the config's bf16: the comparison, then two epochs
+    prepared = T.prepare_ranks(opt, mesh)
+    K.reset_launches()
+    run, stream, figures = against_one_card("bf16", opt, prepared, True, control=True)
+    try:
+        t_epoch = time.time()
+        step_ms, loss, steps = rest_of_epoch(run, stream)
+        epoch_s = time.time() - t_epoch
+        step_launches = dict(K.LAUNCHES)
+        stopped = run.end_epoch(0, loss, steps, epoch_s)
+        run.begin_epoch(1)
+        t0 = time.time()
+        loss1, steps1 = run.train_epoch(1)
+        run.end_epoch(1, loss1, steps1, time.time() - t0)
+        check(stopped is False, "[multi d] the run stopped after one epoch")
+        # the all-reduce of the flat gradient buffer alone, and a profiled dispatch
+        buf = torch.zeros_like(run.optimizer.grad)
+        allreduce_ms = time_ms(torch, lambda: mesh.all_reduce(buf), reps=10)
+        run.begin_epoch(2)
+        stream = run.epoch_stream(2)
+        spans, nccl_spans, prof_wall = profiled_spans(torch, stream.advance)
+        while stream.advance():
+            pass
+        run.finish_stream(stream)
+    finally:
+        run.close()
+    history = run.results["history"]
+    launches = rank_counts(mesh, {"steps": step_launches, "two_epochs": dict(K.LAUNCHES)})
+    if main:
+        losses = [e["loss"] for e in history]
+        busy, nccl_ms = union_ms(spans), union_ms(nccl_spans) / 8
+        idle = 1 - busy / prof_wall if spans else None
+        # the profiler stretches the dispatch: its busy ms a step against the
+        # unprofiled graphed step too
+        step_idle = 1 - busy / 8 / step_ms if spans else None
+        out["bf16"] = {**figures, "step_ms": step_ms, "allreduce_ms": allreduce_ms,
+                       "graph_nccl_ms_a_step": nccl_ms if spans else None, "idle": idle,
+                       "idle_of_step": step_idle,
+                       "busy_ms": busy, "profiled_wall_ms": prof_wall,
+                       "epoch_s": epoch_s, "history": history, "launches": launches}
+        log(f"[multi d] bf16: a graphed step {step_ms:.2f} ms against "
+            f"{figures['one_card_step_ms']:.2f} ms on one card; epoch 0 "
+            f"{epoch_s:.1f} s of steps after the first dispatch (one card's whole epoch "
+            f"{figures['one_card_epoch_s']:.1f} s); losses {[round(x, 4) for x in losses]}, R@1 "
+            f"{[round(e['r1'], 3) for e in history]}; the flat gradients' all-reduce "
+            f"({buf.numel() * 4 / 1e6:.0f} MB) {allreduce_ms:.3f} ms; a profiled dispatch "
+            + (f"{busy:.2f} ms covered by its {len(spans)} non-NCCL kernels (the union of their "
+               f"intervals) in {prof_wall:.2f} ms, idle {idle:.1%} ({busy / 8:.2f} ms a step: "
+               f"idle {step_idle:.1%} of the unprofiled step); its {len(nccl_spans)} NCCL "
+               f"kernels cover {nccl_ms:.3f} ms a step (spin-waits included)"
+               if spans else "recorded no device time (not measured)")
+            + f"; launches by rank {launches} [{smi}]")
+        check(losses[1] < losses[0] and history[1]["r1"] > 100.0 / 2990,
+              f"[multi d] two epochs: losses {losses}, R@1 {history[1]['r1']}")
+        for rank, counts in enumerate(launches):
+            check(counts["steps"]["gate_attention"] == 0 and counts["steps"]["sim_rank_wide"] == 0,
+                  f"[multi d] rank {rank}'s steps launched {counts['steps']}")
+            # every card embeds its rows; rank 0 alone ranks
+            check(counts["two_epochs"]["gate_attention"] >= 2
+                  and (counts["two_epochs"]["sim_rank_wide"] >= 2) == (rank == 0),
+                  f"[multi d] rank {rank}'s validations launched {counts['two_epochs']}")
+    mesh.barrier()
+
+    # one epoch at 128 a card
+    wide = dataclasses.replace(opt, batch_size=MULTI_BATCH * mesh.size, num_epochs=1,
+                               model_prefix="multi_wide")
+    res = T.main(wide, prepared=T.prepare_ranks(wide, mesh), mesh=mesh)
+    if main:
+        e = res["history"][0]
+        check(e["loss"] == e["loss"], "[multi d] the global-512 epoch's loss is NaN")
+        out["wide_epoch"] = {k: e[k] for k in ("loss", "steps", "train_seconds", "val_seconds",
+                                               "r1")}
+        log(f"[multi d] one epoch at {MULTI_BATCH} a card (global {wide.batch_size}): "
+            f"{e['steps']} steps in {e['train_seconds']:.2f} s (capture included), validation "
+            f"{e['val_seconds']:.2f} s, loss {e['loss']:.4f}, R@1 {e['r1']:.3f}")
+    return out, launches
+
+
+def multi_rank(mesh, root, ckpt, bert_ckpt, smi):
+    """One of the four ranks of ``--multi``: phases (d), (a), (c) and (b) in
+    turn, every rank in each; rank 0 checks and returns the figures."""
+    import torch
+
+    from laff_tpu_torch.engine import predictor as P
+    from laff_tpu_torch.ops import kernels as K
+
+    global DEFERRED
+    DEFERRED = []
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    laps, out = {}, {}
+    # the trainer first: its CUDA graph captures NCCL collectives, the step
+    # most likely to fail
+    t0 = time.perf_counter()
+    out["train"], train_launches = multi_train_phase(torch, K, mesh, root, smi)
+    laps["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["sim_engine"] = multi_sim_phase(torch, mesh, smi)
+    laps["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["predict"], predict_launches = multi_predict_phase(torch, K, P, mesh, root, ckpt, smi)
+    laps["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["serve"], serve_launches = multi_serve_phase(torch, K, mesh, root, bert_ckpt, smi)
+    laps["b"] = time.perf_counter() - t0
+    out["seconds"] = laps
+    out["launches_by_rank"] = {"multi_serve_build": serve_launches["build"],
+                               "multi_serve_int8_build": serve_launches["int8_build"],
+                               "multi_predict": predict_launches,
+                               "multi_train": [c["two_epochs"] for c in train_launches]}
+    if mesh.is_main:
+        log(f"[multi] phases: {', '.join(f'{k} {v:.1f} s' for k, v in laps.items())}")
+        log(json.dumps({"multi": out}, default=float))
+    if DEFERRED:
+        raise SmokeFailure("; ".join(DEFERRED))
+    return out
+
+
+def multi_only(torch, smi):
+    """``--multi``: phases 1 and 15 (a)-(d) over four cards, one rank each
+    through ``laff_tpu_torch.parallel.launch`` (the kernels and the native
+    featurizer built here first). The worlds (rtrain, rtest, btrain and
+    iacc.3) and the two seeded checkpoints are written here, then the four
+    ranks run; any rank's failure fails the run."""
+    from laff_tpu_torch.data.synth import build_avs_world, build_world
+    from laff_tpu_torch.engine.checkpoint import save_checkpoint
+    from laff_tpu_torch.engine.prepare import init_checkpoint
+    from laff_tpu_torch.parallel import launch
+
+    count = torch.cuda.device_count()
+    check(count >= MULTI_RANKS, f"--multi needs {MULTI_RANKS} cards, {count} visible")
+    shutil.rmtree(WORK, ignore_errors=True)
+    root = os.path.join(WORK, "world")
+    t0 = time.perf_counter()
+    build_world(root, "rtrain", 1500, 20, 11286, SEED + 2)
+    build_world(root, "rtest", 2990, 20, 11286, SEED)
+    for coll, n, caps, seed in BERT_WORLDS[:1]:
+        build_world(root, coll, n, caps, 11286, seed)
+    checkout = os.path.join(WORK, "bert_checkout")
+    write_bert_checkout(torch, checkout, ["the"] + [f"w{i:05d}" for i in range(11286)])
+    os.environ["LAFF_TPU_BERT_CHECKOUT"] = checkout  # the ranks inherit it
+    build_avs_world(root, AVS_COLLECTION, AVS_SHOTS, AVS_EDITIONS[:1], AVS_TOPICS,
+                    seed=SEED + 8)
+    ckpt = os.path.join(WORK, "rtest_model.pt")
+    save_checkpoint(init_checkpoint("rehearsal", root, "rtest", SEED), ckpt)
+    bert_ckpt = os.path.join(WORK, "btrain_bert_model.pt")
+    save_checkpoint(init_checkpoint("bert_rehearsal", root, "btrain", SEED), bert_ckpt)
+    log(f"[multi] worlds rtrain, rtest, btrain and {AVS_COLLECTION} ({AVS_SHOTS} shots), a seeded "
+        f"BERT-base checkout and two checkpoints in {time.perf_counter() - t0:.1f} s")
+    try:
+        t0 = time.perf_counter()
+        try:
+            out = launch(MULTI_RANKS, multi_rank, root, ckpt, bert_ckpt, smi)
+        except Exception as e:  # noqa: BLE001 - a rank's failure, reported as the run's
+            raise SmokeFailure(f"[multi] a rank failed: {e}") from e
+        log(f"[multi] {MULTI_RANKS} ranks in {time.perf_counter() - t0:.1f} s (spawn, NCCL "
+            f"set-up and phases (a)-(d)); rank 0's figures: {sorted(out)}")
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+
+
 def gate_worker(torch, root):
     """Times the gate of the checkout at ``root`` (its own wrapper, sources
     and build) at the headline's (L 4, H 8, dh 512) for each of GATE_BATCHES
@@ -3943,7 +4846,8 @@ def main(argv):
         return 0
     only_bert_serve = argv == ["--bert-serve"]
     only_sweep = argv == ["--sweep"]
-    if argv and not (only_bert_serve or only_sweep):
+    only_multi = argv == ["--multi"]
+    if argv and not (only_bert_serve or only_sweep or only_multi):
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
@@ -3990,6 +4894,11 @@ def main(argv):
             sweep_only(torch, K, P, smi_line)
             log(f"total {time.perf_counter() - t_start:.1f} s")
             return 0
+        if only_multi:
+            multi_only(torch, smi_line)
+            log(f"total {time.perf_counter() - t_start:.1f} s")
+            print(ok_line(torch))
+            return 0
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         rows = {
             "sim_rank_wide": sim_rank_phase(torch, K, "sim_rank_wide", 59_800, 2_990, 20, gen),
@@ -4023,8 +4932,10 @@ def main(argv):
               "the main path's gate shapes took the simple gate kernel")
         res_f, launches_f = run_predictor(torch, K, P, root, "rtest", ckpt, "flat")
         check(launches_f["sim_rank_wide"] == 0, "the flat run launched the rank kernel")
+        mesh_one = {}
         gpu_txt, gpu_vis, txt_feed, vis_feed, model = reembed_and_check(
-            torch, K, P, root, "rtest", ckpt, res_k, res_f)
+            torch, K, P, root, "rtest", ckpt, res_k, res_f,
+            resident=lambda *embs: mesh_one.update(mesh_one_sim_phase(torch, *embs)))
         tower_profile(torch, model, txt_feed, vis_feed)
         cpu_reference_check(torch, P, ckpt, txt_feed, vis_feed, gpu_txt, gpu_vis)
 
@@ -4060,6 +4971,10 @@ def main(argv):
         launches_bt, launches_bp, bert_ckpt = bert_phase(torch, K, P, root, smi_line)
         log(f"BERT phase (12): {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        launches_m1 = mesh_one_serve_phase(torch, K, root, bert_ckpt, smi_line)
+        log(f"mesh phase (15, with 15(a) in phase 3: {mesh_one['sim_engine_s']:.1f} s): "
+            f"{time.perf_counter() - t0 + mesh_one['sim_engine_s']:.1f} s")
+        t0 = time.perf_counter()
         launches_sw, launches_ot, per_predict = sweep_phase(torch, K, P, root, smi_line)
         log(f"sweep phase (14 (a)-(b)): {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -4083,8 +4998,9 @@ def main(argv):
         # and End2EndClip's validations, the BERT run's validations and its
         # checkpoint's pass, the service's gallery build and HTTP session
         # (searches and ingest), the seed sweep's validations, retrieval_task's
-        # sweep and predictions, and avs_task's streamed set; the tiled
-        # kernel's paths are rbig and the kernel branch
+        # sweep and predictions, avs_task's streamed set, and the services
+        # over an NCCL group of one (phase 15); the tiled kernel's paths are
+        # rbig and the kernel branch
         by_path = {"laff_predict": launches_k, "laff_train": launches_t,
                    "laff_trained_predict": launches_tp, "frames_train": launches_f,
                    "frames_trained_predict": launches_fp, "concat_train": launches_c,
@@ -4093,6 +5009,7 @@ def main(argv):
                    **by_path_large, "strongclip_predict": launches_s,
                    "end2end_train": launches_e, "bert_train": launches_bt,
                    "bert_trained_predict": launches_bp, **by_path_serve,
+                   "mesh_one_serve": launches_m1,
                    "sweep_train": launches_sw, "orchestrate_train": launches_ot,
                    "orchestrate_predict": {k: sum(p[k] for p in per_predict)
                                            for k in per_predict[0]},
@@ -4120,10 +5037,14 @@ def main(argv):
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    print(ok_line(torch))
     return 0
+
+
+def ok_line(torch):
+    return json.dumps({"ok": True, "device": {"platform": "gpu",
+                                              "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}})
 
 
 if __name__ == "__main__":

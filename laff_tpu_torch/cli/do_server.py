@@ -14,8 +14,11 @@ stdlib HTTP:
 A malformed request or a client error (a bad k, a duplicate id, a full
 gallery) is a 400, a server fault a 500. With ``--batch_window_ms`` above 0
 concurrent searches coalesce into one dispatch (``MicroBatcher``).
-``--mesh_devices`` above 1 raises ``NotImplementedError`` (ROADMAP Queue 1
-item 5); ``--device cpu`` runs the plain versions of the kernels.
+``--mesh_devices N`` above 1 launches N ranks (``parallel.launch``), one
+process a card, over which the gallery is sharded by rows: rank 0 serves
+HTTP and the other ranks follow its searches and ingests
+(``RetrievalService(mesh=)``); ``--device cpu`` runs the plain versions of
+the kernels (and gloo ranks).
 
   python -m laff_tpu_torch.cli.do_server iacc.3 <model_best.pth.tar> \
       --rootpath <root> --port 8080 [--gallery_dtype int8] [--capacity N]
@@ -54,8 +57,8 @@ def parse_args(argv=None):
                    help="snapshot file (.npz) of the embedded gallery: a restart restores it "
                         "instead of running the video tower")
     p.add_argument("--mesh_devices", type=int, default=0,
-                   help="shard the gallery over N devices (not ported yet: ROADMAP Queue 1 "
-                        "item 5); 0 = one device")
+                   help="shard the gallery over N devices, one process each (rank 0 "
+                        "serves HTTP); 0 = one device")
     p.add_argument("--device", default="cuda", type=str,
                    help="torch device; 'cpu' runs the plain versions of the kernels")
     return p.parse_args(argv)
@@ -161,19 +164,23 @@ class _Front:
         return getattr(self._service, name)
 
 
-def build_server(args):
-    """(server, service, batcher or None) for parsed ``args``; the caller
-    runs ``server.serve_forever`` and, when done, shuts the server down and
-    closes the batcher."""
-    if args.mesh_devices > 1:
-        raise NotImplementedError(f"--mesh_devices {args.mesh_devices}: a gallery sharded over "
-                                  f"devices is not ported yet: ROADMAP Queue 1 item 5")
-    from laff_tpu_torch.engine.service import MicroBatcher, RetrievalService
+def build_service(args, mesh=None):
+    from laff_tpu_torch.engine.service import RetrievalService
 
-    service = RetrievalService(args.model_path, args.rootpath, args.collection,
-                               batch_size=args.batch_size, gallery_dtype=args.gallery_dtype,
-                               capacity=args.capacity or None, gallery_cache=args.gallery_cache,
-                               device=args.device)
+    return RetrievalService(args.model_path, args.rootpath, args.collection,
+                            batch_size=args.batch_size, gallery_dtype=args.gallery_dtype,
+                            capacity=args.capacity or None, gallery_cache=args.gallery_cache,
+                            mesh=mesh, device=args.device)
+
+
+def build_server(args, mesh=None):
+    """(server, service, batcher or None) for parsed ``args`` (on rank 0 of
+    ``mesh`` when given); the caller runs ``server.serve_forever`` and, when
+    done, shuts the server down, closes the batcher and closes the service
+    (which releases the other ranks)."""
+    from laff_tpu_torch.engine.service import MicroBatcher
+
+    service = build_service(args, mesh)
     front, batcher = service, None
     if args.batch_window_ms > 0:
         batcher = MicroBatcher(service, window_ms=args.batch_window_ms)
@@ -184,8 +191,8 @@ def build_server(args):
     return server, service, batcher
 
 
-def main(argv=None) -> int:
-    server, _, batcher = build_server(parse_args(argv))
+def serve(args, mesh=None) -> None:
+    server, service, batcher = build_server(args, mesh)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
@@ -194,6 +201,25 @@ def main(argv=None) -> int:
         server.server_close()
         if batcher is not None:
             batcher.close()
+        service.close()
+
+
+def serve_rank(mesh, args) -> None:
+    """One rank of ``--mesh_devices``: rank 0 serves, the others follow."""
+    if mesh.is_main:
+        serve(args, mesh)
+    else:
+        build_service(args, mesh).follow()
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if args.mesh_devices > 1:
+        from laff_tpu_torch.parallel import launch
+
+        launch(args.mesh_devices, serve_rank, args, device=args.device)
+    else:
+        serve(args)
     return 0
 
 

@@ -11,7 +11,8 @@ At the defaults the train features live on the card when they fit
 graph, and validation batches are staged on the card. An End2EndClip
 config (``model_name = 'End2EndClip'``, e.g. ``--config_name end2end_clip``)
 trains on raw frames through ``engine.end2end.main``, as ``laff_tpu``'s CLI
-dispatches it.
+dispatches it. ``--data_parallel N`` over several visible cards trains on
+min(N, cards) ranks, one process a card (``trainer.main``).
 """
 
 import argparse
@@ -81,7 +82,9 @@ def parse_args(argv=None) -> Options:
     parser.add_argument("--stage_val_features", default=1, type=int, choices=[0, 1],
                         help="keep the validation batches on the card after the first "
                              "pass and replay them (LAFF_TPU_EVAL_STAGE_BUDGET)")
-    parser.add_argument("--data_parallel", default=0, type=int)
+    parser.add_argument("--data_parallel", default=0, type=int,
+                        help="train data-parallel over min(N, visible cards) ranks, one process "
+                             "a card; with fewer than two cards, a warning and the one device")
     return Options(**vars(parser.parse_args(argv)))
 
 
@@ -90,7 +93,10 @@ def main(argv=None) -> int:
     if check_to_skip(os.path.join(model_dir_for(opt), "model_best.pth.tar"), opt.overwrite):
         return 0
     if getattr(load_config(opt.config_name), "model_name", "") == "End2EndClip":
-        check_data_parallel(opt.data_parallel, opt.device)  # trainer.main's prepare checks it
+        if check_data_parallel(opt.data_parallel, opt.device) > 1:
+            # laff_tpu's CLI trains End2EndClip on one device whatever it asks
+            raise ValueError("End2EndClip trains on one device; --data_parallel over several "
+                             "cards is taken by the LAFF trainer only")
         end2end.main(opt)
     else:
         train_main(opt)

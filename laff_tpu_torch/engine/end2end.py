@@ -131,14 +131,15 @@ def validate(model: End2EndClip, txt_feed: EvalFeed, vis_feed: EvalFeed,
     return {k: float(v) for k, v in zip(names, metrics_from_ranks(ranks))}
 
 
-def load_end2end(path: str, device: str = "cpu") -> End2EndClip:
-    """The model of an End2EndClip checkpoint, in eval mode."""
+def load_end2end(path: str, device: str = "cuda") -> End2EndClip:
+    """The model of an End2EndClip checkpoint, in eval mode, on ``device``
+    (the card unless the caller names the CPU)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     model = End2EndClip(ClipTextConfig(**ckpt["text_config"]),
                         ClipVisionConfig(**ckpt["vision_config"]),
                         frozen=ckpt["config"]["clip_opt"].get("frozen", False))
     model.load_state_dict(ckpt["state_dict"])
-    return model.to(device).eval()
+    return model.to(resolve_device(device)).eval()
 
 
 def _images(opt, config, collection: str, sample_type: str) -> ImageSource:

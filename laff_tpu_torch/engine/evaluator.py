@@ -31,6 +31,15 @@ Every top-k list these write puts equal scores in decreasing gallery index
 order (``ordered_topk``, ``_topk_merge``); ``laff_tpu``'s ``lax.top_k``
 puts the lower index first.
 
+With a ``mesh`` (``Embedder(mesh=...)``, one rank of a data-parallel run)
+each eval batch's rows are split over the ranks, each rank's card embeds
+its rows (the gate kernel on every card), and the rows are all-gathered in
+their original order; gallery blocks of the streamed paths are split the
+same way (``laff_tpu/engine/evaluator.py:340-352``). Rank 0 alone scores
+and ranks the gathered embeddings: the other ranks only take their share
+of each tower forward (``Embedder.is_main``), and ``validate`` broadcasts
+rank 0's metrics.
+
 Rank paths (``rank_path``), with the rule of ``laff_tpu.engine.evaluator``:
 
   flat       one (block, V) f32 score block per text block (torch.matmul,
@@ -64,6 +73,7 @@ from ..data import EvalFeed, Prefetcher, host_cast_bf16
 from ..eval.metrics import metrics_from_ranks, ranks_from_scores
 from ..ops import (cosine_sim, flatten_heads, fused_sim_rank, hist_scores, int8_scores,
                    multi_head_cosine_sim, quantize_rows)
+from ..parallel.mesh import Mesh, shard_batch
 from ..utils import get_logger
 
 logger = get_logger(__name__)
@@ -101,14 +111,15 @@ def card_cast_bf16(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def device_batches(feed: EvalFeed, device: torch.device, bf16: bool, prefetch_depth: int,
-                   host_cast: bool = False, stage: bool = True
+                   host_cast: bool = False, stage: bool = True, mesh: Optional[Mesh] = None
                    ) -> Iterator[Tuple[Dict[str, torch.Tensor], List[str], int]]:
     """(device arrays, ids, valid) per batch of ``feed``, float ones rounded
     to bf16 with ``bf16`` (on the card after the upload, or with
     ``host_cast`` on the host before it); with ``stage``, staged on the
     card when the feed asks for it and the batches fit the budget, replayed
-    from there on later passes (the same tensors, so the same embeddings)."""
-    key = (str(device), bf16)
+    from there on later passes (the same tensors, so the same embeddings).
+    With a ``mesh`` only this rank's rows of each batch are uploaded."""
+    key = (str(device), bf16, None if mesh is None else (mesh.rank, mesh.size))
     stage = stage and feed.stage_on_device
     if stage and feed.staged is not None and feed.staged[0] == key:
         yield from feed.staged[1]
@@ -116,7 +127,10 @@ def device_batches(feed: EvalFeed, device: torch.device, bf16: bool, prefetch_de
     budget = int(os.environ.get(STAGE_BUDGET_ENV, STAGE_BUDGET_DEFAULT))
     items, nbytes = ([] if stage else None), 0
     for item in Prefetcher(iter(feed), depth=prefetch_depth):
-        data = to_device(item["data"], device, bf16 and host_cast)
+        data = item["data"]
+        if mesh is not None:
+            data = shard_batch(data, mesh, from_global=True)
+        data = to_device(data, device, bf16 and host_cast)
         if bf16 and not host_cast:
             data = card_cast_bf16(data)
         out = (data, item["ids"], item["valid"])
@@ -142,24 +156,44 @@ class Embedder:
     replayed from the card for a staged feed. ``host_cast`` rounds float
     features to bf16 for bf16 towers on the host instead of the card
     (``device_batches``): the same embeddings, but a slower pass on an
-    H100 machine (``chip_smoke.py``'s ``eval_cast_timing``)."""
+    H100 machine (``chip_smoke.py``'s ``eval_cast_timing``). With a
+    ``mesh`` of several ranks each batch's rows are split over the ranks
+    and gathered back (the feed's batch size must divide by the world)."""
 
     def __init__(self, model, device: torch.device, prefetch_depth: int = 2,
-                 host_cast: bool = False):
+                 host_cast: bool = False, mesh: Optional[Mesh] = None):
         self.model = model
         self.device = torch.device(device)
         self.prefetch_depth = max(1, prefetch_depth)
         self.host_cast = host_cast
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         spec = model.spec
         self._txt_bf16 = spec.txt.compute_dtype == "bfloat16"
         self._vis_bf16 = spec.vis.compute_dtype == "bfloat16"
 
+    @property
+    def is_main(self) -> bool:
+        """Whether this rank scores and ranks what the towers give (rank 0,
+        or the only process)."""
+        return self.mesh is None or self.mesh.is_main
+
+    def batches(self, feed: EvalFeed, bf16: bool, stage: bool = True):
+        """``device_batches`` of ``feed`` for this embedder (this rank's rows
+        with a mesh)."""
+        return device_batches(feed, self.device, bf16, self.prefetch_depth, self.host_cast,
+                              stage=stage, mesh=self.mesh)
+
+    def apply(self, fn, data: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """A tower over a device batch; with a mesh over this rank's rows,
+        every rank's rows gathered in order."""
+        emb = fn(data)
+        return emb if self.mesh is None else self.mesh.all_gather(emb)
+
     @torch.no_grad()
     def _embed(self, fn, feed: EvalFeed, bf16: bool) -> Tuple[torch.Tensor, List[str]]:
         chunks, ids = [], []
-        for data, batch_ids, valid in device_batches(feed, self.device, bf16,
-                                                     self.prefetch_depth, self.host_cast):
-            emb = fn(data)
+        for data, batch_ids, valid in self.batches(feed, bf16):
+            emb = self.apply(fn, data)
             chunks.append(emb[:valid] if valid < emb.shape[0] else emb)
             ids.extend(batch_ids)
         return torch.cat(chunks, dim=0), ids
@@ -175,10 +209,8 @@ def _vis_blocks(embedder: Embedder, feed: EvalFeed) -> Iterator[Tuple[torch.Tens
     """(embeddings of the batch's valid rows, their ids) per gallery batch,
     through the video tower on the embedder's device (bf16 rounding as
     ``embed_vis`` does it), never staged."""
-    for data, ids, valid in device_batches(feed, embedder.device, embedder._vis_bf16,
-                                           embedder.prefetch_depth, embedder.host_cast,
-                                           stage=False):
-        yield embedder.model.encode_vis(data)[:valid], ids
+    for data, ids, valid in embedder.batches(feed, embedder._vis_bf16, stage=False):
+        yield embedder.apply(embedder.model.encode_vis, data)[:valid], ids
 
 
 def _flat_scores(tn: torch.Tensor, vn: torch.Tensor, heads: int) -> torch.Tensor:
@@ -195,14 +227,16 @@ def score_matrix_streaming(embedder: Embedder, txt_embs: torch.Tensor,
     whole (``laff_tpu.engine.evaluator.score_matrix_streaming``): each
     gallery batch goes through the video tower and is scored against all
     queries (``_flat_scores``); no block is kept on the device. Returns the
-    host (T, V) f32 scores and the gallery ids in feed order."""
+    host (T, V) f32 scores (None on a rank other than the embedder's main
+    one, which only embeds its share) and the gallery ids in feed order."""
     heads = txt_embs.shape[1] if txt_embs.ndim == 3 else 1
     tn = flatten_heads(txt_embs)
     blocks, vis_ids = [], []
     for emb, ids in _vis_blocks(embedder, vis_feed):
-        blocks.append(_flat_scores(tn, flatten_heads(emb), heads).cpu().numpy())
+        if embedder.is_main:
+            blocks.append(_flat_scores(tn, flatten_heads(emb), heads).cpu().numpy())
         vis_ids.extend(ids)
-    return np.concatenate(blocks, axis=1), vis_ids
+    return (np.concatenate(blocks, axis=1) if embedder.is_main else None), vis_ids
 
 
 def ordered_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -316,7 +350,9 @@ def streaming_benchmark_eval(embedder: Embedder, txt_embs: torch.Tensor, txt_ids
     't2v' and 'v2t' metric tuples, 't2v_ranks', 'v2t_ranks' (each captioned
     video's sorted positive ranks, in gallery order), 'vis_ids', and with
     ``topk`` 'topk_idx' / 'topk_vals' (T, k) on the host, equal scores in
-    decreasing gallery index order."""
+    decreasing gallery index order. A rank other than the embedder's main
+    one embeds its share of each block (of both passes when pass 2 streams)
+    and returns None."""
     lap = lap or _no_lap
     heads = txt_embs.shape[1] if txt_embs.ndim == 3 else 1
     tn = flatten_heads(txt_embs)
@@ -331,22 +367,34 @@ def streaming_benchmark_eval(embedder: Embedder, txt_embs: torch.Tensor, txt_ids
         root_to_caps.setdefault(tid.split("#")[0], []).append(i)
     p_max = max(len(c) for c in root_to_caps.values())
     budget = int(os.environ.get(STREAM_BUDGET_ENV, STREAM_BUDGET_DEFAULT))
-    cache: Optional[torch.Tensor] = None  # allocated at the first block, its dtype known
+    main = embedder.is_main
+    cached = False  # decided at the first block, its dtype known
+    cache: Optional[torch.Tensor] = None  # rank 0's
     layout: List[Tuple[int, int]] = []
 
     def blocks():
-        nonlocal cache
+        nonlocal cache, cached
         col = 0
         for emb, ids in _vis_blocks(embedder, vis_feed):
             vn = flatten_heads(emb)
-            if col == 0 and n_vis * hd * vn.element_size() <= budget:
-                cache = torch.empty((n_vis, hd), dtype=vn.dtype, device=vn.device)
+            if col == 0:
+                cached = n_vis * hd * vn.element_size() <= budget
+                if cached and main:
+                    cache = torch.empty((n_vis, hd), dtype=vn.dtype, device=vn.device)
             if cache is not None:
                 cache[col:col + len(ids)] = vn
                 vn = cache[col:col + len(ids)]
                 layout.append((col, len(ids)))
-            yield col, ids, _flat_scores(tn, vn, heads)
+            yield col, ids, (_flat_scores(tn, vn, heads) if main else None)
             col += len(ids)
+
+    if not main:  # this rank's share of each block's tower forward, pass 2's too
+        for _ in blocks():
+            pass
+        if not cached:
+            for _ in blocks():
+                pass
+        return None
 
     # pass 1: ground-truth scores, the running top-k, v2t ranks
     k = min(topk, n_vis) if topk else 0
@@ -412,7 +460,9 @@ def int8_streaming_topk(embedder: Embedder, txt_embs: torch.Tensor, vis_feed: Ev
     query chunks of ``chunk_t``; only the union of the nominated videos is
     embedded again (an unstaged feed) and scored exactly, and each query's
     top k is taken from those. ``lap(name)`` is called after each stage
-    ('int8_stream', 'nominate', 'reembed', 'exact_topk').
+    ('int8_stream', 'nominate', 'reembed', 'exact_topk'). A rank other than
+    the embedder's main one embeds its share of the gallery and of the union
+    (rank 0's, broadcast) and returns None.
 
     Returns 'topk_vals' (T, k) f32, the mean of cosines, and 'topk_idx'
     (T, k) into the streamed order, equal scores in decreasing gallery index
@@ -420,6 +470,13 @@ def int8_streaming_topk(embedder: Embedder, txt_embs: torch.Tensor, vis_feed: Ev
     on the device (rows and scales); and 'union', the videos embedded
     again."""
     lap = lap or _no_lap
+    if not embedder.is_main:
+        for _ in _vis_blocks(embedder, vis_feed):
+            pass
+        union = embedder.mesh.broadcast_object()
+        embedder.embed_vis(EvalFeed([vis_feed.ids[i] for i in union], vis_feed.batcher,
+                                    batch_size=vis_feed.batch_size))
+        return None
     heads = txt_embs.shape[1] if txt_embs.ndim == 3 else 1
     tn = flatten_heads(txt_embs)
     tq, ts = quantize_rows(tn)
@@ -443,6 +500,8 @@ def int8_streaming_topk(embedder: Embedder, txt_embs: torch.Tensor, vis_feed: Ev
                                    vs)[:, :n_vis], c, dim=1).indices
             for start in range(0, n_txt, chunk_t)]
     union = torch.unique(torch.cat(cand))  # ascending gallery index
+    if embedder.mesh is not None:
+        embedder.mesh.broadcast_object(union.tolist())
     lap("nominate")
     refeed = EvalFeed([vis_ids[i] for i in union.tolist()], vis_feed.batcher,
                       batch_size=vis_feed.batch_size)
@@ -549,17 +608,22 @@ def validate(embedder: Embedder, txt_feed: EvalFeed, vis_feed: EvalFeed,
     evaluator.validate``): r1, r5, r10, medr, meanr, mir and mAP, with the
     ranks and ids. The model runs in eval mode under no_grad, so on the
     card the towers take the gate kernel, and ``rank_path`` picks the rank
-    path as in the predictor."""
+    path as in the predictor. With a mesh, rank 0 alone ranks and every
+    rank returns its metrics ('ranks' None on the others)."""
     model = embedder.model
     was_training = model.training
     model.eval()
+    ranks, metrics = None, None
     try:
         vis_embs, vis_ids = embedder.embed_vis(vis_feed)
         txt_embs, txt_ids = embedder.embed_txt(txt_feed)
-        ranks = t2v_ranks(txt_embs, vis_embs, txt_ids, vis_ids, measure=measure,
-                          rank_path=rank_path)
+        if embedder.is_main:
+            ranks = t2v_ranks(txt_embs, vis_embs, txt_ids, vis_ids, measure=measure,
+                              rank_path=rank_path)
+            names = ("r1", "r5", "r10", "medr", "meanr", "mir", "mAP")
+            metrics = {k: float(v) for k, v in zip(names, metrics_from_ranks(ranks))}
     finally:
         model.train(was_training)
-    names = ("r1", "r5", "r10", "medr", "meanr", "mir", "mAP")
-    return {**{k: float(v) for k, v in zip(names, metrics_from_ranks(ranks))}, "ranks": ranks,
-            "txt_ids": txt_ids, "vis_ids": vis_ids}
+    if embedder.mesh is not None:
+        metrics = embedder.mesh.broadcast_object(metrics)
+    return {**metrics, "ranks": ranks, "txt_ids": txt_ids, "vis_ids": vis_ids}

@@ -28,6 +28,10 @@ so the finite check, the clip and the update are a few whole-buffer ops on
 the card, and the step never waits for the host. The state tensors (count,
 moments, learning rate) are updated in place, never rebound, so a CUDA
 graph captured over a step keeps reading and writing the live state.
+
+Under data parallelism (``mesh``) each rank's gradients are its rows'
+share; one all-reduce of the flat buffer sums them before the finite check
+and the clip, so every rank takes the same step.
 """
 
 from __future__ import annotations
@@ -46,7 +50,8 @@ BACKBONE_PREFIX = "txt_net.bert."  # the in-graph BERT tower's parameters
 class OptaxChain:
     def __init__(self, params: Iterable[torch.nn.Parameter], kind: str, lr: float,
                  grad_clip: float = 0.0, skip_nonfinite: bool = False,
-                 scaled: Iterable[torch.nn.Parameter] = (), scale: float = 1.0) -> None:
+                 scaled: Iterable[torch.nn.Parameter] = (), scale: float = 1.0,
+                 mesh=None) -> None:
         if kind not in OPTIMIZERS:
             raise ValueError(f"optimizer {kind!r} is not one of {OPTIMIZERS}")
         self.kind = kind
@@ -68,6 +73,7 @@ class OptaxChain:
         self.nu = torch.zeros_like(self.grad)
         self.scale = float(scale)
         self.scaled_segments = _segments(self.params, sizes, {id(p) for p in scaled})
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
 
     def set_learning_rate(self, lr: float) -> None:
         self.lr.fill_(lr)
@@ -78,6 +84,8 @@ class OptaxChain:
     @torch.no_grad()
     def step(self) -> None:
         g = self.grad
+        if self.mesh is not None:
+            self.mesh.all_reduce(g)
         finite = torch.isfinite(g).all() if self.skip_nonfinite else None
         if self.grad_clip > 0:
             norm = torch.linalg.vector_norm(g)
@@ -148,14 +156,16 @@ def _segments(params: List[torch.nn.Parameter], sizes: List[int],
     return out
 
 
-def make_optimizer(config, model: torch.nn.Module, bf16: bool = False) -> OptaxChain:
+def make_optimizer(config, model: torch.nn.Module, bf16: bool = False,
+                   mesh=None) -> OptaxChain:
     """The optax chain of ``laff_tpu.engine.trainer.make_optimizer`` over the
     model's parameters: an in-graph BERT tower's updates (``BACKBONE_PREFIX``)
-    scaled by 1/20; ``bf16`` turns on the finite-gradient skip."""
+    scaled by 1/20; ``bf16`` turns on the finite-gradient skip; ``mesh``
+    sums the gradients over a data-parallel group."""
     backbone = [p for name, p in model.named_parameters() if name.startswith(BACKBONE_PREFIX)]
     return OptaxChain(model.parameters(), config.optimizer, config.lr,
                       grad_clip=getattr(config, "grad_clip", 0) or 0, skip_nonfinite=bf16,
-                      scaled=backbone, scale=BACKBONE_SCALE)
+                      scaled=backbone, scale=BACKBONE_SCALE, mesh=mesh)
 
 
 class LRController:

@@ -62,10 +62,15 @@ when a key is missing), and the 'clip' rows of every query (and of every
 negation clause) are that tower's output on the card, not the precomputed
 BigFile rows. The file is read through ``torch_import.ReferenceUnpickler``.
 
-Raising instead of running (each names its ROADMAP item or the reason):
-``data_parallel`` over two or more visible cards (item 5; over one device
-it logs ``laff_tpu``'s warning and predicts there). Three results differ from ``laff_tpu`` on
-purpose: above the threshold 'kreciprocal' and 'tkb' raise a ``ValueError``
+``data_parallel`` N over two or more visible cards launches min(N, cards)
+ranks (``parallel.launch``), each running ``main`` with its mesh: every
+eval batch's rows are split over the ranks and gathered back
+(``evaluator.Embedder(mesh=)``), so each card runs the video and text
+towers on its share; rank 0 alone scores and ranks the gathered embeddings
+and writes the TSV rows, score files and dumps, and the other ranks return
+an empty result (over one device it logs ``laff_tpu``'s warning and
+predicts there). Three results differ from
+``laff_tpu`` on purpose: above the threshold 'kreciprocal' and 'tkb' raise a ``ValueError``
 (they need the gallery-gallery product, which a streamed gallery never
 forms; ``laff_tpu`` crashes there), and so does measure 'hist' (``laff_tpu``
 scores cosine there without a word); a StrongCLIP tower file that exists
@@ -101,6 +106,7 @@ from .checkpoint import load_checkpoint, vocab_from_dict
 from .evaluator import (LARGE_GALLERY, Embedder, int8_streaming_topk, ordered_topk,
                         score_matrix, score_matrix_streaming, streaming_benchmark_eval,
                         t2v_ranks)
+from ..parallel.mesh import Mesh, launch
 from .prepare import (bert_tokens_featurizer, build_featurizers, check_data_parallel,
                       text_precomputed, vision_source, w2v_dir_for)
 from .torch_import import read_reference
@@ -128,7 +134,7 @@ class PredictOptions:
     device: str = "cuda"
     rank_path: str = "auto"
     adjust_weight_predict: int = 0  # parity: parsed and never read, as in the reference
-    data_parallel: int = 0  # one device: a warning; several: raises (item 5)
+    data_parallel: int = 0  # one device: a warning; several: min(N, cards) ranks
     int8_gallery: int = 0  # an AVS gallery above LARGE_GALLERY held as int8 rows
     task3_caption: str = "no_task3_caption"  # any other value: negation scoring
     neg_method: str = "sub"  # negation adjustment: sub | mul
@@ -451,11 +457,6 @@ def each_head_outputs(opt: PredictOptions, output_dir: str, txt_embs: torch.Tens
     return per_head
 
 
-def check_options(opt: PredictOptions) -> None:
-    """Options whose paths are not ported raise before any work."""
-    check_data_parallel(opt.data_parallel, opt.device)
-
-
 class ClipTextFeaturizer:
     """A live CLIP text tower as a text featurizer (``TextBatcher``'s live
     branch): captions tokenized at context 77, encoded on the tower's
@@ -528,7 +529,11 @@ def check_streamable(opt: PredictOptions, measure: str, n_videos: int) -> None:
                          f"product, which is not formed for streamed galleries")
 
 
-def main(opt: PredictOptions) -> Dict:
+def _main_rank(mesh: Mesh, opt: PredictOptions) -> Dict:
+    return main(opt, mesh=mesh)
+
+
+def main(opt: PredictOptions, mesh: Optional[Mesh] = None) -> Dict:
     """Returns {query_set: ...}: for a benchmark collection the 't2v' and
     'v2t' metric tuples, 't2v_ranks', 'negated_queries' (None without
     negation scoring), with each_head 'per_head', and over a streamed
@@ -538,13 +543,24 @@ def main(opt: PredictOptions) -> Dict:
     'int8_bytes' on the device and the 'union' of nominated videos); both
     with 'seconds' per phase (the streamed benchmark's 'pass1' and 'pass2',
     the int8 gallery's 'int8_stream', 'nominate', 'reembed' and
-    'exact_topk')."""
-    check_options(opt)
-    device = resolve_device(opt.device)
+    'exact_topk').
+
+    With ``mesh``, this process is one rank of a data-parallel prediction;
+    without one, ``data_parallel`` over several visible cards launches the
+    ranks and returns rank 0's result."""
+    if mesh is None:
+        ranks = check_data_parallel(opt.data_parallel, opt.device)
+        if ranks > 1:
+            if opt.batch_size % ranks:
+                raise ValueError(f"batch_size {opt.batch_size} must divide by the "
+                                 f"data_parallel ranks {ranks}")
+            return launch(ranks, _main_rank, opt, device=opt.device)
+    device = mesh.device if mesh is not None else resolve_device(opt.device)
+    is_main = mesh is None or mesh.is_main
     ckpt = load_checkpoint(opt.model_path)
     config = ckpt["config"]
     model = rebuild_model(ckpt, device)
-    embedder = Embedder(model, device, prefetch_depth=max(2, opt.num_workers))
+    embedder = Embedder(model, device, prefetch_depth=max(2, opt.num_workers), mesh=mesh)
     featurizers = rebuild_featurizers(ckpt, opt.rootpath, device)
     strongclip_swap(ckpt, featurizers, opt.rootpath, opt.testCollection, device)
     parm_adjust = str(ckpt.get("opt", {}).get("parm_adjust_config", "None"))
@@ -561,9 +577,13 @@ def main(opt: PredictOptions) -> Dict:
         output_dir = os.path.join(opt.rootpath, coll, "SimilarityIndex", query_set,
                                   opt.sim_name)
         score_file = os.path.join(output_dir, "id.sent.score.txt")
-        if check_to_skip(score_file, opt.overwrite):
+        skip = check_to_skip(score_file, opt.overwrite) if is_main else None
+        if mesh is not None:  # rank 0's decision: it alone writes the file
+            skip = mesh.broadcast_object(skip)
+        if skip:
             continue
-        makedirs(output_dir)
+        if is_main:
+            makedirs(output_dir)
         seconds: Dict[str, float] = {}
         tick = time.perf_counter()
 
@@ -586,12 +606,14 @@ def main(opt: PredictOptions) -> Dict:
             vis_embs, vis_ids = embedder.embed_vis(vis_feed)
             lap("embed_vis")
 
-        def scores_of(embs: torch.Tensor) -> np.ndarray:
+        def scores_of(embs: torch.Tensor) -> Optional[np.ndarray]:
             nonlocal vis_ids
             if streamed:  # every query set and clause streams the gallery again
                 out, vis_ids = score_matrix_streaming(embedder, embs, vis_feed)
                 lap("stream")
                 return out
+            if not is_main:
+                return None
             out = score_matrix(embs, vis_embs, measure=measure)
             lap("score_matrix")
             return out
@@ -601,11 +623,9 @@ def main(opt: PredictOptions) -> Dict:
             streamed_eval = streaming_benchmark_eval(embedder, txt_embs, txt_ids, vis_feed,
                                                      topk=AVS_SCORE_TOPK,
                                                      rank_path=opt.rank_path, lap=lap)
-            vis_ids = streamed_eval["vis_ids"]
         elif counted and opt.int8_gallery:
             streamed_eval = int8_streaming_topk(embedder, txt_embs, vis_feed, AVS_SCORE_TOPK,
                                                 lap=lap)
-            vals, idx, vis_ids = (streamed_eval[k] for k in ("topk_vals", "topk_idx", "vis_ids"))
         else:
             if opt.task3_caption != "no_task3_caption":
                 pos_embs, neg_embs, neg_mask = embed_negation_split(embedder, txt_feed, tsrc,
@@ -617,12 +637,21 @@ def main(opt: PredictOptions) -> Dict:
                                    "cue; scores unchanged", opt.task3_caption)
                 else:
                     adjusted = True
-                    scores = negation_adjusted_scores(scores_of(pos_embs), scores_of(neg_embs),
-                                                      neg_mask, method=opt.neg_method)
-                    logger.info("negation scoring (%s): %d/%d queries carry a negation",
-                                opt.neg_method, negated, len(txt_ids))
+                    pos_scores, neg_scores = scores_of(pos_embs), scores_of(neg_embs)
+                    if is_main:
+                        scores = negation_adjusted_scores(pos_scores, neg_scores, neg_mask,
+                                                          method=opt.neg_method)
+                        logger.info("negation scoring (%s): %d/%d queries carry a negation",
+                                    opt.neg_method, negated, len(txt_ids))
             if not adjusted:
                 scores = scores_of(txt_embs)
+        if not is_main:  # this rank took its share of the towers: the rest is rank 0's
+            continue
+        if streamed_eval is not None:
+            vis_ids = streamed_eval["vis_ids"]
+            if is_avs:
+                vals, idx = streamed_eval["topk_vals"], streamed_eval["topk_idx"]
+        else:
             if opt.rerank == "concept":
                 scores = concept_rerank_scores(opt, scores, txt_ids, vis_ids, tsrc)
                 lap("rerank")

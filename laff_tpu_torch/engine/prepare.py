@@ -432,7 +432,7 @@ class Options:
     # opt in to the task2 concept loss; task2_caption alone is inert
     task2_intended: int = 0
     # over one visible device a warning, then the single-device path; over
-    # several it raises until its ROADMAP item lands (check_data_parallel)
+    # several, min(N, cards) ranks (check_data_parallel, trainer.main)
     data_parallel: int = 0
 
 
@@ -442,21 +442,24 @@ def visible_devices(device: str) -> int:
     return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
 
 
-def check_data_parallel(requested: int, device: str) -> None:
-    """``--data_parallel`` as ``laff_tpu`` takes it on one device: a value
-    above 0 over fewer than two devices logs its warning and runs on the
-    one device; over two or more it raises, naming the ROADMAP item."""
+def check_data_parallel(requested: int, device: str) -> int:
+    """``--data_parallel`` as ``laff_tpu`` takes it: the number of ranks to
+    run, min(requested, visible devices). Above 0 over fewer than two
+    devices it logs ``laff_tpu``'s warning and the run takes the one
+    device (1); with several, the trainer and the predictor launch that many
+    ranks (``parallel.launch``)."""
     if requested <= 0:
-        return
+        return 1
     visible = visible_devices(device)
     if min(requested, visible) > 1:
-        raise NotImplementedError(f"data_parallel={requested} over {visible} devices is not "
-                                  f"ported yet: ROADMAP Queue 1 item 5")
+        return min(requested, visible)
     logger.warning("data_parallel requested but only %d device(s)", visible)
+    return 1
 
 
 def check_options(opt: Options) -> None:
-    check_data_parallel(opt.data_parallel, opt.device)
+    """``data_parallel`` is taken by the entry points (``trainer.main``
+    launches the ranks, each of which prepares)."""
     if opt.train_strategy not in ("usual", "subset"):
         raise ValueError(f"train_strategy {opt.train_strategy!r} is not 'usual' or 'subset'")
 

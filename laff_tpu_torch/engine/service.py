@@ -32,9 +32,10 @@ snapshot of the serving arrays in ``laff_tpu``'s layout and key
 ``key`` = abspath|mtime|collection|dtype), so a restart skips the embed.
 
 ``MicroBatcher`` coalesces concurrent ``search`` calls into one dispatch
-(``cli/do_server.py`` fronts the service with it). Not taken from
-``laff_tpu``: a ``mesh`` (a gallery sharded over devices) raises, naming
-its ROADMAP item; the compile cache belongs to JAX and has no counterpart.
+(``cli/do_server.py`` fronts the service with it). A ``mesh`` shards the
+gallery over the ranks of a launched group (``RetrievalService``). Not
+taken from ``laff_tpu``: the compile cache belongs to JAX and has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -49,6 +50,9 @@ import torch
 
 from ..data import EvalFeed, TextBatcher, VisBatcher
 from ..ops import flatten_heads, int8_scores, quantize_rows
+from ..ops.similarity import blocked_topk
+from ..parallel.mesh import Mesh
+from ..parallel.sim_engine import sharded_blocked_topk
 from ..utils import get_logger
 from .checkpoint import load_checkpoint
 from .evaluator import Embedder, _vis_blocks
@@ -146,38 +150,6 @@ class _QueryBatcher:
         return self._tb.encode_captions([self._queries[int(i)] for i in ids], ids)
 
 
-def _order_keys(scores: torch.Tensor, col0: int) -> torch.Tensor:
-    """(T, B) f32 scores of gallery columns col0.. -> int64 keys that sort
-    as (score, column): the score's bits made monotone as a signed int32
-    (negative floats have their magnitude bits flipped; -0.0 is made +0.0)
-    in the high word, the column in the low word."""
-    bits = (scores + 0.0).view(torch.int32)
-    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    cols = torch.arange(col0, col0 + scores.shape[1], device=scores.device)
-    return (bits.to(torch.int64) << 32) | cols
-
-
-def _decode_keys(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    bits = (keys >> 32).to(torch.int32)
-    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    return bits.view(torch.float32), keys & 0xFFFFFFFF
-
-
-def blocked_topk(score_block: Callable[[int, int], torch.Tensor], n_rows: int,
-                 k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Each query's top ``k`` of ``n_rows`` gallery rows, scored
-    ``score_block(start, stop)`` -> (T, stop - start) ``SCORE_BLOCK`` rows at
-    a time: (values (T, k), indices (T, k)), descending, equal scores in
-    decreasing gallery index."""
-    run = None
-    for start in range(0, n_rows, SCORE_BLOCK):
-        keys = _order_keys(score_block(start, min(start + SCORE_BLOCK, n_rows)), start)
-        if run is not None:
-            keys = torch.cat([run, keys], dim=1)
-        run = torch.topk(keys, min(k, keys.shape[1]), dim=1).values
-    return _decode_keys(run)
-
-
 class RetrievalService:
     """Checkpoint + feature collection -> live text-to-video search on
     ``device`` (the card unless the caller names the CPU).
@@ -190,9 +162,25 @@ class RetrievalService:
 
     Raises ``ValueError`` for a checkpoint trained with measure 'hist' and
     for one with a precomputed-only text modality (ad-hoc queries have no
-    precomputed rows), and ``NotImplementedError`` for a ``mesh``. A
-    FrameLAFF gallery's frames are cut at the config's ``max_frame``
-    (``laff_tpu``'s ``max_frame`` override has no caller and is not taken)."""
+    precomputed rows). A FrameLAFF gallery's frames are cut at the config's
+    ``max_frame`` (``laff_tpu``'s ``max_frame`` override has no caller and
+    is not taken).
+
+    With a ``mesh`` (``parallel.Mesh``, one rank of a launched group, on
+    ``mesh.device``) the gallery is split into equal slabs of rows, the
+    capacity rounded up to a multiple of the world (``laff_tpu``'s
+    ``_make_sharded_scorers``): rank r holds global rows [r * slab, (r + 1) *
+    slab) and embeds only its own live rows through the video tower, so the
+    gate kernel runs on every card. Rank 0 drives: ``search`` and
+    ``add_videos`` are called there (the HTTP front and the micro-batcher
+    live on rank 0), and each broadcasts its work to the other ranks, which
+    sit in ``follow`` until rank 0's ``close``. A search embeds the queries
+    on rank 0 and broadcasts their rows and k; every rank scores its slab
+    with the same ``score_block`` and blocked top k, and the (score, global
+    column) keys of every rank merge (``parallel.sim_engine``), so results
+    are in the one-card order. An ingested row lands in the slab that owns
+    its slot. A snapshot keeps the one-card file format: rank 0 gathers the
+    live rows and writes it, and a restart over a mesh slices it."""
 
     _BUCKETS = (1, 8, 64, 512)
     _K_BUCKETS = (10, 100, 1000, 10000)
@@ -200,11 +188,10 @@ class RetrievalService:
     def __init__(self, model_path: str, rootpath: str, collection: str,
                  batch_size: int = 512, gallery_dtype: str = "bf16",
                  capacity: Optional[int] = None,
-                 gallery_cache: Optional[str] = None, mesh=None, device="cuda") -> None:
-        if mesh is not None:
-            raise NotImplementedError("a gallery sharded over a device mesh is not ported yet: "
-                                      "ROADMAP Queue 1 item 5")
-        self.device = resolve_device(device)
+                 gallery_cache: Optional[str] = None, mesh: Optional[Mesh] = None,
+                 device="cuda") -> None:
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         ckpt = load_checkpoint(model_path)
         self.config = ckpt["config"]
         measure = getattr(self.config, "measure", "cosine")
@@ -234,29 +221,33 @@ class RetrievalService:
                 "predictor's --int8_gallery rescored path when exact scores matter")
 
         t0 = time.perf_counter()
-        snap = (self._load_snapshot(gallery_cache, model_path, collection, gallery_dtype)
-                if gallery_cache else None)
+        snap = None
+        if gallery_cache and self._main:
+            snap = self._load_snapshot(gallery_cache, model_path, collection, gallery_dtype)
+        if mesh is not None and self.mesh.broadcast_object(snap is not None) and snap is None:
+            snap = np.load(gallery_cache, allow_pickle=False)  # rank 0 found it good
         self._vn = self._vq = self._vs = None
         if snap is not None:
             self.vis_ids = [str(v) for v in snap["vis_ids"]]
             self.heads = int(snap["heads"])
-            self._count = len(self.vis_ids)
-            self.capacity = max(int(capacity or 0), self._count)
+            self._set_capacity(capacity)
+            lo, hi = self._live_rows()
             if gallery_dtype == "int8":
                 self._allocate(snap["vq"].shape[1])
-                self._write(0, torch.from_numpy(snap["vq"]), torch.from_numpy(snap["vs"]))
+                self._write(0, torch.from_numpy(snap["vq"][lo:hi]),
+                            torch.from_numpy(snap["vs"][lo:hi]))
             else:
-                rows = torch.from_numpy(snap["vn_bf16"].view(np.int16)).view(torch.bfloat16)
+                rows = torch.from_numpy(snap["vn_bf16"][lo:hi].view(np.int16))
                 self._allocate(rows.shape[1])
-                self._write(0, rows)
+                self._write(0, rows.view(torch.bfloat16))
             logger.info("gallery restored from snapshot %s (%d videos)", gallery_cache,
                         self._count)
         else:
             source = vision_source(rootpath, collection, self.config)
             self.vis_ids = list(source.vis_ids)
-            self._count = len(self.vis_ids)
-            self.capacity = max(int(capacity or 0), self._count)
-            feed = EvalFeed(self.vis_ids, VisBatcher(source), batch_size=batch_size)
+            self._set_capacity(capacity)
+            lo, hi = self._live_rows()
+            feed = EvalFeed(self.vis_ids[lo:hi], VisBatcher(source), batch_size=batch_size)
             row = 0
             with torch.no_grad():
                 for emb, _ in _vis_blocks(self.embedder, feed):
@@ -265,6 +256,11 @@ class RetrievalService:
                         self._allocate(emb.shape[1] * (emb.shape[2] if emb.ndim == 3 else 1))
                     self._write_embeddings(row, emb)
                     row += emb.shape[0]
+            if mesh is not None:  # a rank with no live rows learns the width from rank 0
+                self.heads, width = self.mesh.broadcast_object(
+                    (self.heads, self.width) if self._main else None)
+                if self._vn is None and self._vq is None:
+                    self._allocate(width)
             if gallery_cache:
                 self._save_snapshot(gallery_cache, model_path, collection, gallery_dtype)
         if self.device.type == "cuda":
@@ -275,21 +271,65 @@ class RetrievalService:
         self._id_array = np.asarray(self.vis_ids, dtype=object)
         self._stats = {"searches": 0, "queries": 0, "search_seconds": 0.0,
                        "search_seconds_max": 0.0, "ingests": 0, "ingested_rows": 0}
-        logger.info("serving %d videos (%s gallery, capacity %d, %.1f MB on %s), %d heads x "
+        logger.info("serving %d videos (%s gallery, capacity %d, %.1f MB on %s%s), %d heads x "
                     "%d dims, built in %.1f s", self._count, gallery_dtype, self.capacity,
-                    self.gallery_bytes / 1e6, self.device, self.heads,
-                    self.width // self.heads, self.build_seconds)
+                    self.gallery_bytes / 1e6, self.device,
+                    f", slab {self.slab} of {mesh.size}" if mesh is not None else "",
+                    self.heads, self.width // self.heads, self.build_seconds)
+
+    # -- the mesh ------------------------------------------------------------
+
+    @property
+    def _main(self) -> bool:
+        return self.mesh is None or self.mesh.is_main
+
+    def _set_capacity(self, capacity: Optional[int]) -> None:
+        """The live count, the capacity (a multiple of the world over a mesh)
+        and this rank's slab of rows."""
+        self._count = len(self.vis_ids)
+        cap = max(int(capacity or 0), self._count)
+        size = 1 if self.mesh is None else self.mesh.size
+        self.capacity = -(-cap // size) * size
+        self.slab = self.capacity // size
+        self._row0 = 0 if self.mesh is None else self.mesh.rank * self.slab
+
+    def _live_rows(self, count: Optional[int] = None) -> Tuple[int, int]:
+        """[lo, hi): the global rows of this rank's slab below ``count`` (the
+        live count by default)."""
+        count = self._count if count is None else count
+        lo = self._row0
+        return lo, max(lo, min(count, lo + self.slab))
+
+    @torch.no_grad()
+    def follow(self) -> None:
+        """A rank other than 0: do what rank 0 broadcasts (searches, ingests)
+        until it closes."""
+        while True:
+            op, args = self.mesh.broadcast_object()
+            if op == "close":
+                return
+            if op == "search":
+                n, k = args
+                tn = torch.empty((n, self.width), dtype=torch.float32, device=self.device)
+                self._sharded_topk(self.mesh.broadcast(tn), k)
+            else:
+                self._ingest(*args)
+
+    def close(self) -> None:
+        """Rank 0 of a mesh: release the other ranks from ``follow``."""
+        if self.mesh is not None and self._main:
+            with self._lock:
+                self.mesh.broadcast_object(("close", None))
 
     # -- the resident gallery ------------------------------------------------
 
     def _allocate(self, width: int) -> None:
         self.width = width
         if self.gallery_dtype == "int8":
-            self._vq = torch.zeros((self.capacity, width), dtype=torch.int8, device=self.device)
-            self._vs = torch.ones((self.capacity,), dtype=torch.float32, device=self.device)
+            self._vq = torch.zeros((self.slab, width), dtype=torch.int8, device=self.device)
+            self._vs = torch.ones((self.slab,), dtype=torch.float32, device=self.device)
         else:
-            self._vn = torch.zeros((self.capacity, width), dtype=torch.bfloat16,
-                                   device=self.device)
+            self._vn = torch.zeros((self.slab, width), dtype=torch.bfloat16, device=self.device)
 
     @property
     def gallery_bytes(self) -> int:
@@ -298,6 +338,7 @@ class RetrievalService:
         return self._vq.numel() + self._vs.numel() * 4
 
     def _write(self, row: int, rows: torch.Tensor, scales: Optional[torch.Tensor] = None):
+        """``rows`` at ``row`` of this rank's slab."""
         n = rows.shape[0]
         if scales is not None:
             self._vq[row:row + n] = rows.to(self.device)
@@ -335,22 +376,32 @@ class RetrievalService:
             return None
         return snap
 
+    def _gathered(self, t: torch.Tensor) -> torch.Tensor:
+        """The live rows of every slab (rank 0 gathers them over a mesh)."""
+        if self.mesh is not None:
+            t = self.mesh.all_gather(t)
+        return t[:self._count]
+
     def _save_snapshot(self, path: str, model_path: str, collection: str, dtype: str) -> None:
         """The live rows only (not the capacity slots), in ``laff_tpu``'s
-        layout."""
-        n = self._count
+        layout; over a mesh, rank 0 writes every slab's."""
+        if dtype == "int8":
+            vq, vs = self._gathered(self._vq), self._gathered(self._vs)
+        else:
+            vn = self._gathered(self._vn)
+        if not self._main:
+            return
         arrays = {"key": np.asarray(self._snapshot_key(model_path, collection, dtype)),
                   "vis_ids": np.asarray(self.vis_ids), "heads": np.asarray(self.heads)}
         if dtype == "int8":
-            arrays["vq"] = self._vq[:n].cpu().numpy()
-            arrays["vs"] = self._vs[:n].cpu().numpy()
+            arrays["vq"], arrays["vs"] = vq.cpu().numpy(), vs.cpu().numpy()
         else:
-            arrays["vn_bf16"] = self._vn[:n].view(torch.int16).cpu().numpy().view(np.uint16)
+            arrays["vn_bf16"] = vn.view(torch.int16).cpu().numpy().view(np.uint16)
         tmp = path + ".tmp"
         with open(tmp, "wb") as fh:
             np.savez(fh, **arrays)
         os.replace(tmp, path)
-        logger.info("gallery snapshot written to %s (%d videos)", path, n)
+        logger.info("gallery snapshot written to %s (%d videos)", path, self._count)
 
     # -- ingest --------------------------------------------------------------
 
@@ -359,7 +410,9 @@ class RetrievalService:
         """Live ingest: embed new videos through the video tower and write
         them into the capacity slots after the live rows. ``features`` holds
         the arrays of a VisBatcher batch (feature name -> (N, D) rows).
-        Returns the new live count; queries see the videos at once."""
+        Returns the new live count; queries see the videos at once. Over a
+        mesh (called on rank 0) each rank embeds the new rows its slab
+        holds."""
         vis_ids = list(vis_ids)
         n = len(vis_ids)
         if n == 0:
@@ -372,9 +425,6 @@ class RetrievalService:
             if v.ndim != 2 or v.shape[0] != n:
                 raise ValueError(f"features[{name!r}] must be ({n}, D) rows, got {v.shape}")
             rows[name] = v
-        feed = EvalFeed([str(i) for i in range(n)],
-                        lambda ids: {k: v[[int(i) for i in ids]] for k, v in rows.items()},
-                        batch_size=batch_size)
         # every check on the live count happens under the lock: a concurrent
         # ingest could otherwise move it past the capacity
         with self._lock:
@@ -384,17 +434,32 @@ class RetrievalService:
             if self._count + n > self.capacity:
                 raise ValueError(f"gallery capacity exhausted ({self._count}+{n} > "
                                  f"{self.capacity}); construct with a larger capacity=")
-            embs, _ = self.embedder.embed_vis(feed)
-            self._write_embeddings(self._count, embs)
-            self.vis_ids.extend(vis_ids)
-            self._id_set.update(vis_ids)
-            self._id_array = np.concatenate([self._id_array, np.asarray(vis_ids, dtype=object)])
-            self._count += n
+            if self.mesh is not None:
+                self.mesh.broadcast_object(("ingest", (vis_ids, rows, batch_size)))
+            self._ingest(vis_ids, rows, batch_size)
             self._stats["ingests"] += 1
             self._stats["ingested_rows"] += n
         logger.info("ingested %d videos (live count %d / capacity %d)", n, self._count,
                     self.capacity)
         return self._count
+
+    def _ingest(self, vis_ids: List[str], rows: Dict[str, np.ndarray], batch_size: int) -> None:
+        """Embed and write the new rows this rank's slab holds; every rank
+        counts them."""
+        n = len(vis_ids)
+        lo, hi = self._live_rows(self._count + n)
+        lo = max(lo, self._count)
+        if hi > lo:
+            pick = range(lo - self._count, hi - self._count)
+            feed = EvalFeed([str(i) for i in pick],
+                            lambda ids: {k: v[[int(i) for i in ids]] for k, v in rows.items()},
+                            batch_size=batch_size)
+            embs, _ = self.embedder.embed_vis(feed)
+            self._write_embeddings(lo - self._row0, embs)
+        self.vis_ids.extend(vis_ids)
+        self._id_set.update(vis_ids)
+        self._id_array = np.concatenate([self._id_array, np.asarray(vis_ids, dtype=object)])
+        self._count += n
 
     # -- search --------------------------------------------------------------
 
@@ -443,11 +508,22 @@ class RetrievalService:
         t = tn.to(torch.bfloat16).float()
         return lambda s, e: (t @ self._vn[s:e].float().T) / heads
 
+    def _sharded_topk(self, tn: torch.Tensor, k: int):
+        """Every rank: the top ``k`` of the live rows over all slabs."""
+        return sharded_blocked_topk(self.score_block(tn), tn.shape[0], self.slab, self._count,
+                                    k, self.mesh, self.device, SCORE_BLOCK)
+
     @torch.no_grad()
     def _search_chunk(self, chunk: List[str], k: int, k_exec: int):
         tn = self.embed_queries(chunk)
-        vals, idx = blocked_topk(self.score_block(tn), self._count, min(k_exec, self._count))
-        vals, idx = vals[:, :k].cpu().numpy(), idx[:, :k].cpu().numpy()
+        k_run = min(k_exec, self._count)
+        if self.mesh is not None:
+            self.mesh.broadcast_object(("search", (tn.shape[0], k_run)))
+            vals, idx = self._sharded_topk(self.mesh.broadcast(tn), k_run)
+            vals, idx = vals[:, :k], idx[:, :k]
+        else:
+            vals, idx = blocked_topk(self.score_block(tn), self._count, k_run, SCORE_BLOCK)
+            vals, idx = vals[:, :k].cpu().numpy(), idx[:, :k].cpu().numpy()
         return [list(zip(self._id_array[row_i].tolist(), row_v.tolist()))
                 for row_i, row_v in zip(idx, vals)]
 

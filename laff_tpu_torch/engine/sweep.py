@@ -29,7 +29,7 @@ the card) and ranks it on the run's ``rank_path`` (the wide rank kernel
 with 'kernel').
 
 Raise, as in ``laff_tpu``: ``trainCollection2`` and ``resume``; and a
-``mesh`` (ROADMAP Queue 1 item 5).
+``mesh`` (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ import numpy as np
 from ..data.sources import TextSource
 from ..utils import get_logger
 from .predictor import resolve_device
-from .prepare import Options, Prepared, gru_init_we, model_dir_for, prepare
+from .prepare import (Options, Prepared, check_data_parallel, gru_init_we, model_dir_for,
+                      prepare)
 from .trainer import TrainRun, validation_feeds
 
 logger = get_logger(__name__)
@@ -84,9 +85,9 @@ def sweep_main(opt: Options, seeds: List[int], prepared: Optional[Prepared] = No
     """Train ``len(seeds)`` runs of ``opt``'s experiment in this process.
     Returns one ``trainer.main``-shaped result per seed, in ``seeds``'
     order."""
-    if mesh is not None:
-        raise NotImplementedError("a seed sweep over a device mesh is not ported yet: "
-                                  "ROADMAP Queue 1 item 5")
+    if mesh is not None or check_data_parallel(opt.data_parallel, opt.device) > 1:
+        raise NotImplementedError("a seed sweep over a device mesh (seed_data_mesh, the "
+                                  "seed x dp layout) is not ported yet: ROADMAP Queue 1 item 8")
     if opt.trainCollection2 != "None":
         raise NotImplementedError("batched seed sweeps do not support trainCollection2 (run "
                                   "seeds as separate jobs for two-feed recipes)")

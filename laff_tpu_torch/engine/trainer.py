@@ -58,9 +58,25 @@
   graph replayed K times.
 
 ``ScalarLogger`` writes ``scalars.tsv``, and TensorBoard events beside it
-with ``LAFF_TPU_TENSORBOARD=1``. Left for a later slice (ROADMAP Queue 1
-item 5): data_parallel over two or more cards (over one device it warns
-and trains there).
+with ``LAFF_TPU_TENSORBOARD=1``.
+
+Data parallelism (``main(opt, mesh=...)``, or ``--data_parallel N`` over
+several cards, which launches min(N, cards) ranks through
+``parallel.launch``), ``laff_tpu``'s SPMD step over a 'dp' mesh as one
+process a card: every rank runs this loop on the same seeded feed and keeps
+its rows of each global batch, or of the global index batch into its
+replicated caches (``shard_batch(..., from_global=True)``); rank 0's
+initial weights are broadcast. In the step, BatchNorm takes the global
+batch's statistics and the masks the global batch's draws
+(``ShardedGenerator``), the loss runs on the gathered embeddings (so the
+hardest negatives range over the global batch; ``gather_rows``), and one
+all-reduce of the flat gradient buffer precedes the update
+(``OptaxChain``). A CUDA graph of the step captures these collectives; its
+warm-up steps run them on every rank, after an eager broadcast has made
+the communicator. Validation embeds each batch's rows on their ranks and
+gathers them; rank 0 alone ranks, and the metric that drives the LR
+controller, early stop and the best checkpoint is rank 0's, broadcast.
+Only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -88,6 +104,8 @@ from ..ops.losses import (
     triplet_loss_from_scores,
     triplet_loss_multi_space,
 )
+from ..parallel.mesh import (Mesh, ShardedGenerator, gather_rows, launch, replicate,
+                             shard_batch)
 from ..utils import AverageMeter, Progress, get_logger
 from .checkpoint import (average_states, checkpoint_payload, load_checkpoint, save_checkpoint,
                          save_checkpoint_dance)
@@ -96,7 +114,7 @@ from .feature_cache import (DeviceTxtCache, DeviceVisCache, estimate_txt_cache_b
                             estimate_vis_cache_bytes)
 from .optim import LRController, OptaxChain, make_optimizer
 from .predictor import resolve_device
-from .prepare import Options, Prepared, prepare, seeded_model
+from .prepare import Options, Prepared, check_data_parallel, prepare, seeded_model
 
 logger = get_logger(__name__)
 
@@ -234,12 +252,19 @@ class TrainStep:
     only, as ``laff_tpu`` keeps; its dropout draws from the same generator.
     The task3 epoch gate reads ``self.epoch``, a tensor on the model's
     device that ``set_epoch`` fills in place, so a CUDA graph of the step
-    sees each epoch's value."""
+    sees each epoch's value.
 
-    def __init__(self, model: torch.nn.Module, optimizer: OptaxChain, spec) -> None:
+    With a ``mesh`` of several ranks the forwards take this rank's rows and
+    draw through a ``ShardedGenerator``, and the loss terms take every
+    rank's rows (``gather_rows``), so each rank computes the global batch's
+    loss."""
+
+    def __init__(self, model: torch.nn.Module, optimizer: OptaxChain, spec,
+                 mesh: Optional[Mesh] = None) -> None:
         self.model = model.train()
         self.optimizer = optimizer
         self.spec = spec
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.loss_fn = make_loss_fn(spec)
         device = next(model.parameters()).device
         self.epoch = torch.zeros((), dtype=torch.int64, device=device)
@@ -249,23 +274,29 @@ class TrainStep:
 
     def loss(self, txt: Dict[str, torch.Tensor], vis: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        spec, model = self.spec, self.model
+        spec, model, mesh = self.spec, self.model, self.mesh
+        if mesh is not None:
+            generator = ShardedGenerator(generator, mesh)
         txt, false_txt, task3_mask = split_task3(txt)
         if spec.task2 is not None:
             vis = dict(vis)
             labels = vis.pop("task2_labels")
             txt_embs, vis_embs, txt_conc, vis_conc = model.forward_with_concepts(
                 txt, vis, generator)
-            loss = self.loss_fn(txt_embs, vis_embs) + _task2_loss(txt_conc, vis_conc, labels,
-                                                                  spec.task2)
+            txt_embs, vis_embs = gather_rows(txt_embs, mesh), gather_rows(vis_embs, mesh)
+            if txt_conc is not None:
+                txt_conc = gather_rows(txt_conc, mesh)
+            loss = self.loss_fn(txt_embs, vis_embs) + _task2_loss(
+                txt_conc, gather_rows(vis_conc, mesh), gather_rows(labels, mesh), spec.task2)
         else:
             txt_embs, vis_embs = model(txt, vis, generator)
+            txt_embs, vis_embs = gather_rows(txt_embs, mesh), gather_rows(vis_embs, mesh)
             loss = self.loss_fn(txt_embs, vis_embs)
         if spec.task3 is not None and false_txt is not None:
             with frozen_batch_stats(model.txt_net):
                 false_embs = model.encode_txt(false_txt, generator)
-            loss = loss + _masked_margin2(txt_embs, vis_embs, false_embs, task3_mask,
-                                          spec.task3, self.epoch)
+            loss = loss + _masked_margin2(txt_embs, vis_embs, gather_rows(false_embs, mesh),
+                                          gather_rows(task3_mask, mesh), spec.task3, self.epoch)
         return loss
 
     def __call__(self, txt: Dict[str, torch.Tensor], vis: Dict[str, torch.Tensor],
@@ -510,6 +541,16 @@ class ScalarLogger:
             self._tb.close()
 
 
+class _NullScalarLogger:
+    """A rank other than 0 of a data-parallel run writes no scalars."""
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class EpochStream:
     """One epoch of ``train_one_epoch``, a dispatch at a time: each
     ``advance`` sends the next K batches (one with no ``multi_step``) to the
@@ -525,7 +566,8 @@ class EpochStream:
                  multi_step: Optional[MultiStep] = None,
                  vis_cache: Optional[DeviceVisCache] = None,
                  txt_cache: Optional[DeviceTxtCache] = None,
-                 cast_txt: bool = False, cast_vis: bool = False) -> None:
+                 cast_txt: bool = False, cast_vis: bool = False,
+                 mesh: Optional[Mesh] = None) -> None:
         self.step, self.multi_step, self.device = step, multi_step, device
         self.generator, self.scalar_log = generator, scalar_log
         self.log_every, self.step0 = log_every, step0
@@ -544,6 +586,8 @@ class EpochStream:
                    else host_tensors(step_text(batch), pin, cast_txt))
             vis = (vis_cache.indices(batch["vis_ids"]) if vis_cache is not None
                    else host_tensors(batch["vis"], pin, cast_vis))
+            if mesh is not None:  # this rank's rows of the global batch
+                txt, vis = (shard_batch(x, mesh, from_global=True) for x in (txt, vis))
             return txt, vis
 
         self.batches = Prefetcher((host_args(b) for b in feed.epoch(epoch)),
@@ -607,7 +651,8 @@ def train_one_epoch(step, feed: PairFeed, epoch: int, device: torch.device,
                     multi_step: Optional[MultiStep] = None,
                     vis_cache: Optional[DeviceVisCache] = None,
                     txt_cache: Optional[DeviceTxtCache] = None,
-                    cast_txt: bool = False, cast_vis: bool = False):
+                    cast_txt: bool = False, cast_vis: bool = False,
+                    mesh: Optional[Mesh] = None):
     """One epoch (``laff_tpu``'s ``train_one_epoch``). A side held by a cache
     goes to ``step`` as its (B,) row indices, else as its arrays (float
     ones rounded to bf16 on the host with ``cast_txt`` / ``cast_vis``).
@@ -616,10 +661,11 @@ def train_one_epoch(step, feed: PairFeed, epoch: int, device: torch.device,
     the card and are read once every ``log_every`` steps; with
     ``sync_debug`` (on the card) the steps between two reads run under
     ``set_sync_debug_mode("error")``, so any host sync in them raises.
-    Returns (mean loss, steps run)."""
+    With a ``mesh`` each rank steps on its rows of every batch. Returns
+    (mean loss, steps run)."""
     stream = EpochStream(step, feed, epoch, device, generator, scalar_log, log_every,
                          prefetch_depth, step0, sync_debug, multi_step, vis_cache, txt_cache,
-                         cast_txt, cast_vis)
+                         cast_txt, cast_vis, mesh)
     while stream.advance():
         pass
     return stream.finish()
@@ -831,12 +877,18 @@ class TrainRun:
     Per epoch: ``begin_epoch``, then ``train_epoch`` (or the dispatches of
     ``epoch_stream`` and ``finish_stream``), then ``end_epoch``, which
     validates, writes and returns True once the run stops; ``close`` and
-    ``result`` at the end."""
+    ``result`` at the end.
+
+    With a ``mesh`` of several ranks (on ``mesh.device``) the run is one
+    rank of a data-parallel run (see the module docstring); only rank 0
+    writes."""
 
     def __init__(self, opt: Options, prepared: Prepared, device: torch.device,
                  prepare_seconds: float = 0.0, shared: Optional[Dict] = None,
-                 val_feeds: Optional[tuple] = None) -> None:
+                 val_feeds: Optional[tuple] = None, mesh: Optional[Mesh] = None) -> None:
         self.opt, self.prepared, self.device = opt, prepared, device
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.is_main = self.mesh is None or self.mesh.is_main
         config, spec = prepared.config, prepared.spec
         self.config, self.spec, self.model_path = config, spec, prepared.model_path
         model = seeded_model(spec, opt.random_seed, prepared.we)
@@ -845,9 +897,11 @@ class TrainRun:
         if opt.pretrained_file_path != "None":
             warm_start(model, opt.pretrained_file_path)
         self.model = model.to(device)
+        if self.mesh is not None:  # an eager collective: it also makes the communicator
+            replicate(model, self.mesh)
         bf16 = "bfloat16" in (spec.txt.compute_dtype, spec.vis.compute_dtype)
-        self.optimizer = make_optimizer(config, model, bf16=bf16)
-        self.base = TrainStep(model, self.optimizer, spec)
+        self.optimizer = make_optimizer(config, model, bf16=bf16, mesh=self.mesh)
+        self.base = TrainStep(model, self.optimizer, spec, mesh=self.mesh)
         # bf16 towers round their inputs to bf16 as their first op: rounding on
         # the host gives the same tensors and halves the bytes to the card
         self.cast_txt = spec.txt.compute_dtype == "bfloat16"
@@ -855,13 +909,16 @@ class TrainRun:
         self.dispatch = setup_dispatch(opt, prepared, self.base, device, self.cast_txt,
                                        self.cast_vis, shared=shared)
         multiple = int(getattr(config, "device_batch_multiple", 1) or 1)
+        if self.mesh is not None:  # equal rows on every rank
+            multiple = max(multiple, self.mesh.size)
         if opt.batch_size % multiple:
             raise ValueError(f"batch_size {opt.batch_size} must be a multiple of {multiple} "
-                             f"(config.device_batch_multiple)")
+                             f"(config.device_batch_multiple / the data-parallel ranks)")
 
         self.lr_ctl = LRController(config.lr, config.lr_decay_rate)
         self.val_feeds = val_feeds or validation_feeds(opt, prepared)
-        self.embedder = Embedder(model, device, prefetch_depth=max(2, int(opt.workers) + 1))
+        self.embedder = Embedder(model, device, prefetch_depth=max(2, int(opt.workers) + 1),
+                                 mesh=self.mesh)
         self.generator = torch.Generator(device=device)  # reseeded each epoch
         self.negationset = read_negationset(prepared.negationset_path)
         self.best_perf, self.no_impr, self.mean_last = 0.0, 0, []
@@ -893,9 +950,9 @@ class TrainRun:
                 "graph": self.dispatch["multi_step"] is not None and device.type == "cuda",
                 "stage_val_features": bool(opt.stage_val_features)}}
         self.saver = AsyncSaver()
-        self.scalar_log = ScalarLogger(self.model_path)
-        self.hist = open(os.path.join(self.model_path, "val_perf_hist.txt"),
-                         "a" if self.start_epoch else "w")
+        self.scalar_log = ScalarLogger(self.model_path) if self.is_main else _NullScalarLogger()
+        self.hist = (open(os.path.join(self.model_path, "val_perf_hist.txt"),
+                          "a" if self.start_epoch else "w") if self.is_main else None)
 
     def ckpt_payload(self, epoch: int) -> Dict:
         """The checkpoint with host copies of the weights, taken now."""
@@ -922,7 +979,7 @@ class TrainRun:
             scalar_log=self.scalar_log, prefetch_depth=d["prefetch_depth"],
             step0=self.global_step, sync_debug=bool(opt.sync_debug),
             multi_step=d["multi_step"], vis_cache=d["vis_cache"], txt_cache=d["txt_cache"],
-            cast_txt=self.cast_txt, cast_vis=self.cast_vis)
+            cast_txt=self.cast_txt, cast_vis=self.cast_vis, mesh=self.mesh)
 
     def finish_stream(self, stream: EpochStream):
         loss, steps = stream.finish()
@@ -944,7 +1001,7 @@ class TrainRun:
                 generator=epoch_generator(self.device, opt.random_seed, epoch, self.generator),
                 scalar_log=self.scalar_log, prefetch_depth=max(2, int(opt.workers) + 1),
                 step0=self.global_step, sync_debug=bool(opt.sync_debug),
-                cast_txt=self.cast_txt, cast_vis=self.cast_vis)
+                cast_txt=self.cast_txt, cast_vis=self.cast_vis, mesh=self.mesh)
             self.global_step += steps2
         return train_loss, steps
 
@@ -954,6 +1011,7 @@ class TrainRun:
         opt, model_path, scalar_log = self.opt, self.model_path, self.scalar_log
         t0 = time.time()
         val_txt_feed, val_vis_feed = self.val_feeds
+        # decided once: under a mesh rank 0 ranks and every rank takes its metrics
         metrics = validate(self.embedder, val_txt_feed, val_vis_feed, measure=self.spec.measure,
                            rank_path=opt.rank_path)
         val_time = time.time() - t0
@@ -964,12 +1022,13 @@ class TrainRun:
                     "(%.1fs train, %.1fs validate)", epoch, train_loss, metrics["r1"],
                     metrics["r5"], metrics["r10"], metrics["medr"], metrics["mir"],
                     epoch_time, val_time)
-        self.hist.write("epoch_%d:\nText2Video(%s): %f\n" % (epoch, opt.metric, cur_perf))
-        self.hist.flush()
+        if self.hist is not None:
+            self.hist.write("epoch_%d:\nText2Video(%s): %f\n" % (epoch, opt.metric, cur_perf))
+            self.hist.flush()
         entry = {"epoch": epoch, "loss": float(train_loss), "lr": float(self.lr), "steps": steps,
                  "train_seconds": round(epoch_time, 2), "val_seconds": round(val_time, 2),
                  **{k: float(metrics[k]) for k in METRICS}}
-        if self.negationset is not None:
+        if self.negationset is not None and self.is_main:  # from rank 0's ranks
             t3, n_sub = negation_subset_metrics(metrics, self.negationset)
             if n_sub:
                 for tag, v in t3.items():
@@ -983,13 +1042,14 @@ class TrainRun:
         is_best = cur_perf > self.best_perf
         self.best_perf = max(cur_perf, self.best_perf)
         if is_best:
-            self.saver.submit(save_checkpoint_dance, self.ckpt_payload(epoch), True,
-                              logdir=model_path, filename=f"checkpoint_epoch_{epoch}.pth.tar")
+            if self.is_main:
+                self.saver.submit(save_checkpoint_dance, self.ckpt_payload(epoch), True,
+                                  logdir=model_path, filename=f"checkpoint_epoch_{epoch}.pth.tar")
             self.no_impr = 0
             self.mean_last = []
         elif opt.save_mean_last == 1:
             self.mean_last.append(host_copy(self.model.named_parameters()))
-            if len(self.mean_last) > 1:
+            if len(self.mean_last) > 1 and self.is_main:
                 payload = self.ckpt_payload(epoch)
                 payload["state_dict"].update(average_states(self.mean_last))
                 self.saver.submit(save_checkpoint, payload,
@@ -997,7 +1057,7 @@ class TrainRun:
 
         self.no_impr += 1
         entry["wall_seconds"] = round(time.time() - self.t_epoch, 2)
-        if opt.resume:
+        if opt.resume and self.is_main:
             payload = self.ckpt_payload(epoch)
             payload.update(optimizer=self.optimizer.state_dict(), global_step=self.global_step,
                            lr_ctl=dict(self.lr_ctl.__dict__), no_impr=self.no_impr,
@@ -1005,15 +1065,18 @@ class TrainRun:
             self.saver.submit(save_checkpoint, payload, self.resume_path)
         if self.no_impr > opt.early_stop_patience or epoch == opt.num_epochs - 1:
             self.saver.join()
-            save_checkpoint_dance(self.ckpt_payload(epoch), is_best=False, logdir=model_path,
-                                  filename=f"checkpoint_epoch_{epoch}.pth.tar", only_best=True)
+            if self.is_main:
+                save_checkpoint_dance(self.ckpt_payload(epoch), is_best=False, logdir=model_path,
+                                      filename=f"checkpoint_epoch_{epoch}.pth.tar",
+                                      only_best=True)
             logger.info("Early stopping or finished at epoch %d.", epoch)
             self.results["epochs"] = epoch + 1
             self.stopped = True
         return self.stopped
 
     def close(self) -> None:
-        self.hist.close()
+        if self.hist is not None:
+            self.hist.close()
         self.scalar_log.close()
 
     def result(self) -> Dict:
@@ -1021,8 +1084,9 @@ class TrainRun:
         message = "best performance on validation:\n Text to video(%s): %f" % (
             self.opt.metric, self.best_perf)
         logger.info(message)
-        with open(os.path.join(self.model_path, "val_perf.txt"), "w") as fh:
-            fh.write(message)
+        if self.is_main:
+            with open(os.path.join(self.model_path, "val_perf.txt"), "w") as fh:
+                fh.write(message)
         multi_step = self.dispatch["multi_step"]
         result = self.results
         result["dispatch"]["capture_seconds"] = (multi_step.capture_seconds if multi_step
@@ -1046,18 +1110,51 @@ def validation_feeds(opt: Options, prepared: Prepared):
     return val_txt_feed, val_vis_feed
 
 
-def main(opt: Options, prepared: Optional[Prepared] = None) -> Dict:
+def _main_rank(mesh: Mesh, opt: Options) -> Dict:
+    """One rank of a launched data-parallel ``main``: its result without the
+    model (rank 0's is returned to the launcher's caller)."""
+    result = main(opt, mesh=mesh)
+    result.pop("model")
+    return result
+
+
+def prepare_ranks(opt: Options, mesh: Optional[Mesh]) -> Prepared:
+    """``prepare`` in every rank, rank 0 first: it may write the
+    vocabularies, which the others then read."""
+    if mesh is None or mesh.size == 1:
+        return prepare(opt)
+    prepared = prepare(opt) if mesh.is_main else None
+    mesh.barrier()
+    return prepared if prepared is not None else prepare(opt)
+
+
+def main(opt: Options, prepared: Optional[Prepared] = None, mesh: Optional[Mesh] = None
+         ) -> Dict:
     """A full training run (reference ``trainer.main``). Returns
     {best_perf, epochs, prepare_seconds, history (one entry per epoch:
     loss, lr, steps, metrics, train/val/wall seconds), dispatch (what the
     dispatch rules chose: cache bytes and build seconds, K, graph, staged
     validation, the graph's capture seconds), pretrained_bert (the checkout an in-graph BERT tower
-    started from, or None), model_path, model (the trained model)}."""
-    device = resolve_device(opt.device)
+    started from, or None), model_path, model (the trained model)}.
+
+    With ``mesh``, this process is one rank of a data-parallel run (on
+    ``mesh.device``; ``prepared`` must be its own). Without one,
+    ``--data_parallel`` over several visible cards launches min(N, cards)
+    ranks, each running this with its mesh, and returns rank 0's result,
+    whose 'model' is None (the trained weights are in its checkpoints)."""
+    if mesh is None:
+        ranks = check_data_parallel(opt.data_parallel, opt.device)
+        if ranks > 1:
+            if prepared is not None:
+                raise ValueError("a data-parallel run prepares in each rank: pass no prepared")
+            result = launch(ranks, _main_rank, opt, device=opt.device)
+            result["model"] = None
+            return result
+    device = mesh.device if mesh is not None else resolve_device(opt.device)
     t_prepare = time.time()
     if prepared is None:
-        prepared = prepare(opt)
-    run = TrainRun(opt, prepared, device, prepare_seconds=time.time() - t_prepare)
+        prepared = prepare_ranks(opt, mesh)
+    run = TrainRun(opt, prepared, device, prepare_seconds=time.time() - t_prepare, mesh=mesh)
     try:
         for epoch in range(run.start_epoch, opt.num_epochs):
             run.begin_epoch(epoch)

@@ -51,6 +51,7 @@ from torch import nn
 
 from ..ops.kernels import fused_gate_attention
 from ..ops.norms import l2norm
+from ..parallel.mesh import rand_rows, torch_generator
 from .initializers import normal_, torch_linear_init_, xavier_uniform_
 from .spec import AttentionSpec
 
@@ -261,7 +262,7 @@ def _dropout(x: torch.Tensor, rate: float, training: bool,
     if not training or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = rand_rows(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, x.new_zeros(()))
 
 
@@ -524,7 +525,8 @@ class MultiHeadSelfAttention(nn.Module):
         if ot == "third":
             return out[:, :, min(2, length2 - 1), :]
         if ot == "random":  # drawn on the device: no host sync
-            idx = torch.randint(0, length, (1,), generator=generator, device=out.device)
+            idx = torch.randint(0, length, (1,), generator=torch_generator(generator),
+                                device=out.device)
             return out.index_select(2, idx)[:, :, 0, :]
         flat = out.transpose(1, 2).reshape(b, length2, h * dh)
         return self.head_attn(flat)

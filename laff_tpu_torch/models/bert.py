@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import rand_rows, torch_generator
 from ..utils import get_logger
 
 logger = get_logger(__name__)
@@ -82,7 +83,10 @@ class BertConfig:
 def _dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
              shape=None) -> torch.Tensor:
     keep = 1.0 - p
-    mask = torch.rand(shape or x.shape, generator=generator, device=x.device) < keep
+    if shape is None:  # over batch rows
+        mask = rand_rows(x.shape, generator, x.device) < keep
+    else:  # one mask for every row
+        mask = torch.rand(shape, generator=torch_generator(generator), device=x.device) < keep
     return torch.where(mask, x / keep, x.new_zeros(()))
 
 

@@ -66,6 +66,7 @@ import torch
 from torch import nn
 
 from ..ops.norms import l2norm
+from ..parallel.mesh import randn_rows, step_mesh
 from .attention import GateAttention, NetVLAD, get_attention_layer
 from .bert import BertConfig, BertModel
 from .gru import GruEncoder
@@ -236,8 +237,13 @@ class FusionTower(nn.Module):
             if self.is_visual and self.training:
                 # decided on the card: no host sync; drawn in f32 whatever
                 # the feature's type, so a host bf16 cast draws the same
-                noise = torch.randn(feat.shape, generator=generator, device=feat.device)
-                feat = torch.where(feat.abs().sum() == 0, noise, feat.float())
+                # (under data parallelism: zero over the global batch)
+                noise = randn_rows(feat.shape, generator, feat.device)
+                total = feat.abs().sum()
+                mesh = step_mesh(generator)
+                if mesh is not None:
+                    total = mesh.all_reduce(total.float())
+                feat = torch.where(total == 0, noise, feat.float())
             transform = getattr(self, f"transform_{safe_name(name)}")
             if name in spec.no_transform and transform.fc1 is None \
                     and transform.shared_fc is None:

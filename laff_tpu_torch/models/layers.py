@@ -10,6 +10,12 @@ statistics and updates its running statistics as flax does: with the
 *biased* batch variance (``nn.BatchNorm1d`` would blend in the unbiased
 one), reduced in f32. Dropout draws its mask from the ``generator`` the
 caller passes (the trainer's, one per epoch), so a run repeats exactly.
+Under a data-parallel step (a ``parallel.mesh.ShardedGenerator``) the
+statistics are the global batch's, a two-pass mean and biased variance
+summed over the group (``all_reduce_sum``, whose backward gives the global
+gradient), and the dropout mask is the global batch's draw, this rank's
+rows (``torch.nn.SyncBatchNorm`` would blend the unbiased variance into
+the running statistics).
 
 With a ``compute_dtype`` (bf16 for the headline) the input, the linear map
 and the activation run in that type, BatchNorm normalizes in f32 and rounds
@@ -35,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum, rand_rows, step_mesh
 from .initializers import xavier_uniform_
 
 _ACTIVATIONS = {"tanh": torch.tanh, "relu": torch.relu, "sigmoid": torch.sigmoid}
@@ -70,15 +77,25 @@ class TransformNet(nn.Module):
         if self.bn1 is not None:
             self.bn1.reset_parameters()
 
-    def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+    def _batch_norm(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         bn = self.bn1
         if not self.training:
             return bn(x)
-        out = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+        mesh = step_mesh(generator)
+        if mesh is None:
+            out = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+        else:  # the global batch's statistics, two passes over the group
+            n = x.shape[0] * mesh.size
+            mean = all_reduce_sum(x.sum(dim=0), mesh) / n
+            var = all_reduce_sum(((x - mean) ** 2).sum(dim=0), mesh) / n
+            out = (x - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
         if not self.update_stats:
             return out
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=0, correction=0)
+            if mesh is None:
+                var, mean = torch.var_mean(x, dim=0, correction=0)
+            else:
+                var, mean = var.detach(), mean.detach()
             keep = 1.0 - bn.momentum
             bn.running_mean.mul_(keep).add_(mean * bn.momentum)
             bn.running_var.mul_(keep).add_(var * bn.momentum)
@@ -96,10 +113,10 @@ class TransformNet(nn.Module):
             x = _ACTIVATIONS[self.activation](x)
         if self.dropout and self.training:
             keep = 1.0 - self.dropout
-            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+            mask = rand_rows(x.shape, generator, x.device) < keep
             x = torch.where(mask, x / keep, x.new_zeros(()))
         if self.bn1 is not None:
-            x = self._batch_norm(x.float()).to(x.dtype)
+            x = self._batch_norm(x.float(), generator).to(x.dtype)
         return x.float() if dtype is not None else x
 
 

@@ -11,9 +11,18 @@ min(a, b) = (a + b - |a - b|) / 2, the sums of the minima and the maxima
 over d come from the rows' sums and their L1 distance (``torch.cdist``,
 p=1), in f64, so no (T, V, d) intermediate is made and the scores do not
 depend on the device's order of summation.
+
+``blocked_topk`` is the exact top k of a gallery scored a block of rows at
+a time, in the port's order (equal scores in decreasing gallery index):
+each (score, column) pair is packed into one int64 key that sorts as the
+pair does (``order_keys``), so ``torch.topk``, whose order of ties is
+unspecified, never sees a tie, and the keys of several blocks, or of
+several ranks' shards (``parallel.sim_engine``), merge by one more top k.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Tuple
 
 import torch
 
@@ -61,3 +70,50 @@ def hist_scores(txt: torch.Tensor, vis: torch.Tensor, eps: float = 1e-14) -> tor
     total = t.sum(dim=-1).T[:, :, None] + v.sum(dim=-1).T[:, None, :]  # (H, T, V)
     scores = (total - l1) / (total + l1 + 2.0 * eps)  # sum(min) / (sum(max) + eps)
     return scores.mean(dim=0)
+
+
+def order_keys(scores: torch.Tensor, col0: int) -> torch.Tensor:
+    """(T, B) f32 scores of gallery columns col0.. -> int64 keys that sort
+    as (score, column): the score's bits made monotone as a signed int32
+    (negative floats have their magnitude bits flipped; -0.0 is made +0.0)
+    in the high word, the column in the low word."""
+    bits = (scores + 0.0).view(torch.int32)
+    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    cols = torch.arange(col0, col0 + scores.shape[1], device=scores.device)
+    return (bits.to(torch.int64) << 32) | cols
+
+
+def decode_keys(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``order_keys``' inverse: (scores f32, columns int64)."""
+    bits = (keys >> 32).to(torch.int32)
+    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return bits.view(torch.float32), keys & 0xFFFFFFFF
+
+
+def blocked_topk_keys(score_block: Callable[[int, int], torch.Tensor], n_rows: int, k: int,
+                      block: int, col0: int = 0) -> torch.Tensor:
+    """The top ``k`` ``order_keys`` (T, min(k, n_rows)) of ``n_rows`` gallery
+    rows scored ``score_block(start, stop)`` -> (T, stop - start), ``block``
+    rows at a time; the rows are gallery columns ``col0``.. . The last block
+    is scored as the full-width window that ends at ``n_rows`` (its columns
+    before ``start`` dropped), so every product has one shape whatever
+    ``n_rows`` is: a row's score then does not depend on how the gallery was
+    cut into blocks or shards (a product of another width may sum in
+    another order)."""
+    run = None
+    for start in range(0, n_rows, block):
+        stop = min(start + block, n_rows)
+        lo = max(0, stop - block)
+        keys = order_keys(score_block(lo, stop)[:, start - lo:], col0 + start)
+        if run is not None:
+            keys = torch.cat([run, keys], dim=1)
+        run = torch.topk(keys, min(k, keys.shape[1]), dim=1).values
+    return run
+
+
+def blocked_topk(score_block: Callable[[int, int], torch.Tensor], n_rows: int, k: int,
+                 block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each query's top ``k`` of ``n_rows`` gallery rows (``blocked_topk_keys``):
+    (values (T, k), indices (T, k)), descending, equal scores in decreasing
+    gallery index."""
+    return decode_keys(blocked_topk_keys(score_block, n_rows, k, block))

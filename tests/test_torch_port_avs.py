@@ -33,7 +33,8 @@ both packages, answers the same query sets in both predictors:
   --data_parallel 2 on one device, which raised naming item 5;
 * --data_parallel 1 and 2 through both CLIs on one device: laff_tpu's
   warning, then the single-device run; with two or more cards visible both
-  raise naming item 5;
+  CLIs hand min(N, cards) ranks to the launcher (``parallel.launch``,
+  patched here; tests/test_torch_port_parallel.py runs the ranks);
 * ``build_avs_world``'s layout, relevance rule and chunked writes, its
   benchmark over the gallery, and the package data an installed port needs.
 """
@@ -385,19 +386,37 @@ def test_data_parallel_on_one_device(world, monkeypatch, caplog, entry, value):
     assert do_predictor.parse_args([AVS, "m", "s", "--data_parallel", str(value)]).data_parallel
 
 
+@pytest.mark.parametrize("requested,visible", [(2, 4), (4, 2)])
 @pytest.mark.parametrize("entry", ["do_predictor", "do_trainer"])
-def test_data_parallel_over_several_cards_raises(world, monkeypatch, entry):
-    from laff_tpu_torch.cli import do_trainer
+def test_data_parallel_over_several_cards_launches(world, monkeypatch, entry, requested,
+                                                  visible):
+    """Over two or more visible cards each CLI hands min(N, cards) ranks of
+    its entry point to the launcher, which runs them (patched here: the
+    ranks run in tests/test_torch_port_parallel.py), and trains or
+    predicts nothing in this process."""
+    from laff_tpu_torch.cli import do_predictor, do_trainer
     from laff_tpu_torch.engine import prepare as port_prepare
+    from laff_tpu_torch.engine import trainer as port_trainer
 
-    monkeypatch.setattr(port_prepare, "visible_devices", lambda device: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        if entry == "do_predictor":
-            port_predictor.main(_port_opt(world, AVS, "tv16.avs.txt", "dp_raise",
-                                          data_parallel=2))
-        else:
-            do_trainer.main(_trainer_argv(world, "dp_raise", 2))
-    assert not os.path.exists(_score_dir(world, AVS, "tv16.avs.txt", "dp_raise"))
+    calls = []
+
+    def fake_launch(n, target, *args, device="cuda"):
+        calls.append((n, target.__module__, args[0].data_parallel, device))
+        return {}
+
+    monkeypatch.setattr(port_prepare, "visible_devices", lambda device: visible)
+    monkeypatch.setattr(port_predictor, "launch", fake_launch)
+    monkeypatch.setattr(port_trainer, "launch", fake_launch)
+    sim = f"dp_launch_{requested}_{visible}"
+    if entry == "do_predictor":
+        assert do_predictor.main([AVS, world["port_ckpt"], sim, "--rootpath", world["root"],
+                                  "--device", "cpu", "--data_parallel", str(requested)]) == 0
+    else:
+        assert do_trainer.main(_trainer_argv(world, sim, requested)) == 0
+    module = "predictor" if entry == "do_predictor" else "trainer"
+    assert calls == [(min(requested, visible), f"laff_tpu_torch.engine.{module}", requested,
+                      "cpu")]
+    assert not os.path.exists(_score_dir(world, AVS, "tv16.avs.txt", sim))
 
 
 def _strongclip_tower_file(path, prefix=""):

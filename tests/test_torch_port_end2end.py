@@ -252,7 +252,7 @@ def test_main_trains_through_the_cli(world):
                                  "kernel")) == 0
     opt = do_trainer.parse_args(_argv(world, "cli"))
     best = os.path.join(port_prepare.model_dir_for(opt), "model_best.pth.tar")
-    model = port_e2e.load_end2end(best)
+    model = port_e2e.load_end2end(best, device="cpu")
     assert isinstance(model, End2EndClip) and not model.training
     ckpt = torch.load(best, weights_only=True)
     assert ckpt["model_name"] == "End2EndClip" and ckpt["best_perf"] > 0

@@ -33,7 +33,8 @@ print(len(names), "modules;", "forbidden:", bad, covered)
 # checkpoints name, the re-rankers, the TRECVID harness with its CLI, the
 # int8 gallery, the host data CLIs, the live CLIP towers and End2EndClip,
 # the BERT tower, the retrieval server and its full-width BERT config, the
-# seed sweep, the orchestrator and its two CLIs
+# seed sweep, the orchestrator and its two CLIs, the mesh and the sharded
+# similarity engine
 REQUIRED = ("laff_tpu_torch.native", "laff_tpu_torch.eval.rerank",
             "laff_tpu_torch.ops.quantized", "laff_tpu_torch.data.check",
             "laff_tpu_torch.cli.build_vocab", "laff_tpu_torch.cli.txt2bin",
@@ -55,7 +56,8 @@ REQUIRED = ("laff_tpu_torch.native", "laff_tpu_torch.eval.rerank",
             "laff_tpu_torch.engine.service", "laff_tpu_torch.cli.do_server",
             "laff_tpu_torch.configs.bert_rehearsal", "laff_tpu_torch.engine.sweep",
             "laff_tpu_torch.engine.orchestrate", "laff_tpu_torch.cli.retrieval_task",
-            "laff_tpu_torch.cli.all_run")
+            "laff_tpu_torch.cli.all_run", "laff_tpu_torch.parallel",
+            "laff_tpu_torch.parallel.mesh", "laff_tpu_torch.parallel.sim_engine")
 
 
 def _run(args, cwd):

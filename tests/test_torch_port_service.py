@@ -10,8 +10,9 @@ the blocks' top k), the int8 one (and its warning), live ingest into the
 capacity slots and back-to-back padded writes, the HTTP endpoints with and
 without micro-batching (and ``do_server``'s own service), a FrameLAFF
 checkpoint, the ``MicroBatcher`` against direct calls, the gallery
-snapshot's round trip, and the metrics. The rejections (measure 'hist', a
-precomputed-only text modality, a mesh) and the tie order, which differs on
+snapshot's round trip, and the metrics. The rejections (measure 'hist',
+also over a mesh, and a precomputed-only text modality), ``--mesh_devices``
+handing its ranks to the launcher, and the tie order, which differs on
 purpose: on tied gallery rows the port lists equal scores in decreasing
 gallery index, ``lax.top_k`` in increasing.
 """
@@ -37,6 +38,7 @@ from laff_tpu.engine import service as jax_service
 from laff_tpu.engine import trainer as jax_trainer
 from laff_tpu.engine.checkpoint import load_checkpoint as jax_load
 from laff_tpu.store.bigfile import BigFile
+from laff_tpu_torch import parallel as port_parallel
 from laff_tpu_torch.cli import do_server
 from laff_tpu_torch.configs import tiny as port_tiny
 from laff_tpu_torch.configs import tiny_frame as port_tiny_frame
@@ -273,24 +275,28 @@ def test_service_rejections(served, tmp_path, monkeypatch, case):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_service.RetrievalService(served[2], served[0], TEST)
         return
-    if case == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-            port_service.RetrievalService("x", str(tmp_path), "none", mesh=object())
-        return
-    if case == "mesh_devices":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-            do_server.build_server(do_server.parse_args(["c", "m", "--mesh_devices", "4"]))
+    if case == "mesh_devices":  # served over N ranks (tests/test_torch_port_parallel.py)
+        calls = []
+        monkeypatch.setattr(port_parallel, "launch",
+                            lambda n, target, args, device: calls.append((n, target, device)))
+        assert do_server.main(["c", "m", "--mesh_devices", "4", "--device", "cpu"]) == 0
+        assert calls == [(4, do_server.serve_rank, "cpu")]
         return
 
     class Cfg:
-        measure = "hist" if case == "hist" else "cosine"
+        measure = "hist" if case in ("hist", "mesh") else "cosine"
 
     monkeypatch.setattr(port_service, "load_checkpoint",
                         lambda p: {"config": Cfg(), "state_dict": {}, "spec": None})
     monkeypatch.setattr(port_service, "rebuild_featurizers",
                         lambda ckpt, rootpath, device: {"clip": None, "bow": object()})
-    with pytest.raises(ValueError, match="measure" if case == "hist" else "precomputed-only"):
-        port_service.RetrievalService("x", str(tmp_path), "none", device="cpu")
+    # over a mesh (a rank of a launched group, served since the mesh slice)
+    # the same checks hold, before any collective
+    mesh = (port_parallel.Mesh(rank=0, size=2, device=torch.device("cpu"))
+            if case == "mesh" else None)
+    with pytest.raises(ValueError, match="measure" if case in ("hist", "mesh")
+                       else "precomputed-only"):
+        port_service.RetrievalService("x", str(tmp_path), "none", device="cpu", mesh=mesh)
 
 
 def test_micro_batcher_matches_direct(served):

@@ -473,12 +473,19 @@ def test_resume_gives_the_uninterrupted_result(world, monkeypatch):
 
 @pytest.mark.parametrize("option,value", [("data_parallel", 4)])
 def test_options_not_ported_raise(world, monkeypatch, option, value):
-    # data_parallel raises only with two or more devices visible; over one it
-    # warns and trains there (tests/test_torch_port_avs.py)
+    """data_parallel, which raised over several cards until the port ran it,
+    now launches min(N, cards) ranks of ``main`` (the launcher patched here;
+    tests/test_torch_port_parallel.py runs them); a prepared run cannot be
+    handed to the ranks, which prepare their own, and raises."""
     monkeypatch.setattr(port_prepare, "visible_devices", lambda device: 2)
+    calls = []
+    monkeypatch.setattr(port_trainer, "launch",
+                        lambda n, target, opt, device: calls.append((n, opt)) or {})
     opt = port_prepare.Options(device="cpu", **_base(world), **{option: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        port_prepare.prepare(opt)
+    assert port_trainer.main(opt) == {"model": None}
+    assert calls == [(2, opt)]
+    with pytest.raises(ValueError, match="prepares in each rank"):
+        port_trainer.main(opt, prepared=object())
 
 
 DISPATCH_OPTIONS = ("steps_per_dispatch", "device_feature_cache", "device_text_cache",
