@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port (laff_tpu_torch) on one NVIDIA card.
 
   python3 chip_smoke.py          # from the repository root; needs one GPU
-  python3 chip_smoke.py --sweep  # phases 1 and 14 alone
-  python3 chip_smoke.py --multi  # phases 1 and 15 (a)-(d) over four cards
+  python3 chip_smoke.py --sweep  # phases 1 and 14, with 14(d)-(e)
+  python3 chip_smoke.py --multi  # phases 1 and 15 (a)-(g) over four cards
   python3 chip_smoke.py --gate-timing DIR [DIR ...]
                                  # the gate of each checkout DIR in turn
 
@@ -33,16 +33,19 @@ Phases, each asserting; any failure exits non-zero before the last line:
    bf16 cast included, and again on operands already cast.
 3. The prediction slice at full width (configs/rehearsal.py, seeded random
    weights) through ``laff_tpu_torch.engine.predictor.main``: a synthetic
-   2,990-video x 20-caption world with rank_path 'kernel' and 'flat', then
-   an 8,600-video world (above the wide budget) with rank_path 'kernel'.
+   2,990-video x 20-caption world (MV-test3k's shape) with rank_path
+   'kernel' (its wall printed as a marker of the host's speed), then an
+   8,600-video world (above the wide budget) with rank_path 'kernel'.
    The rtest pass's text featurization must run in the native featurizer.
    Launch counts are zeroed just before and read just after each kernel
    run. The same inputs are embedded again: the kernel run's ranks are held
-   against the plain rank version on those bf16 operands, the flat run's
-   against their f32 scores, and the towers against the CPU; one forward
-   of each tower is profiled by kernel.
+   against the plain rank version on those bf16 operands, the flat rank
+   path's ranks of the same embeddings against their f32 scores (no second
+   pass), and the towers against the CPU; one forward of each tower is
+   profiled by kernel.
 4. The training slice at full width on a 1,500-video x 20-caption world
-   (rtrain, B 128, 234 steps an epoch), at the default dispatch: the
+   (rtrain, B 128, 234 steps an epoch) validating on rval (rtest's shape
+   with 5 captions a video), at the default dispatch: the
    train features in device caches, K = 8 steps per dispatch as one CUDA
    graph replayed 8 times, validation batches staged on the card.
    (a) The caches' gathered rows equal the fed batches (bf16 cast
@@ -55,10 +58,10 @@ Phases, each asserting; any failure exits non-zero before the last line:
    Two epochs of ``laff_tpu_torch.engine.trainer.main`` at the
    default Options (plus rank_path 'kernel' and sync_debug, so every window
    of graphed steps between two loss reads runs under
-   ``torch.cuda.set_sync_debug_mode("error")``), validating on rtest: it
+   ``torch.cuda.set_sync_debug_mode("error")``), validating on rval: it
    must choose both caches, K 8 as a graph and staged validation; the loss
    falls, R@1 is above chance, each validation launches the wide rank
-   kernel once and the gate 62 times and the steps neither; the second
+   kernel once and the gate 18 times and the steps neither; the second
    validation replays the staged batches and its metrics equal an unstaged
    validate of the same weights exactly; the process's default CUDA
    generator is left as it was. (d) Timings: the graphed step
@@ -86,7 +89,7 @@ Phases, each asserting; any failure exits non-zero before the last line:
 5. FrameLAFF at full width (configs/frame_rehearsal.py: the shape of
    FrameLaff_NoFrameFc_StrongCLIP_adjust at parm 0_7_1_12_0_12_0, 512-d
    frame rows pooled by the plain gate beside four video features, L = 5
-   locals at the video tower's gate; 91.2 M parameters) on rtrain -> rtest
+   locals at the video tower's gate; 91.2 M parameters) on rtrain -> rval
    with 8-60 frames a video, 50 kept: (a), (b) and (d)'s step timings with
    the padded frames in the visual cache, (c) two epochs of trainer.main
    at the default dispatch with the same checks, one step on the card
@@ -112,7 +115,7 @@ Phases, each asserting; any failure exits non-zero before the last line:
    for every 29th caption, on the CPU. (d) Phase 4's trained checkpoint
    written in the reference layout (save_torch_checkpoint) and read back:
    the same spec and state dict, predictor.main on the .pth.tar gives the
-   port file's rows, ranks and launches, --pretrained_file_path from
+   port file's rows, ranks and launches on rval, --pretrained_file_path from
    either file the same first-step loss; the export and the load and
    convert timed.
 
@@ -134,7 +137,7 @@ Phases, each asserting; any failure exits non-zero before the last line:
    --task3_caption on t3test under (a)'s checkpoint: the negated queries
    counted, 48 gate launches (the queries and both clauses) and no rank
    kernel, its t2v row against eval_t2v of the plain path's adjusted
-   scores from the same card embeddings. (d) On vtest (1,500 videos x 10
+   scores from the same card embeddings. (d) On vtest (1,500 videos x 5
    captions, the VATEX test shape, with a concept pkl): --rerank tkb and
    concept, and --rerank kreciprocal and --each_head 1 on vheads (500
    videos with 1 caption each), under (a)'s checkpoint,
@@ -185,9 +188,9 @@ Phases, each asserting; any failure exits non-zero before the last line:
    FrameLAFF checkpoint under the config name
    FrameLaff_NoFrameFc_StrongCLIP_adjust and a seeded ViT-B/32-shaped CLIP
    text tower (63.4 M parameters, 254 MB of f32) in the reference's layout
-   at rtest/TextData/clip_synth/model_best.pth.tar; predictor.main on rtest
+   at rval/TextData/clip_synth/model_best.pth.tar; predictor.main on rval
    (rank_path 'kernel'): the tower swapped in once and every 'clip' row
-   its output, phase 5's launches (1 wide rank, 62 gate), the kernel ranks
+   its output, phase 5's launches (1 wide rank, 18 gate), the kernel ranks
    against the plain version on the re-embedded operands, the tower on the
    card against the CPU for 256 captions within 1e-4 of the largest value,
    the TF32 flags as found, embed_txt with the tower's and the
@@ -206,7 +209,7 @@ Phases, each asserting; any failure exits non-zero before the last line:
 12. The in-graph BERT text tower, before phase 8: configs/bert_rehearsal.py
    (rehearsal's towers with the precomputed CLIP text rows replaced by
    BERT-base, 109.5 M parameters at 64 tokens, trained at lr/20 in f32) on
-   btrain -> bval (500 videos x 20 captions each, 78 steps of 128 an
+   btrain -> bval (500 videos x 20 and x 10 captions, 78 steps of 128 an
    epoch). (a) A seeded BERT-base checkout written under build/chip_smoke/
    (config.json, a 30,522-line vocab.txt, model.safetensors) and imported
    bit for bit; the pooler on the card against the CPU for 64 captions and
@@ -263,14 +266,33 @@ Phases, each asserting; any failure exits non-zero before the last line:
    and int8, bit for bit against the one-card service (searches, an ingest,
    the snapshot the mesh writes restored on one card).
 
+16. Seed sweeps over a mesh of one, after phase 14 (before phase 8):
+   engine.sweep.sweep_main at configs/rehearsal.py's full width on strain
+   -> sval, 2 seeds x 1 epoch, over an NCCL group of one, with the seed
+   axis (parallel.data_parallel_mesh(1)) and with the seed x dp layout
+   (parallel.seed_data_mesh(1, 1)): each seed's losses, metrics and best
+   checkpoint against the one-card sweep_main of the same seeds, bit for
+   bit or within the spread of two one-card runs (phase 14's rule); one
+   wide rank and 11 gate launches a seed's validation, none in the steps.
+
+Cuts of depth that make room for phase 16 (each path still runs, and
+every kernel is still launched and held against its plain version):
+phase 3's 'flat' pass (its ranks now come from the re-embedded operands,
+without a second rank dump and v2t); phases 4, 5 and 10 and 6(c)-(d)
+validate and predict on rval, 5 captions a video, not rtest's 20 (the
+MV-test3k-shaped pass of phase 3 stays whole); vtest 10 -> 5 captions a
+video; bval 20 -> 10. The earlier cuts: t3test and ctest at 5
+captions a video, vheads 500 x 1, e2etrain at 128 videos, phase 9(b) removed, phases 4(f)
+and 6(a) without 'flat' passes, tv18 built but not streamed.
+
 Prints the kernels JSON line (all three kernels; launches: each main path
-counted from 0 around its run, summed, and by path, phases 10-15's
+counted from 0 around its run, summed, and by path, phases 10-16's
 included; rbig and phase 9(c) for the tiled kernel), then ``{"ok": true,
 "device": ...}`` last.
 
 ``--multi`` needs four cards of one host and runs phase 1, then
 spawns four ranks through ``laff_tpu_torch.parallel.launch``, one a card
-(NCCL), each through (a)-(d); rank 0 checks against one card's results,
+(NCCL), each through (a)-(f), after (g); rank 0 checks against one card's results,
 which it computes on its card while the others wait: (a) sim_engine at the
 MV-test3k shape (ranks, exactly) and over an iacc.3-sized bf16 gallery
 (335,944 x 4,096; the f32 and int8 top 1,000 of 512 queries, exactly; rows
@@ -285,17 +307,36 @@ the trainer with data_parallel 4 on rtrain -> rtest at global B 128 (K 8
 graphed, dropout on): the first dispatch's losses (1e-4 relative) and
 parameters (f32 towers: 1e-4 of each tensor's largest; bf16: 0.05 of it
 and 1.5 of one card's update in norm, the tensors that the dispatch's Adam
-steps made left out) against one card's
-run from the same seed, and a control run whose gradient all-reduce loses
-a rank's share, read the same way; two epochs (the loss falls, R@1 above
+steps made left out, and those whose gradient is rounding noise: one
+card's bf16 gradient further than half the f32 one's norm from it) against
+one card's run from the same seed, and a control run whose gradient
+all-reduce loses a rank's share, read the same way, which must miss them;
+two epochs (the loss falls, R@1 above
 chance), ms per graphed step, the all-reduce and a profiled dispatch (the
 device's idle share from the union of its non-NCCL kernels), then an
-epoch at 128 a card. It prints
+epoch at 128 a card; (e) the seed axis: sweep_main(mesh=) of 4 seeds x 2
+epochs on strain -> sval, one seed a card, against the one-card sweep of
+the same seeds on card 0 (bit for bit, or within phase 14's spread rule),
+the gate and the wide rank kernel on every card, the walls and ms per
+graphed step; (f) the seed x dp layout, seed_data_mesh(2, 2): each row's
+TrainRun(mesh=row) read after its first dispatch as (d) reads it, under
+(d)'s limits, f32 and bf16 (bf16 losses within 1e-3: rounding drifts them
+further on two cards a row; a control run must miss that), against its
+seed's one-card run; (d)'s reading of seed 0 over the four cards, printed
+as a witness; then one epoch of sweep_main(mesh=) (the wide rank kernel on each row's first card
+alone, the gate on all four); (g) ``python -m
+laff_tpu_torch.cli.multihost_smoke --procs 4``: four processes joined from
+torchrun's variables over NCCL, its three checks. It prints
 the figures as one JSON line, then the ``{"ok": true, ...}`` line.
 Everything it writes goes under build/ in the repository.
 
 ``--bert-serve`` runs phases 1, 12 and 13 alone (13 on phase 8's world).
-``--sweep`` runs phases 1 and 14 alone ((c) on an iacc.3 world of its own).
+``--sweep`` runs phases 1 and 14 alone ((c) on an iacc.3 world of its own),
+then (d) ``python -m laff_tpu_torch.cli.reproduce_mvtest3k --dry_run`` and
+(e) ``cli/do_pretrain_gcc_train_avs.py`` at rehearsal width (stage 1 on
+gtrain, stage 2 on strain -> sval, tv16 of iacc.3; the fine-tune starts
+from the pretrain's checkpoint, infAP at least 5x a random run's, a second
+call skips stage 1).
 ``--gate-timing`` runs only the gate: each DIR (a checkout, e.g. the parent
 commit unpacked under build/) in its own process, with its own wrapper and
 kernel sources, held against its plain version and timed as in phase 2.
@@ -719,15 +760,16 @@ def run_predictor(torch, K, P, root, coll, ckpt, rank_path):
     return res, launches
 
 
-def reembed_and_check(torch, K, P, root, coll, ckpt, res_kernel, res_flat=None, resident=None):
+def reembed_and_check(torch, K, P, root, coll, ckpt, res_kernel, flat=False, resident=None):
     """Embed the same inputs again (same model, feeds and batches, so the
-    same embeddings) and hold the runs' ranks against them: kernel ranks
+    same embeddings) and hold the run's ranks against them: kernel ranks
     against the rank kernel's plain version on the same bf16 operands (near
-    ties within SCORE_TIE_TOL: f32 accumulation order), and, given a flat
-    run, its ranks against the f32 scores (near ties within 1e-5).
+    ties within SCORE_TIE_TOL: f32 accumulation order), and, with ``flat``,
+    the flat rank path's ranks of these embeddings (evaluator.t2v_ranks,
+    no rank kernel) against their f32 scores (near ties within 1e-5).
     ``resident(txt, vis, txt_ids, vis_ids)`` is called on the embeddings."""
     from laff_tpu_torch.engine.checkpoint import load_checkpoint
-    from laff_tpu_torch.engine.evaluator import Embedder
+    from laff_tpu_torch.engine.evaluator import Embedder, t2v_ranks
     from laff_tpu_torch.ops import flatten_heads
 
     ck = load_checkpoint(ckpt)
@@ -763,13 +805,19 @@ def reembed_and_check(torch, K, P, root, coll, ckpt, res_kernel, res_flat=None, 
                                        vn.to(torch.bfloat16), gt, SCORE_TIE_TOL)
     check(ok, "main-path kernel ranks differ from the plain version beyond near ties")
     equal = int((rk == plain).sum())
-    if res_flat is None:
+    if not flat:
         log(f"  slice check: {t} captions; main-path kernel ranks equal the plain version "
             f"on the same bf16 operands for {equal} rows (others within {SCORE_TIE_TOL} "
             f"near ties, at most {max_err} places)")
         return txt[:64].float(), vis[:64].float(), txt_feed, vis_feed, model
 
-    rf = torch.as_tensor(res_flat["t2v_ranks"], device="cuda").long()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rf = torch.as_tensor(t2v_ranks(txt, vis, txt_ids, vis_ids, rank_path="flat"),
+                         device="cuda").long()
+    flat_s = time.perf_counter() - t0
+    check(K.LAUNCHES["sim_rank_wide"] == K.LAUNCHES["sim_rank_tiled"] == 0,
+          f"the flat rank path launched {dict(K.LAUNCHES)}")
     td, vd = tn.double(), vn.double()
     for rows in torch.arange(t, device="cuda").split(4096):
         s = td[rows] @ vd.T / heads
@@ -783,10 +831,8 @@ def reembed_and_check(torch, K, P, root, coll, ckpt, res_kernel, res_flat=None, 
     log(f"  slice check: {t} captions; main-path kernel ranks equal the plain version "
         f"on the same bf16 operands for {equal} rows (others within {SCORE_TIE_TOL} "
         f"near ties, at most {max_err} places); flat ranks match the re-embedded f32 "
-        f"scores; kernel (bf16) vs flat (f32) ranks differ on {moved} rows "
-        f"({moved / t:.4%}, at most {int((rk - rf).abs().max())} places)")
-    check(tuple(res_kernel["v2t"]) == tuple(res_flat["v2t"]),
-          "v2t metrics differ between two runs over the same score path")
+        f"scores ({flat_s:.2f} s, no rank kernel); kernel (bf16) vs flat (f32) ranks differ "
+        f"on {moved} rows ({moved / t:.4%}, at most {int((rk - rf).abs().max())} places)")
     return txt[:64].float(), vis[:64].float(), txt_feed, vis_feed, model
 
 
@@ -870,6 +916,11 @@ GRAPH_STEPS = 16  # graphed vs eager: two dispatches of K 8
 TRAIN_WINDOW = 60  # fed steps between two loss reads in the checked window
 CACHE_CHECK_BATCHES = 3
 VAL_GATE_CALLS = 62  # gate calls of one rtest validation: 59 text + 3 video batches
+# phases 4-6 and 10 validate and predict on rval, rtest's 2,990 videos with 5
+# captions a video (a cut of depth: their passes' host work, the rank dump
+# and v2t, grows with the captions); phase 3's pass keeps MV-test3k's 59,800
+RVAL = ("rval", 2990, 5, SEED + 17)
+RVAL_GATE_CALLS = 15 + 3  # one rval validation or pass: 15 text + 3 video batches
 
 
 class Counting:
@@ -1467,7 +1518,7 @@ def run_main(torch, K, T, opt, prepared, smi, what, gate_calls=VAL_GATE_CALLS,
 
 def trained_checkpoint_prediction(torch, K, P, root, res, rank_paths, what, gate_run=GATE_RUN,
                                   coll="rtest"):
-    """(f) the trained best checkpoint through ``predictor.main`` on rtest, for
+    """(f) the trained best checkpoint through ``predictor.main`` on ``coll``, for
     each rank path; the kernel path's mir must be the trainer's validation
     mir of that epoch. Returns the checkpoint path, the results and the
     kernel run's launches."""
@@ -1503,9 +1554,11 @@ def train_phase(torch, K, P, root, smi):
     from laff_tpu_torch.engine.prepare import Options, prepare
 
     t0 = time.perf_counter()
-    log(f"world: {build_world(root, 'rtrain', 1500, 20, 11286, SEED + 2, frame_feat=True)} "
-        f"in {time.perf_counter() - t0:.1f} s")
-    opt = Options(trainCollection="rtrain", valCollection="rtest", rootpath=root, val_set="no",
+    coll, n_videos, caps, seed = RVAL
+    log(f"worlds: {build_world(root, 'rtrain', 1500, 20, 11286, SEED + 2, frame_feat=True)}, "
+        f"{build_world(root, coll, n_videos, caps, 11286, seed, frame_feat=True)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    opt = Options(trainCollection="rtrain", valCollection=coll, rootpath=root, val_set="no",
                   config_name="rehearsal", num_epochs=2, batch_size=128, device="cuda",
                   rank_path="kernel", sync_debug=1, random_seed=SEED, model_prefix="smoke")
     t0 = time.perf_counter()
@@ -1514,7 +1567,8 @@ def train_phase(torch, K, P, root, smi):
     log(f"trainer prepare: {time.perf_counter() - t0:.1f} s; {len(feed.cap_ids)} captions, "
         f"{feed.steps_per_epoch()} steps of {feed.batch_size} per epoch")
     init = cache_and_graph_checks(torch, K, T, opt, prepared, smi, "laff")
-    res, launches, unstaged = run_main(torch, K, T, opt, prepared, smi, "laff")
+    res, launches, unstaged = run_main(torch, K, T, opt, prepared, smi, "laff",
+                                       gate_calls=RVAL_GATE_CALLS, val_batches=RVAL_GATE_CALLS)
     featurizer_timing(torch, opt, prepared, res["model"], prepared.val_txt_batcher,
                       prepared.val_vis_batcher, unstaged, smi)
     del res["model"]
@@ -1526,8 +1580,8 @@ def train_phase(torch, K, P, root, smi):
     card_vs_cpu_step(torch, T, prepared, ck["state_dict"], "laff")
 
     ckpt_path, out, launches_p = trained_checkpoint_prediction(
-        torch, K, P, root, res, ("kernel",), "laff")
-    reembed_and_check(torch, K, P, root, "rtest", ckpt_path, out["kernel"])
+        torch, K, P, root, res, ("kernel",), "laff", gate_run=RVAL_GATE_CALLS, coll=coll)
+    reembed_and_check(torch, K, P, root, coll, ckpt_path, out["kernel"])
     trained = {"opt": opt, "prepared": prepared, "ckpt_path": ckpt_path,
                "predict": out["kernel"], "predict_launches": launches_p}
     return launches, launches_p, trained
@@ -1549,7 +1603,7 @@ def frame_phase(torch, K, P, root, smi):
     from laff_tpu_torch.engine.prepare import Options, prepare
     from laff_tpu_torch.models import LAFFModel
 
-    opt = Options(trainCollection="rtrain", valCollection="rtest", rootpath=root, val_set="no",
+    opt = Options(trainCollection="rtrain", valCollection=RVAL[0], rootpath=root, val_set="no",
                   config_name="frame_rehearsal", num_epochs=2, batch_size=128, device="cuda",
                   rank_path="kernel", sync_debug=1, random_seed=SEED,
                   model_prefix="smoke_frames")
@@ -1565,12 +1619,13 @@ def frame_phase(torch, K, P, root, smi):
           and vis.frame_attention.kind == "attention_noAveNoAverageMul",
           f"[frames] the frame_rehearsal spec is not FrameLAFF's headline shape: {vis}")
     cache_and_graph_checks(torch, K, T, opt, prepared, smi, "frames")
-    res, launches, _ = run_main(torch, K, T, opt, prepared, smi, "frames")
+    res, launches, _ = run_main(torch, K, T, opt, prepared, smi, "frames",
+                                gate_calls=RVAL_GATE_CALLS, val_batches=RVAL_GATE_CALLS)
     del res["model"]
     ck = load_checkpoint(os.path.join(res["model_path"], "model_best.pth.tar"))
     card_vs_cpu_step(torch, T, prepared, ck["state_dict"], "frames")
-    ckpt_path, out, launches_p = trained_checkpoint_prediction(torch, K, P, root, res,
-                                                               ("kernel",), "frames")
+    ckpt_path, out, launches_p = trained_checkpoint_prediction(
+        torch, K, P, root, res, ("kernel",), "frames", gate_run=RVAL_GATE_CALLS, coll=RVAL[0])
     secs = out["kernel"]["seconds"]
     log("[frames] frame_timing " + json.dumps({
         "epochs": [{k: e[k] for k in ("train_seconds", "val_seconds", "wall_seconds", "loss",
@@ -1676,7 +1731,7 @@ def zoo_phase(torch, K, trained, smi):
 
 
 def hist_phase(torch, K, trained, smi):
-    """6(c). One validation of the trained LAFF model on rtest with measure
+    """6(c). One validation of the trained LAFF model on rval with measure
     'hist' and rank_path 'kernel': the rank kernel must not launch (the
     blocked plain path takes 'hist'), the ranks equal those of the same
     embeddings on the card again, and every HIST_CPU_STRIDE-th caption's
@@ -1703,7 +1758,7 @@ def hist_phase(torch, K, trained, smi):
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     check(launches["sim_rank_wide"] == launches["sim_rank_tiled"] == 0
-          and launches["gate_attention"] == VAL_GATE_CALLS,
+          and launches["gate_attention"] == RVAL_GATE_CALLS,
           f"[hist] the 'hist' validation launched {launches}: no rank kernel may run")
     with torch.no_grad():
         txt, txt_ids = emb.embed_txt(txt_feed)
@@ -1721,7 +1776,7 @@ def hist_phase(torch, K, trained, smi):
     cpu_s = time.perf_counter() - t0
     check(np.array_equal(cpu, card[rows]), f"[hist] CPU ranks differ on "
           f"{int((cpu != card[rows]).sum())} of {len(rows)} rows")
-    log(f"[hist] validation on rtest with measure 'hist': {wall:.2f} s wall, launches "
+    log(f"[hist] validation on {RVAL[0]} with measure 'hist': {wall:.2f} s wall, launches "
         f"{launches} (no rank kernel); r1 {metrics['r1']:.3f} medr {metrics['medr']:.0f} mir "
         f"{metrics['mir']:.5f}; the ranks of {len(txt_ids)} captions x {len(vis_ids)} videos "
         f"on the card in {rank_s:.3f} s, equal to the validation's; {len(rows)} of them "
@@ -1734,7 +1789,7 @@ def interchange_phase(torch, K, P, root, trained, smi):
     reference layout by save_torch_checkpoint and read back: the imported
     spec and state dict equal the port file's, predictor.main on the
     .pth.tar (rank_path 'kernel') gives the rows and ranks of the port
-    file's pass in phase 4 with the same launches (one wide rank, 62 gate),
+    file's pass on rval in phase 4 with the same launches (one wide rank, 18 gate),
     and --pretrained_file_path from each file gives the same first-step
     loss; the save, the load and convert, and the port file's load timed.
     Returns the reference pass's launches."""
@@ -1764,7 +1819,7 @@ def interchange_phase(torch, K, P, root, trained, smi):
     check(set(ref["state_dict"]) == set(port["state_dict"]) and all(
         torch.equal(v, ref["state_dict"][k]) for k, v in port["state_dict"].items()),
         "[interchange] the imported state dict differs from the port checkpoint's")
-    res, launches = run_predictor(torch, K, P, root, "rtest", ref_path, "kernel")
+    res, launches = run_predictor(torch, K, P, root, RVAL[0], ref_path, "kernel")
     want, want_launches = trained["predict"], trained["predict_launches"]
     check(tuple(res["t2v"]) == tuple(want["t2v"]) and tuple(res["v2t"]) == tuple(want["v2t"])
           and np.array_equal(res["t2v_ranks"], want["t2v_ranks"]),
@@ -1807,12 +1862,15 @@ CUT_VAL_GATE_CALLS = 15 + 3
 # a negation-scored t3test pass: the queries, then their positive and
 # negated clauses (15 text batches each), and the gallery (3)
 NEGATION_GATE_CALLS = 3 * 15 + 3
-VTEST = ("vtest", 1500, 10)  # the VATEX test shape: 1,500 videos x 10 captions
-VTEST_GATE_CALLS = 15 + 2  # 15 text batches and 2 gallery batches of 1,024
+# the VATEX test shape, 1,500 videos, at 5 of its 10 captions a video (a cut
+# of depth: the re-ranks' host work grows with the queries)
+VTEST = ("vtest", 1500, 5)
+VTEST_GATE_CALLS = 8 + 2  # 8 text batches and 2 gallery batches of 1,024
 # the per-head pass runs on 500 videos with 1 caption a video, not vtest's
 # 1,500 x 10: its 8 files of 15,000 queries took 64-95 s of host
 # formatting, 1,500 x 1 18-20 s; this cut of its depth keeps the script
-# inside its limit with phases 8-14
+# inside its limit with phases 8-14 (200 x 1 took 13.7 s against 14.9-16.4:
+# most of the pass does not scale with the gallery)
 VHEADS = ("vheads", 500, 1)
 HEAD_GATE_CALLS = 1 + 1  # 1 text batch and 1 gallery batch of 1,024
 # the passes on vheads: k-reciprocal's host work grows with the square of
@@ -2781,8 +2839,8 @@ def strongclip_phase(torch, K, P, root, frames, smi):
     phase 5's trained FrameLAFF checkpoint under the config name
     FrameLaff_NoFrameFc_StrongCLIP_adjust, and a seeded ViT-B/32-shaped text
     tower in the reference's layout ({'model': {'clip_model.<OpenAI key>'}})
-    at rtest/TextData/<CLIP dir_name>/model_best.pth.tar. predictor.main on
-    rtest (rank_path 'kernel'): the tower swapped in once and its rows every
+    at rval/TextData/<CLIP dir_name>/model_best.pth.tar. predictor.main on
+    rval (rank_path 'kernel'): the tower swapped in once and its rows every
     query's 'clip' rows, the launches of phase 5's pass, the kernel ranks
     against the plain version on the re-embedded operands, the tower on the
     card against the CPU for 256 captions, the TF32 flags as found, and
@@ -2802,7 +2860,7 @@ def strongclip_phase(torch, K, P, root, frames, smi):
         tower = ClipTextTower(cfg)
     n_params = sum(p.numel() for p in tower.parameters())
     dir_name = payload["config"]["text_encoding"]["CLIP_encoding"]["dir_name"]
-    path = os.path.join(root, "rtest", "TextData", dir_name, "model_best.pth.tar")
+    path = os.path.join(root, RVAL[0], "TextData", dir_name, "model_best.pth.tar")
     torch.save({"model": {f"clip_model.{k}": v for k, v in tower.state_dict().items()}}, path)
     log(f"[strongclip] {STRONG_CONFIG} on phase 5's weights; text tower {cfg}: {n_params} "
         f"parameters, {os.path.getsize(path) / 1e6:.1f} MB at {path}")
@@ -2816,7 +2874,7 @@ def strongclip_phase(torch, K, P, root, frames, smi):
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     P.strongclip_text_featurizer = featurizer
     try:
-        res, launches = run_predictor(torch, K, P, root, "rtest", strong, "kernel")
+        res, launches = run_predictor(torch, K, P, root, RVAL[0], strong, "kernel")
     finally:
         P.strongclip_text_featurizer = real
     check((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags,
@@ -2829,10 +2887,10 @@ def strongclip_phase(torch, K, P, root, frames, smi):
           f"{[(m.rows, m.tower.config) for m in made]}, {padded} rows expected")
     check(launches == frames["launches"],
           f"[strongclip] launches {launches}, phase 5's pass {frames['launches']}")
-    reembed_and_check(torch, K, P, root, "rtest", strong, res)
+    reembed_and_check(torch, K, P, root, RVAL[0], strong, res)
 
     gpu_tower = made[0].tower
-    tsrc = TextSource(os.path.join(root, "rtest", "TextData", "rtest.caption.txt"))
+    tsrc = TextSource(os.path.join(root, RVAL[0], "TextData", f"{RVAL[0]}.caption.txt"))
     ids = torch.from_numpy(tokenize(tsrc.captions_for(tsrc.cap_ids[:CLIP_CHECK_CAPTIONS])))
     with torch.no_grad():
         card = gpu_tower(ids.cuda()).cpu()
@@ -3074,10 +3132,11 @@ def end2end_phase(torch, K, root, smi):
 # ---------------------------------------------------------------------------
 
 BERT_CONFIG = "bert_rehearsal"
-# the world of phase 12, cut in depth from rtrain -> rtest: 10,000 captions a
-# set, 78 steps of 128 an epoch
-BERT_WORLDS = (("btrain", 500, 20, SEED + 12), ("bval", 500, 20, SEED + 13))
-BERT_VAL_GATE_CALLS = 10 + 1  # 10,000 captions and 500 videos in batches of 1,024
+# the world of phase 12, cut in depth from rtrain -> rtest: 10,000 training
+# captions, 78 steps of 128 an epoch; bval at 10 captions a video (5,000:
+# each validation and the prediction pass run BERT over all of them)
+BERT_WORLDS = (("btrain", 500, 20, SEED + 12), ("bval", 500, 10, SEED + 13))
+BERT_VAL_GATE_CALLS = 5 + 1  # 5,000 captions and 500 videos in batches of 1,024
 BERT_CHECK_CAPTIONS = 64
 # BERT on the card vs the CPU: f32 on both (TF32 off), sums in other orders;
 # relative to the largest value
@@ -3183,7 +3242,7 @@ def backbone_scale_check(torch, T, prepared, state_dict):
 def bert_phase(torch, K, P, root, smi):
     """12. configs/bert_rehearsal.py (rehearsal's towers with the precomputed
     CLIP text rows replaced by an in-graph BERT-base tower, 64 tokens, lr/20)
-    on btrain -> bval (500 videos x 20 captions each): (a) a seeded BERT-base
+    on btrain -> bval (500 videos x 20 and x 10 captions): (a) a seeded BERT-base
     checkout written under build/ and imported (the trainer's tower starts
     from it), the pooler on the card against the CPU for 64 captions, and
     the frozen LiveBertTextFeaturizer's rows on the card against the CPU's;
@@ -3699,26 +3758,11 @@ def sweep_phase(torch, K, P, root, smi):
         torch.cuda.synchronize()
         single_walls.append(time.perf_counter() - t0)
         single_peaks.append(torch.cuda.max_memory_allocated() - held)
-    diffs = []
-    for s, got, want in zip(seeds, swept, singles):
-        loss, metrics = _run_diff(T, got, want)
-        diffs.append({"seed": s, "loss_rel": loss, "metrics": metrics,
-                      "weights": _state_diff(torch, got["model"], want["model"])})
-    exact = all(d["loss_rel"] == 0 and not d["metrics"] and d["weights"] == 0 for d in diffs)
-    spread = None
-    if not exact:  # a nondeterministic kernel: bound by two trainer.main runs of one seed
-        again = T.main(Options(model_prefix=f"single_again_{seeds[0]}", random_seed=seeds[0],
-                               **base))
-        loss, metrics = _run_diff(T, again, singles[0])
-        spread = {"loss_rel": loss, "metrics": metrics,
-                  "weights": _state_diff(torch, again["model"], singles[0]["model"])}
-        log(f"  [sweep] the sweep differs from trainer.main: {diffs}; two trainer.main runs of "
-            f"seed {seeds[0]} differ by {spread}")
-        check(all(d["loss_rel"] <= spread["loss_rel"] and d["weights"] <= spread["weights"]
-                  and len(d["metrics"]) <= len(spread["metrics"]) for d in diffs),
-              f"[sweep] the sweep differs from trainer.main beyond the spread of two "
-              f"trainer.main runs: {diffs} against {spread}")
-        del again
+    exact, diffs, spread = sweep_spread_check(
+        torch, T, "sweep", swept, singles,
+        lambda: T.main(Options(model_prefix=f"single_again_{seeds[0]}", random_seed=seeds[0],
+                               **base)),
+        weights=lambda a, b: _state_diff(torch, a["model"], b["model"]))
     steps = swept[0]["history"][-1]["steps"]
     sweep_step_ms = 1e3 * swept[0]["history"][-1]["train_seconds"] / (len(seeds) * steps)
     single_step_ms = [1e3 * r["history"][-1]["train_seconds"] / steps for r in singles]
@@ -3857,7 +3901,8 @@ def sweep_avs_phase(torch, K, root, random_infap, smi):
 
 def sweep_only(torch, K, P, smi):
     """``--sweep``: phase 14 alone, (c) on an iacc.3 world built for it
-    (no ibench), with a seeded random run for the ratio."""
+    (no ibench), with a seeded random run for the ratio; then
+    (d) reproduce_mvtest3k's dry run and (e) the two-stage AVS recipe."""
     import numpy as np
 
     from laff_tpu_torch.cli import avs_eval
@@ -3881,9 +3926,77 @@ def sweep_only(torch, K, P, smi):
             avs_eval, root, edition, os.path.join("strain", "sval", "rehearsal"), rng, shots))
         avs = sweep_avs_phase(torch, K, root, random_infap, smi)
         log(f"avs_task phase (14(c)): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dry_run_phase(smi)
+        two_stage_phase(torch, K, root, random_infap, smi)
+        log(f"reproduction and two-stage phases (14(d)-(e)): {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     return launches, orch_train, orch_predict, avs
+
+
+def dry_run_phase(smi):
+    """14(d). ``python -m laff_tpu_torch.cli.reproduce_mvtest3k --dry_run``
+    on the card: the mirror world (tiny config, 4 epochs) trained and
+    predicted through retrieval_task; exit code 0 and plumbing 'ok'."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "laff_tpu_torch.cli.reproduce_mvtest3k",
+                           "--dry_run"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    ok = proc.returncode == 0 and lines and lines[-1].get("plumbing") == "ok"
+    log(f"  [reproduce] (d) reproduce_mvtest3k --dry_run on the card: rc {proc.returncode} in "
+        f"{wall:.1f} s; {lines[-1] if lines else 'no result line'} [{smi}]")
+    if not ok:
+        log(proc.stdout[-8000:] + proc.stderr[-8000:])
+    check(ok, f"[reproduce] the dry run failed (rc {proc.returncode})")
+
+
+def two_stage_phase(torch, K, root, random_infap, smi):
+    """14(e). ``cli/do_pretrain_gcc_train_avs.py`` at configs/rehearsal.py's
+    full width: stage 1 on gtrain (strain's videos and captions under
+    another name, so that the vocabulary, and with it the warm start, fits
+    strain) with --only_train 1 (the subset split), one epoch; stage 2 one
+    epoch on strain -> sval from its best checkpoint, then tv16 of iacc.3:
+    the fine-tune's checkpoint names the pretrain's, infAP at least
+    AVS_INFAP_RATIO x a random run's; a second call skips stage 1 and leaves
+    its checkpoint as it was."""
+    from laff_tpu_torch.cli import do_pretrain_gcc_train_avs as two_stage
+    from laff_tpu_torch.data.synth import build_world
+    from laff_tpu_torch.engine.checkpoint import load_checkpoint
+
+    coll, n, caps, seed = SWEEP_WORLDS[0]
+    build_world(root, "gtrain", n, caps, 11286, seed)
+    argv = ["--rootpath", root, "--pretrainCollection", "gtrain", "--trainCollection", coll,
+            "--valCollection", SWEEP_WORLDS[1][0], "--val_set", "no", "--testCollection",
+            AVS_COLLECTION, "--config", "rehearsal", "--seed", str(SEED), "--pretrain_epochs",
+            "1", "--num_epochs", "1", "--avs_query_sets", "tv16.avs.txt", "--avs_editions",
+            "tv16"]
+    K.reset_launches()
+    t0 = time.perf_counter()
+    first = two_stage.run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    (prefix, res), = first["avs"].items()
+    ft = load_checkpoint(os.path.join(res["train"]["model_path"], "model_best.pth.tar"))
+    check(first["pretrained"] and ft["opt"]["pretrained_file_path"] == first["pretrain_ckpt"],
+          f"[two-stage] the fine-tune {prefix} did not start from the pretrain's checkpoint: "
+          f"{ft['opt'].get('pretrained_file_path')} against {first['pretrain_ckpt']}")
+    infap, rand = res["infAP"].get("tv16"), random_infap["tv16"]
+    check(infap is not None and infap > 0 and infap >= AVS_INFAP_RATIO * rand,
+          f"[two-stage] tv16 infAP {infap} against {rand} of a random run")
+    stat = os.stat(first["pretrain_ckpt"])
+    t0 = time.perf_counter()
+    again = two_stage.run(argv)
+    again_wall = time.perf_counter() - t0
+    check(not again["pretrained"] and os.stat(first["pretrain_ckpt"]).st_mtime_ns
+          == stat.st_mtime_ns, "[two-stage] a second call ran stage 1 again")
+    log(f"  [two-stage] (e) pretrain on gtrain (subset), fine-tune on {coll} -> "
+        f"{SWEEP_WORLDS[1][0]} from its best checkpoint, tv16 of {AVS_COLLECTION}: infAP "
+        f"{infap:.4f} against {rand:.4f} for a random run; {wall:.1f} s (stage 1, stage 2 and "
+        f"the streamed set; launches {launches}); a second call skipped stage 1 in "
+        f"{again_wall:.1f} s [{smi}]")
 
 
 class _LazyRandom(dict):
@@ -3934,11 +4047,21 @@ MULTI_METRIC_TOL = 1e-5  # the data-parallel predictor's metrics against one car
 MULTI_LOSS_RTOL = 1e-4  # the data-parallel dispatch's losses against one card's
 MULTI_PARAM_TOL = 1e-4  # its parameters (f32 towers), of each tensor's largest magnitude
 # the same in the config's bf16, over the tensors the dispatch did not make
-# (multi_train_phase), and each one's distance in norm of one card's update in
-# norm: the sound run read 0.0384 and 0.995, a run whose all-reduce lost a
-# rank's share 0.0389 and 2.70 (PERF.md §6)
+# and those whose gradient is rounding noise (multi_train_phase), and each
+# one's distance in norm of one card's update in norm: the sound run read
+# 0.0384 and 0.995, a run whose all-reduce lost a rank's share 0.0389 and
+# 2.70 (PERF.md §6)
 MULTI_PARAM_TOL_BF16 = 0.05
 MULTI_UPDATE_TOL_BF16 = 1.5
+# a tensor's gradient is rounding noise where one card's gradient with bf16
+# towers lies further than this of its norm with f32 towers from it, at the
+# dispatch's last step: the gate's bias, a shift of every logit before a
+# softmax, whose exact gradient is zero
+MULTI_NOISE_RATIO = 0.5
+# (f)'s losses in bf16, two cards a row: its sound rows read 2.16e-4 and
+# 1.18e-5 on strain, (d)'s control (a quarter of the gradient lost) 1.49e-2;
+# (f)'s own control, which loses half, must lie beyond it (PERF.md §6)
+MULTI_ROW_LOSS_RTOL_BF16 = 1e-3
 MULTI_BATCH = 128  # (d)'s global batch, and its per-card batch in the last epoch
 MESH_ONE_K = 1000
 
@@ -4070,6 +4193,111 @@ def mesh_one_serve_phase(torch, K, root, ckpt, smi):
     log(f"[mesh 1] RetrievalService over an NCCL group of one on {coll} (bf16 and int8): "
         f"searches at buckets 1 and 64, an ingest of 64 copies and the snapshot bit for bit "
         f"against one card's in {time.perf_counter() - t0:.1f} s; launches {launches} [{smi}]")
+    return launches
+
+
+# -- phase 16: seed sweeps over a mesh of one --------------------------------
+
+MESH_SWEEP_SEEDS = SWEEP_SEEDS[:2]
+MESH_SWEEP_EPOCHS = 1
+MESH_SWEEP_LAYOUTS = ("seed", "seed_x_dp")  # data_parallel_mesh(1), seed_data_mesh(1, 1)
+
+
+def _ckpt_diff(torch, a, b):
+    """Max abs difference over two runs' best checkpoints (0.0: equal)."""
+    from laff_tpu_torch.engine.checkpoint import load_checkpoint
+
+    sa, sb = (load_checkpoint(os.path.join(r["model_path"], "model_best.pth.tar"))["state_dict"]
+              for r in (a, b))
+    return max(float((sa[k].double() - sb[k].double()).abs().max()) if sa[k].numel() else 0.0
+               for k in sa)
+
+
+def sweep_spread_check(torch, T, what, got, want, spread_run, weights=None):
+    """Each of ``got``'s seed runs against ``want``'s (loss, metrics and
+    weights: the best checkpoints', or ``weights(a, b)``): equal bit for
+    bit, or within the spread of two one-card runs of the first seed,
+    measured then (``spread_run()`` gives the second run of ``want[0]``'s
+    seed). Returns (exact, diffs, spread)."""
+    weights = weights or (lambda a, b: _ckpt_diff(torch, a, b))
+    diffs = []
+    for g, w in zip(got, want):
+        loss, metrics = _run_diff(T, g, w)
+        diffs.append({"run": os.path.basename(w["model_path"]), "loss_rel": loss,
+                      "metrics": metrics, "weights": weights(g, w)})
+    exact = all(d["loss_rel"] == 0 and not d["metrics"] and d["weights"] == 0 for d in diffs)
+    spread = None
+    if not exact:  # a nondeterministic kernel: bound by two one-card runs of one seed
+        again = spread_run()
+        loss, metrics = _run_diff(T, again, want[0])
+        spread = {"loss_rel": loss, "metrics": metrics, "weights": weights(again, want[0])}
+        log(f"  [{what}] differs from one card: {diffs}; two one-card runs of one seed differ "
+            f"by {spread}")
+        check(all(d["loss_rel"] <= spread["loss_rel"] and d["weights"] <= spread["weights"]
+                  and len(d["metrics"]) <= len(spread["metrics"]) for d in diffs),
+              f"[{what}] the runs differ from one card's beyond the spread of two one-card "
+              f"runs: {diffs} against {spread}")
+    return exact, diffs, spread
+
+
+def mesh_sweep_phase(torch, K, root, smi):
+    """16. ``engine.sweep.sweep_main`` over an NCCL group of one at
+    configs/rehearsal.py's full width on phase 14's strain -> sval: the seed
+    axis (``data_parallel_mesh(1)``) and the seed x dp layout
+    (``seed_data_mesh(1, 1)``), MESH_SWEEP_SEEDS x MESH_SWEEP_EPOCHS at the
+    default dispatch, rank_path 'kernel', each against the one-card sweep
+    of the same seeds: every seed's losses, metrics and best checkpoint bit
+    for bit, or within the spread of two one-card runs (phase 14's rule);
+    one wide rank and 11 gate launches a seed's validation, none in the
+    steps. Returns the two mesh sweeps' launches."""
+    from laff_tpu_torch.engine import sweep as S
+    from laff_tpu_torch.engine import trainer as T
+    from laff_tpu_torch.engine.prepare import Options
+    from laff_tpu_torch.parallel import seed_data_mesh
+
+    t_phase = time.perf_counter()
+    base = dict(trainCollection="strain", valCollection="sval", rootpath=root, val_set="no",
+                config_name="rehearsal", num_epochs=MESH_SWEEP_EPOCHS, batch_size=128,
+                device="cuda", rank_path="kernel")
+    seeds = list(MESH_SWEEP_SEEDS)
+    t0 = time.perf_counter()
+    one = S.sweep_main(Options(model_prefix="mesh_one_card", **base), seeds)
+    walls = {"one_card": time.perf_counter() - t0}
+    n_val = len(seeds) * MESH_SWEEP_EPOCHS
+    expect = {"sim_rank_wide": n_val, "sim_rank_tiled": 0,
+              "gate_attention": n_val * SWEEP_VAL_GATE_CALLS, "gate_attention_simple": 0}
+    launches, found = {}, {}
+    for layout in MESH_SWEEP_LAYOUTS:
+        with world_of_one() as mesh:
+            sweep_mesh = mesh if layout == "seed" else seed_data_mesh(1, 1)
+            if layout != "seed":
+                check(sweep_mesh.shape == {"seed": 1, "dp": 1},
+                      f"[mesh sweep] {layout}: the mesh's shape {sweep_mesh.shape}")
+            K.reset_launches()
+            t0 = time.perf_counter()
+            got = S.sweep_main(Options(model_prefix=f"mesh_{layout}", **base), seeds,
+                               mesh=sweep_mesh)
+            torch.cuda.synchronize()
+            walls[layout] = time.perf_counter() - t0
+            launches[layout] = dict(K.LAUNCHES)
+        check(launches[layout] == expect, f"[mesh sweep] {layout}: launches "
+              f"{launches[layout]}, expected one rank and {SWEEP_VAL_GATE_CALLS} gate launches "
+              f"per seed's validation, none in the steps: {expect}")
+        check([os.path.basename(r["model_path"]) for r in got]
+              == [f"mesh_{layout}_seed_{s}" for s in seeds],
+              f"[mesh sweep] {layout}: results {[r['model_path'] for r in got]}")
+        found[layout] = sweep_spread_check(
+            torch, T, f"mesh sweep {layout}", got, one,
+            lambda: T.main(Options(model_prefix="mesh_one_again", random_seed=seeds[0], **base)))
+    log(f"[mesh sweep] (16) sweep_main over an NCCL group of one, {len(seeds)} seeds x "
+        f"{MESH_SWEEP_EPOCHS} epoch on strain -> sval: "
+        + "; ".join(f"{layout}: " + ("each seed's losses, metrics and best checkpoint equal the "
+                                     "one-card sweep's bit for bit" if f[0] else
+                                     f"within the spread of two one-card runs {f[2]}")
+                    for layout, f in found.items())
+        + f"; walls {({k: round(v, 1) for k, v in walls.items()})} s; launches {launches} "
+        f"[{smi}]")
+    log(f"mesh sweep phase (16): {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -4421,6 +4649,189 @@ def f32_towers():
         PR.load_config = load
 
 
+def first_dispatch(run):
+    """Epoch 0's stream of a ``trainer.TrainRun`` after its first dispatch,
+    the dispatch's losses and the parameters before and after it."""
+    before = {n: p.detach().clone() for n, p in run.model.named_parameters()}
+    run.begin_epoch(0)
+    stream = run.epoch_stream(0)
+    stream.advance()
+    first = stream.pending[0].detach().cpu()
+    after = {n: p.detach().clone() for n, p in run.model.named_parameters()}
+    return stream, first, before, after
+
+
+def held_against(first, params, init, ref):
+    """A data-parallel first dispatch against one card's: the losses'
+    largest relative distance, then per tensor (worst first) the largest
+    distance of its largest magnitude, the distance in norm of one card's
+    update in norm, and its name."""
+    rel = float(((first - ref["first"]).abs() / ref["first"].abs()).max())
+    errs = []
+    for n, p in params.items():
+        one = ref["params"][n]
+        upd = float((one - init[n]).norm())
+        errs.append((float((p - one).abs().max() / one.abs().max()),
+                     float((p - one).norm()) / upd if upd else 0.0, n))
+    return rel, sorted(errs, reverse=True)
+
+
+def rest_of_epoch(torch, run, stream):
+    """(ms a step over the epoch's later dispatches, loss, steps)."""
+    torch.cuda.synchronize()
+    t0, steps0 = time.perf_counter(), stream.n
+    while stream.advance():
+        pass
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / max(1, stream.n - steps0)
+    loss, steps = run.finish_stream(stream)
+    return step_ms, loss, steps
+
+
+def one_card_grads(run):
+    """The gradient of the run's last step, per parameter tensor (copies)."""
+    flat = run.optimizer.grad.detach().clone()
+    sizes = [p.numel() for p in run.optimizer.params]
+    views = dict(zip(map(id, run.optimizer.params), flat.split(sizes)))
+    return {n: views[id(p)].view_as(p) for n, p in run.model.named_parameters()
+            if id(p) in views}
+
+
+def noise_tensors(grads, f32_grads):
+    """{name: ratio} of the tensors whose gradient is rounding noise: one
+    card's bf16 gradient further than MULTI_NOISE_RATIO of the f32 one's
+    norm from it (the same seed and batches), and the largest ratio kept."""
+    ratios = {}
+    for n, g in grads.items():
+        ref = f32_grads[n].float()
+        base = float(ref.norm())
+        dist = float((g.float() - ref).norm())
+        ratios[n] = dist / max(base, 1e-30)
+    noise = {n: r for n, r in ratios.items() if r > MULTI_NOISE_RATIO}
+    kept = max((r for n, r in ratios.items() if n not in noise), default=0.0)
+    return noise, kept
+
+
+def dispatch_against_one_card(torch, mesh, tag, opt, prepared, what, smi, timed=False,
+                              control=False, f32_grads=None, loss_limit=MULTI_LOSS_RTOL,
+                              hold=True):
+    """A data-parallel ``TrainRun(mesh=mesh)`` after its first dispatch,
+    against one card's run of ``opt`` (made by the mesh's rank 0 on its card
+    while the others wait): the dispatch's losses within ``loss_limit``
+    relative; each parameter tensor within MULTI_PARAM_TOL ('f32' towers) or
+    MULTI_PARAM_TOL_BF16 of its largest and MULTI_UPDATE_TOL_BF16 of one
+    card's update in norm ('bf16': the tensors that the dispatch's Adam
+    steps made left out, and with ``f32_grads``, one card's gradients of
+    the 'f32' reading, those whose gradient is rounding noise); the ranks'
+    parameters equal bit for bit. With ``timed`` one card's epoch is timed,
+    with ``control`` a run whose all-reduce loses a rank's share is read
+    too, and must miss the limits. ``hold=False`` reads without holding.
+    Returns (run, stream, figures, one card's gradients on rank 0)."""
+    import dataclasses
+
+    from laff_tpu_torch.engine import trainer as T
+
+    main = mesh.is_main
+    ref, grads = {}, None
+    if main:  # one card first, the others wait
+        one = T.TrainRun(dataclasses.replace(opt, data_parallel=0,
+                                             model_prefix=f"{opt.model_prefix}_one_{tag}"),
+                         prepared, mesh.device)
+        t0 = time.time()
+        one_stream, ref["first"], _, ref["params"] = first_dispatch(one)
+        grads = one_card_grads(one)
+        made = 2 * len(ref["first"]) * float(one.optimizer.lr)  # 2 K lr
+        ref["made"] = {n for n, p in ref["params"].items() if float(p.abs().max()) <= made}
+        if timed:
+            ref["step_ms"] = rest_of_epoch(torch, one, one_stream)[0]
+            ref["epoch_s"] = time.time() - t0
+        one.close()
+        del one, one_stream
+        torch.cuda.empty_cache()
+    mesh.barrier()
+    run = T.TrainRun(dataclasses.replace(opt, model_prefix=f"{opt.model_prefix}_{tag}"),
+                     prepared, mesh.device, mesh=mesh)
+    stream, first, init, params = first_dispatch(run)
+    flat = torch.cat([p.flatten() for p in params.values()])
+    replicas = mesh.all_gather(flat[None])
+    same = all(torch.equal(replicas[0], r) for r in replicas[1:])
+    del replicas, flat
+    figures = {"replicas_equal": same}
+    limit = MULTI_PARAM_TOL if tag == "f32" else MULTI_PARAM_TOL_BF16
+    update_limit = float("inf") if tag == "f32" else MULTI_UPDATE_TOL_BF16
+    noise, noise_kept = {}, None
+    if main and tag == "bf16" and f32_grads is not None:
+        noise, noise_kept = noise_tensors(grads, f32_grads)
+
+    def held(name):
+        return tag == "f32" or (name not in ref["made"] and name not in noise)
+
+    if main:
+        rel, errs = held_against(first, params, init, ref)
+        kept = [e for e in errs if held(e[2])]
+        left_out = sorted(set(n for *_, n in errs) - set(n for *_, n in kept))
+        figures.update(loss_rel=rel, loss_limit=loss_limit, first_losses=first.tolist(),
+                       one_card_first_losses=ref["first"].tolist(),
+                       param_worst=errs[:5], tensors=len(errs), limit=limit,
+                       left_out=left_out, noise={n: noise[n] for n in sorted(noise)},
+                       noise_ratio_kept_worst=noise_kept,
+                       kept_worst=kept[:5], kept_worst_norm=max(e[1] for e in kept),
+                       norm_worst=sorted(kept, key=lambda e: e[1], reverse=True)[:3],
+                       tensors_over=sum(e[0] > limit for e in kept),
+                       one_card_step_ms=ref.get("step_ms"),
+                       one_card_epoch_s=ref.get("epoch_s"))
+        log(f"[{what}] {tag} towers, data_parallel {mesh.size} at global B {opt.batch_size}: "
+            f"the first dispatch's {len(first)} losses within {rel:.3g} of one card's "
+            f"({first.tolist()} against {ref['first'].tolist()}; limit {loss_limit}); "
+            f"{figures['tensors_over']} of "
+            f"{len(kept)} parameter tensors held further than {limit} of their largest from "
+            f"one card's (worst held {[(f'{e:.3g}', f'{u:.3g}', n) for e, u, n in kept[:5]]}, "
+            f"largest distance in norm of one card's update {figures['kept_worst_norm']:.3g} "
+            f"({[(f'{u:.3g}', f'{e:.3g}', n) for e, u, n in figures['norm_worst']]}); "
+            f"{len(errs) - len(kept)} left out: {left_out}, of which as rounding noise "
+            f"{[(n, f'{r:.3g}') for n, r in sorted(noise.items())]} (the largest ratio kept "
+            f"{noise_kept if noise_kept is None else f'{noise_kept:.3g}'}); worst of all "
+            f"{[(f'{e:.3g}', n) for e, _, n in errs[:3]]}); the ranks' parameters equal bit "
+            f"for bit: {same} [{smi}]")
+        if hold:
+            check(rel <= loss_limit, f"[{what}] {tag}: the first dispatch's losses "
+                  f"{rel:.3g} relative from one card's (limit {loss_limit})")
+            check(kept[0][0] <= limit, f"[{what}] {tag}: {kept[0][2]} after the first "
+                  f"dispatch {kept[0][0]:.3g} of its largest from one card's (limit {limit})")
+            check(figures["kept_worst_norm"] <= update_limit, f"[{what}] {tag}: a tensor "
+                  f"after the first dispatch {figures['kept_worst_norm']:.3g} of one card's "
+                  f"update in norm from one card's (limit {update_limit})")
+    check(same, f"[{what}] {tag}: the ranks' parameters differ after the first dispatch")
+    if control:
+        ctl = T.TrainRun(dataclasses.replace(opt, model_prefix=f"{opt.model_prefix}_ctl_{tag}"),
+                         prepared, mesh.device, mesh=mesh)
+        ctl.optimizer.mesh = LosingReduce(mesh)
+        ctl_stream, ctl_first, ctl_init, ctl_params = first_dispatch(ctl)
+        ctl.close()
+        del ctl, ctl_stream
+        if main:
+            rel, errs = held_against(ctl_first, ctl_params, ctl_init, ref)
+            kept = [e for e in errs if held(e[2])]
+            figures["control"] = {"loss_rel": rel, "kept_worst": kept[:5],
+                                  "kept_worst_norm": max(e[1] for e in kept),
+                                  "tensors_over": sum(e[0] > limit for e in kept),
+                                  "caught": (rel > loss_limit or kept[0][0] > limit
+                                             or max(e[1] for e in kept) > update_limit)}
+            log(f"[{what}] {tag} control, the all-reduce losing rank {mesh.size - 1}'s "
+                f"share: losses within {rel:.3g} of one card's; "
+                f"{figures['control']['tensors_over']} of {len(kept)} held tensors further "
+                f"than {limit} (worst {[(f'{e:.3g}', f'{u:.3g}', n) for e, u, n in kept[:5]]},"
+                f" largest distance in norm {figures['control']['kept_worst_norm']:.3g}); "
+                f"caught by the checks: {figures['control']['caught']}")
+            if hold:
+                check(figures["control"]["caught"], f"[{what}] {tag}: the control run, whose "
+                      f"all-reduce loses a rank's share, meets the limits")
+        del ctl_params, ctl_init
+        torch.cuda.empty_cache()
+        mesh.barrier()
+    return run, stream, figures, grads
+
+
 def multi_train_phase(torch, K, mesh, root, smi):
     """(d) the trainer with data_parallel 4 on rtrain -> rtest (rehearsal,
     global B 128: 32 rows a card, K 8 graphed, dropout on). The first
@@ -4434,8 +4845,10 @@ def multi_train_phase(torch, K, mesh, root, smi):
     rounding into steps of lr: the CPU probe of PERF.md §6).
     The bf16 limit leaves out the tensors that the dispatch made, those
     whose largest magnitude on one card is within 2 K lr of zero (they start
-    at zero, so their largest is Adam's steps alone). A control run whose
-    gradient all-reduce loses the last rank's share is read the same way.
+    at zero, so their largest is Adam's steps alone), and those whose
+    gradient is rounding noise (MULTI_NOISE_RATIO). A control run whose
+    gradient all-reduce loses the last rank's share is read the same way and
+    must miss the limits.
     The ranks' parameters must be equal bit for bit after each. Then the
     bf16 run goes on: two epochs (the loss falls, R@1 above chance), ms per
     graphed step against one card's, the all-reduce of the flat gradients
@@ -4454,131 +4867,12 @@ def multi_train_phase(torch, K, mesh, root, smi):
                   random_seed=SEED, model_prefix="multi", data_parallel=mesh.size)
     out = {}
 
-    def first_dispatch(run):
-        """Epoch 0's stream after its first dispatch, the dispatch's losses
-        and the parameters before and after it."""
-        before = {n: p.detach().clone() for n, p in run.model.named_parameters()}
-        run.begin_epoch(0)
-        stream = run.epoch_stream(0)
-        stream.advance()
-        first = stream.pending[0].detach().cpu()
-        after = {n: p.detach().clone() for n, p in run.model.named_parameters()}
-        return stream, first, before, after
-
-    def held(first, params, init, ref):
-        """A data-parallel first dispatch against one card's: the losses'
-        largest relative distance, then per tensor (worst first) the largest
-        distance of its largest magnitude, the distance in norm of one
-        card's update in norm, and its name."""
-        rel = float(((first - ref["first"]).abs() / ref["first"].abs()).max())
-        errs = []
-        for n, p in params.items():
-            one = ref["params"][n]
-            upd = float((one - init[n]).norm())
-            errs.append((float((p - one).abs().max() / one.abs().max()),
-                         float((p - one).norm()) / upd if upd else 0.0, n))
-        return rel, sorted(errs, reverse=True)
-
-    def rest_of_epoch(run, stream):
-        """(ms a step over the epoch's later dispatches, loss, steps)."""
-        torch.cuda.synchronize()
-        t0, steps0 = time.perf_counter(), stream.n
-        while stream.advance():
-            pass
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / max(1, stream.n - steps0)
-        loss, steps = run.finish_stream(stream)
-        return step_ms, loss, steps
-
-    def against_one_card(tag, opt, prepared, timed, control=False):
-        """The data-parallel run after its first dispatch, against one card's:
-        (run, stream, figures); with ``timed`` one card's epoch is timed, with
-        ``control`` a run whose all-reduce loses a rank's share is read too."""
-        ref = {}
-        if main:  # one card first, the others wait
-            one = T.TrainRun(dataclasses.replace(opt, data_parallel=0,
-                                                 model_prefix=f"multi_one_{tag}"),
-                             prepared, mesh.device)
-            t0 = time.time()
-            one_stream, ref["first"], _, ref["params"] = first_dispatch(one)
-            made = 2 * len(ref["first"]) * float(one.optimizer.lr)  # 2 K lr
-            ref["made"] = {n for n, p in ref["params"].items() if float(p.abs().max()) <= made}
-            if timed:
-                ref["step_ms"] = rest_of_epoch(one, one_stream)[0]
-                ref["epoch_s"] = time.time() - t0
-            one.close()
-            del one, one_stream
-            torch.cuda.empty_cache()
-        mesh.barrier()
-        run = T.TrainRun(dataclasses.replace(opt, model_prefix=f"multi_{tag}"), prepared,
-                         mesh.device, mesh=mesh)
-        stream, first, init, params = first_dispatch(run)
-        flat = torch.cat([p.flatten() for p in params.values()])
-        replicas = mesh.all_gather(flat[None])
-        same = all(torch.equal(replicas[0], r) for r in replicas[1:])
-        del replicas, flat
-        figures = {"replicas_equal": same}
-        limit = MULTI_PARAM_TOL if tag == "f32" else MULTI_PARAM_TOL_BF16
-        update_limit = float("inf") if tag == "f32" else MULTI_UPDATE_TOL_BF16
-        if main:
-            rel, errs = held(first, params, init, ref)
-            kept = [e for e in errs if tag == "f32" or e[2] not in ref["made"]]
-            figures.update(loss_rel=rel, first_losses=first.tolist(),
-                           one_card_first_losses=ref["first"].tolist(),
-                           param_worst=errs[:5], tensors=len(errs), limit=limit,
-                           left_out=sorted(set(n for *_, n in errs) - set(n for *_, n in kept)),
-                           kept_worst=kept[:5], kept_worst_norm=max(e[1] for e in kept),
-                           tensors_over=sum(e[0] > limit for e in kept),
-                           one_card_step_ms=ref.get("step_ms"),
-                           one_card_epoch_s=ref.get("epoch_s"))
-            log(f"[multi d] {tag} towers, data_parallel {mesh.size} at global B {MULTI_BATCH}: the "
-                f"first dispatch's 8 losses within {rel:.3g} of one card's ({first.tolist()} "
-                f"against {ref['first'].tolist()}); {figures['tensors_over']} of {len(kept)} "
-                f"parameter tensors held further than {limit} of their largest from one card's "
-                f"(worst held {[(f'{e:.3g}', f'{u:.3g}', n) for e, u, n in kept[:5]]}, largest "
-                f"distance in norm of one card's update {figures['kept_worst_norm']:.3g}; "
-                f"{len(errs) - len(kept)} left out as made by the dispatch: "
-                f"{figures['left_out']}; worst of all {[(f'{e:.3g}', n) for e, _, n in errs[:3]]});"
-                f" the ranks' parameters equal bit for bit: {same} [{smi}]")
-            check(rel <= MULTI_LOSS_RTOL, f"[multi d] {tag}: the first dispatch's losses "
-                  f"{rel:.3g} relative from one card's")
-            check(kept[0][0] <= limit, f"[multi d] {tag}: {kept[0][2]} after the first dispatch "
-                  f"{kept[0][0]:.3g} of its largest from one card's (limit {limit})")
-            check(figures["kept_worst_norm"] <= update_limit, f"[multi d] {tag}: a tensor after "
-                  f"the first dispatch {figures['kept_worst_norm']:.3g} of one card's update in "
-                  f"norm from one card's (limit {update_limit})")
-        check(same, f"[multi d] {tag}: the ranks' parameters differ after the first dispatch")
-        if control:
-            ctl = T.TrainRun(dataclasses.replace(opt, model_prefix=f"multi_ctl_{tag}"), prepared,
-                             mesh.device, mesh=mesh)
-            ctl.optimizer.mesh = LosingReduce(mesh)
-            ctl_stream, ctl_first, ctl_init, ctl_params = first_dispatch(ctl)
-            ctl.close()
-            del ctl, ctl_stream
-            if main:
-                rel, errs = held(ctl_first, ctl_params, ctl_init, ref)
-                kept = [e for e in errs if e[2] not in ref["made"]]
-                figures["control"] = {"loss_rel": rel, "kept_worst": kept[:5],
-                                      "kept_worst_norm": max(e[1] for e in kept),
-                                      "tensors_over": sum(e[0] > limit for e in kept),
-                                      "caught": (rel > MULTI_LOSS_RTOL or kept[0][0] > limit
-                                                 or max(e[1] for e in kept) > update_limit)}
-                log(f"[multi d] {tag} control, the all-reduce losing rank {mesh.size - 1}'s "
-                    f"share: losses within {rel:.3g} of one card's; {figures['control']['tensors_over']}"
-                    f" of {len(kept)} held tensors further than {limit} (worst "
-                    f"{[(f'{e:.3g}', f'{u:.3g}', n) for e, u, n in kept[:5]]}, largest distance "
-                    f"in norm {figures['control']['kept_worst_norm']:.3g}); caught by the checks: "
-                    f"{figures['control']['caught']}")
-            del ctl_params, ctl_init
-            torch.cuda.empty_cache()
-            mesh.barrier()
-        return run, stream, figures
-
     # f32 towers: the parameters held tensor by tensor
     opt32 = dataclasses.replace(opt, model_prefix="multi32")
     with f32_towers():
         prepared32 = T.prepare_ranks(opt32, mesh)
-    run32, stream32, out["f32"] = against_one_card("f32", opt32, prepared32, False)
+    run32, stream32, out["f32"], grads32 = dispatch_against_one_card(
+        torch, mesh, "f32", opt32, prepared32, "multi d", smi)
     run32.close()
     del run32, stream32, prepared32
     torch.cuda.empty_cache()
@@ -4586,10 +4880,13 @@ def multi_train_phase(torch, K, mesh, root, smi):
     # the config's bf16: the comparison, then two epochs
     prepared = T.prepare_ranks(opt, mesh)
     K.reset_launches()
-    run, stream, figures = against_one_card("bf16", opt, prepared, True, control=True)
+    run, stream, figures, _ = dispatch_against_one_card(
+        torch, mesh, "bf16", opt, prepared, "multi d", smi, timed=True, control=True,
+        f32_grads=grads32)
+    del grads32
     try:
         t_epoch = time.time()
-        step_ms, loss, steps = rest_of_epoch(run, stream)
+        step_ms, loss, steps = rest_of_epoch(torch, run, stream)
         epoch_s = time.time() - t_epoch
         step_launches = dict(K.LAUNCHES)
         stopped = run.end_epoch(0, loss, steps, epoch_s)
@@ -4661,13 +4958,167 @@ def multi_train_phase(torch, K, mesh, root, smi):
     return out, launches
 
 
+def multi_seed_axis_phase(torch, K, mesh, root, smi):
+    """(e) the seed axis over the four cards: sweep_main(mesh=) of
+    MULTI_RANKS seeds x 2 epochs on strain -> sval at full width (K 8
+    graphed, rank_path 'kernel'), one seed a card, against the one-card
+    sweep of the same seeds run on card 0 first (the others wait): each
+    seed's losses, metrics and best checkpoint bit for bit, or within the
+    spread of two one-card runs (phase 14's rule); every card launches the
+    wide rank kernel and the gate (one rank and 11 gate launches a
+    validation, none in the steps); the walls and ms per graphed step.
+    Returns rank 0's figures and every rank's launches."""
+    import dataclasses
+
+    from laff_tpu_torch.engine import sweep as S
+    from laff_tpu_torch.engine import trainer as T
+    from laff_tpu_torch.engine.prepare import Options
+
+    seeds = [SEED + i for i in range(mesh.size)]
+    opt = Options(trainCollection="strain", valCollection="sval", rootpath=root, val_set="no",
+                  config_name="rehearsal", num_epochs=SWEEP_EPOCHS, batch_size=MULTI_BATCH,
+                  device=str(mesh.device), rank_path="kernel", model_prefix="multi_e")
+    out = {}
+    if mesh.is_main:  # one card first, the others wait
+        t0 = time.perf_counter()
+        one = S.sweep_main(dataclasses.replace(opt, model_prefix="multi_e_one"), seeds)
+        torch.cuda.synchronize()
+        out["one_card_wall_s"] = time.perf_counter() - t0
+        for r in one:
+            r["model"] = None
+        torch.cuda.empty_cache()
+    mesh.barrier()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    got = S.sweep_main(opt, seeds, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rank_counts(mesh, dict(K.LAUNCHES))
+    if mesh.is_main:
+        check([os.path.basename(r["model_path"]) for r in got]
+              == [f"multi_e_seed_{s}" for s in seeds],
+              f"[multi e] results {[r['model_path'] for r in got]}")
+        exact, diffs, spread = sweep_spread_check(
+            torch, T, "multi e", got, one,
+            lambda: T.main(dataclasses.replace(opt, model_prefix="multi_e_again",
+                                               random_seed=seeds[0])))
+        steps = one[0]["history"][-1]["steps"]
+        step_ms = [1e3 * r["history"][-1]["train_seconds"] / steps for r in got]
+        one_ms = 1e3 * one[0]["history"][-1]["train_seconds"] / (len(seeds) * steps)
+        n_val = SWEEP_EPOCHS
+        expect = {"sim_rank_wide": n_val, "sim_rank_tiled": 0,
+                  "gate_attention": n_val * SWEEP_VAL_GATE_CALLS, "gate_attention_simple": 0}
+        for rank, counts in enumerate(launches):
+            check(counts == expect, f"[multi e] rank {rank} launched {counts}, expected one "
+                  f"seed's validations on its card: {expect}")
+        out.update(seeds=seeds, exact=exact, diffs=diffs, spread=spread, mesh_wall_s=wall,
+                   mesh_step_ms=step_ms, one_card_seed_step_ms=one_ms, steps_per_epoch=steps,
+                   launches=launches)
+        log(f"[multi e] sweep_main over {mesh.size} cards, seeds {seeds} x {SWEEP_EPOCHS} "
+            f"epochs of {steps} steps on strain -> sval: "
+            + ("each seed's losses, metrics and best checkpoint equal the one-card sweep's "
+               "bit for bit" if exact else f"within the spread of two one-card runs {spread}")
+            + f"; the mesh sweep {wall:.1f} s against {out['one_card_wall_s']:.1f} s for the "
+            f"one-card sweep of the {len(seeds)} seeds; a graphed step "
+            f"{[round(v, 2) for v in step_ms]} ms on each card (the second epoch) against "
+            f"{one_ms:.2f} ms a seed-step on one card; launches by rank {launches} [{smi}]")
+        del one, got
+    mesh.barrier()
+    return out, launches
+
+
+def multi_seed_dp_phase(torch, K, world, layout, root, smi):
+    """(f) the seed x dp layout (``seed_data_mesh(2, 2)``): 2 seeds, each at
+    global B MULTI_BATCH over its row of 2 cards. Each row's
+    ``TrainRun(mesh=row)`` (the sweep's run of its seed) read after its first
+    dispatch as (d) reads it, under (d)'s parameter limits, against that
+    seed's one-card run (made by the row's first card while its other
+    waits), with f32 towers and in the config's bf16, where the losses are
+    held to MULTI_ROW_LOSS_RTOL_BF16 and a control run whose all-reduce
+    loses the row's second card's share must miss the limits. Then (d)'s
+    reading of seed 0 over all four cards on this world, read and not held
+    (a witness: does the bf16 drift come from the world or from the rows?).
+    Then sweep_main(mesh=layout) for one epoch: both seeds' results on world
+    rank 0, the wide rank kernel on each row's first card alone and the gate
+    on every card. Returns rank 0's figures and every rank's launches."""
+    import dataclasses
+
+    from laff_tpu_torch.engine import sweep as S
+    from laff_tpu_torch.engine import trainer as T
+    from laff_tpu_torch.engine.prepare import Options
+
+    row, index = layout.row, layout.seed_index
+    seeds = [SEED + i for i in range(layout.n_seed)]
+    opt = Options(trainCollection="strain", valCollection="sval", rootpath=root, val_set="no",
+                  config_name="rehearsal", num_epochs=1, batch_size=MULTI_BATCH,
+                  device=str(row.device), rank_path="kernel", model_prefix="multi_f")
+    mine = S.seed_options(opt, seeds)[index]
+    out, grads32 = {}, None
+    for tag in ("f32", "bf16"):
+        with (f32_towers() if tag == "f32" else contextlib.nullcontext()):
+            prepared = T.prepare_ranks(mine, world)
+        bf16 = tag == "bf16"
+        run, stream, figures, grads = dispatch_against_one_card(
+            torch, row, tag, mine, prepared, f"multi f row {index}", smi, control=bf16,
+            f32_grads=grads32, loss_limit=MULTI_ROW_LOSS_RTOL_BF16 if bf16 else MULTI_LOSS_RTOL)
+        if not bf16:
+            grads32 = grads
+        run.close()
+        del run, stream, prepared, grads
+        torch.cuda.empty_cache()
+        readings = world.gather_object(figures)
+        if world.is_main:
+            out[tag] = readings[::row.size]  # each row's first card read its seed
+        world.barrier()
+    # world rank 0 is row 0's first card: grads32 is seed 0's
+    witness = dataclasses.replace(S.seed_options(opt, seeds)[0], model_prefix="multi_f_4x1")
+    prepared = T.prepare_ranks(witness, world)
+    run, stream, figures, _ = dispatch_against_one_card(
+        torch, world, "bf16", witness, prepared, "multi f 4x1", smi, f32_grads=grads32,
+        hold=False)
+    run.close()
+    del run, stream, prepared, grads32
+    torch.cuda.empty_cache()
+    if world.is_main:
+        out["witness_4x1"] = figures
+    world.barrier()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    got = S.sweep_main(opt, seeds, mesh=layout)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rank_counts(world, dict(K.LAUNCHES))
+    if world.is_main:
+        check([os.path.basename(r["model_path"]) for r in got]
+              == [f"multi_f_seed_{s}" for s in seeds],
+              f"[multi f] results {[r['model_path'] for r in got]}")
+        check(all(e["loss"] == e["loss"] and e["r1"] > 100.0 / 500 for r in got
+                  for e in r["history"]), f"[multi f] {[r['history'] for r in got]}")
+        for rank, counts in enumerate(launches):
+            first = rank % row.size == 0
+            check(counts["gate_attention"] == SWEEP_VAL_GATE_CALLS
+                  and counts["sim_rank_wide"] == int(first),
+                  f"[multi f] rank {rank} launched {counts}: the gate on every card, the wide "
+                  f"rank kernel on each row's first card alone")
+        out.update(seeds=seeds, sweep_wall_s=wall, launches=launches,
+                   history=[[{k: e[k] for k in ("loss", "r1", "mir", "train_seconds")}
+                             for e in r["history"]] for r in got])
+        log(f"[multi f] sweep_main over seed_data_mesh({layout.n_seed}, {layout.n_dp}), "
+            f"seeds {seeds}: {wall:.1f} s for one epoch; {out['history']}; launches by rank "
+            f"{launches} [{smi}]")
+    world.barrier()
+    return out, launches
+
+
 def multi_rank(mesh, root, ckpt, bert_ckpt, smi):
-    """One of the four ranks of ``--multi``: phases (d), (a), (c) and (b) in
-    turn, every rank in each; rank 0 checks and returns the figures."""
+    """One of the four ranks of ``--multi``: phases (d), (a), (c), (b), (e)
+    and (f) in turn, every rank in each; rank 0 checks and returns the
+    figures."""
     import torch
 
     from laff_tpu_torch.engine import predictor as P
     from laff_tpu_torch.ops import kernels as K
+    from laff_tpu_torch.parallel import seed_data_mesh
 
     global DEFERRED
     DEFERRED = []
@@ -4688,11 +5139,20 @@ def multi_rank(mesh, root, ckpt, bert_ckpt, smi):
     t0 = time.perf_counter()
     out["serve"], serve_launches = multi_serve_phase(torch, K, mesh, root, bert_ckpt, smi)
     laps["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["seed_axis"], seed_launches = multi_seed_axis_phase(torch, K, mesh, root, smi)
+    laps["e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    layout = seed_data_mesh(2, MULTI_RANKS // 2)
+    out["seed_x_dp"], seed_dp_launches = multi_seed_dp_phase(torch, K, mesh, layout, root, smi)
+    laps["f"] = time.perf_counter() - t0
     out["seconds"] = laps
     out["launches_by_rank"] = {"multi_serve_build": serve_launches["build"],
                                "multi_serve_int8_build": serve_launches["int8_build"],
                                "multi_predict": predict_launches,
-                               "multi_train": [c["two_epochs"] for c in train_launches]}
+                               "multi_train": [c["two_epochs"] for c in train_launches],
+                               "multi_seed_axis": seed_launches,
+                               "multi_seed_x_dp": seed_dp_launches}
     if mesh.is_main:
         log(f"[multi] phases: {', '.join(f'{k} {v:.1f} s' for k, v in laps.items())}")
         log(json.dumps({"multi": out}, default=float))
@@ -4719,7 +5179,7 @@ def multi_only(torch, smi):
     t0 = time.perf_counter()
     build_world(root, "rtrain", 1500, 20, 11286, SEED + 2)
     build_world(root, "rtest", 2990, 20, 11286, SEED)
-    for coll, n, caps, seed in BERT_WORLDS[:1]:
+    for coll, n, caps, seed in BERT_WORLDS[:1] + SWEEP_WORLDS[:2]:
         build_world(root, coll, n, caps, 11286, seed)
     checkout = os.path.join(WORK, "bert_checkout")
     write_bert_checkout(torch, checkout, ["the"] + [f"w{i:05d}" for i in range(11286)])
@@ -4730,18 +5190,40 @@ def multi_only(torch, smi):
     save_checkpoint(init_checkpoint("rehearsal", root, "rtest", SEED), ckpt)
     bert_ckpt = os.path.join(WORK, "btrain_bert_model.pt")
     save_checkpoint(init_checkpoint("bert_rehearsal", root, "btrain", SEED), bert_ckpt)
-    log(f"[multi] worlds rtrain, rtest, btrain and {AVS_COLLECTION} ({AVS_SHOTS} shots), a seeded "
-        f"BERT-base checkout and two checkpoints in {time.perf_counter() - t0:.1f} s")
+    log(f"[multi] worlds rtrain, rtest, btrain, strain, sval and {AVS_COLLECTION} ({AVS_SHOTS} "
+        f"shots), a seeded BERT-base checkout and two checkpoints in "
+        f"{time.perf_counter() - t0:.1f} s")
     try:
+        multihost_phase(smi)
         t0 = time.perf_counter()
         try:
             out = launch(MULTI_RANKS, multi_rank, root, ckpt, bert_ckpt, smi)
         except Exception as e:  # noqa: BLE001 - a rank's failure, reported as the run's
             raise SmokeFailure(f"[multi] a rank failed: {e}") from e
         log(f"[multi] {MULTI_RANKS} ranks in {time.perf_counter() - t0:.1f} s (spawn, NCCL "
-            f"set-up and phases (a)-(d)); rank 0's figures: {sorted(out)}")
+            f"set-up and phases (a)-(f)); rank 0's figures: {sorted(out)}")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+
+
+def multihost_phase(smi):
+    """(g) ``cli/multihost_smoke.py`` over the four cards: MULTI_RANKS
+    worker processes joined through ``parallel.initialize_multihost`` from
+    torchrun's variables (NCCL), its three checks (the sharded ranks and top
+    k against numpy, the data-parallel trainer against one process, the
+    resume guard on split roots)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "laff_tpu_torch.cli.multihost_smoke",
+                           "--procs", str(MULTI_RANKS), "--workdir", WORK], cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    tail = "\n".join(proc.stdout.strip().splitlines()[-3:])
+    log(f"[multi g] multihost_smoke over {MULTI_RANKS} processes (torchrun's variables, NCCL): "
+        f"rc {proc.returncode} in {wall:.1f} s; {tail} [{smi}]")
+    if proc.returncode != 0:
+        log(proc.stdout[-20000:] + proc.stderr[-4000:])
+    check(proc.returncode == 0 and "multihost smoke: PASS" in proc.stdout,
+          f"[multi g] multihost_smoke failed (rc {proc.returncode})")
 
 
 def gate_worker(torch, root):
@@ -4915,13 +5397,16 @@ def main(argv):
         shutil.rmtree(WORK, ignore_errors=True)
         root = os.path.join(WORK, "world")
         t0 = time.perf_counter()
-        log(f"world: {build_world(root, 'rtest', 2990, 20, 11286, SEED, frame_feat=True)} "
+        log(f"world: {build_world(root, 'rtest', 2990, 20, 11286, SEED)} "
             f"in {time.perf_counter() - t0:.1f} s")
         ckpt = os.path.join(WORK, "rtest_model.pt")
         save_checkpoint(init_checkpoint("rehearsal", root, "rtest", SEED), ckpt)
 
         native.reset_calls()
+        t0 = time.perf_counter()
         res_k, launches_k = run_predictor(torch, K, P, root, "rtest", ckpt, "kernel")
+        log(f"host speed marker: the rtest kernel prediction pass took "
+            f"{time.perf_counter() - t0:.1f} s of wall")
         calls = dict(native.CALLS)
         check(min(calls.values()) > 0, f"the prediction pass made no native featurizer call: "
               f"{calls}")
@@ -4930,11 +5415,9 @@ def main(argv):
         check(launches_k["gate_attention"] >= 1, "the kernel run launched no gate_attention")
         check(launches_k["gate_attention_simple"] == 0,
               "the main path's gate shapes took the simple gate kernel")
-        res_f, launches_f = run_predictor(torch, K, P, root, "rtest", ckpt, "flat")
-        check(launches_f["sim_rank_wide"] == 0, "the flat run launched the rank kernel")
         mesh_one = {}
         gpu_txt, gpu_vis, txt_feed, vis_feed, model = reembed_and_check(
-            torch, K, P, root, "rtest", ckpt, res_k, res_f,
+            torch, K, P, root, "rtest", ckpt, res_k, flat=True,
             resident=lambda *embs: mesh_one.update(mesh_one_sim_phase(torch, *embs)))
         tower_profile(torch, model, txt_feed, vis_feed)
         cpu_reference_check(torch, P, ckpt, txt_feed, vis_feed, gpu_txt, gpu_vis)
@@ -4977,6 +5460,7 @@ def main(argv):
         t0 = time.perf_counter()
         launches_sw, launches_ot, per_predict = sweep_phase(torch, K, P, root, smi_line)
         log(f"sweep phase (14 (a)-(b)): {time.perf_counter() - t0:.1f} s")
+        launches_ms = mesh_sweep_phase(torch, K, root, smi_line)
         t0 = time.perf_counter()
         launches_avs, (by_path_large, tiled_ibench), by_path_serve, launches_sa = avs_phase(
             torch, K, P, root, trained["ckpt_path"], smi_line,
@@ -4998,9 +5482,9 @@ def main(argv):
         # and End2EndClip's validations, the BERT run's validations and its
         # checkpoint's pass, the service's gallery build and HTTP session
         # (searches and ingest), the seed sweep's validations, retrieval_task's
-        # sweep and predictions, avs_task's streamed set, and the services
-        # over an NCCL group of one (phase 15); the tiled kernel's paths are
-        # rbig and the kernel branch
+        # sweep and predictions, avs_task's streamed set, the services over
+        # an NCCL group of one (phase 15) and the sweeps over one (phase 16);
+        # the tiled kernel's paths are rbig and the kernel branch
         by_path = {"laff_predict": launches_k, "laff_train": launches_t,
                    "laff_trained_predict": launches_tp, "frames_train": launches_f,
                    "frames_trained_predict": launches_fp, "concat_train": launches_c,
@@ -5013,7 +5497,8 @@ def main(argv):
                    "sweep_train": launches_sw, "orchestrate_train": launches_ot,
                    "orchestrate_predict": {k: sum(p[k] for p in per_predict)
                                            for k in per_predict[0]},
-                   "avs_task_predict": launches_sa}
+                   "avs_task_predict": launches_sa,
+                   **{f"mesh_sweep_{k}": v for k, v in launches_ms.items()}}
         rows["gate_attention"]["at_l5"] = gate_l5
         rows["sim_rank_tiled"]["at_ibench"] = tiled_ibench
         tiled_paths = {"rbig_predict": launches_b, "ibench_kernel_stream":

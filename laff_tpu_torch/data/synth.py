@@ -46,6 +46,12 @@ the headline's); its features are a fixed projection of the summed word
 codes plus noise, and each caption names 6 of its 8 words, so retrieval is
 learnable. Every number comes from ``seed``.
 
+``build_collection`` and ``build_w2v`` write ``laff_tpu.data.synth``'s toy
+worlds (a few dozen videos of 4 words each over 18 stock words, 16- and
+12-d features, an 8-d ``word2vec/toy``), the same files from the same
+seeds, for the 'tiny' config: the reproduction's dry run and the
+multi-process smoke use them.
+
 ``build_avs_world`` writes an AVS collection (iacc.3 by default, at its
 335,944 shots) in the reference's TRECVID layout, over the same word codes
 and feature projections, so a model trained on a ``build_world``
@@ -395,3 +401,54 @@ def build_avs_world(root: str, collection: str = "iacc.3", n_videos: int = 335_9
         summary["benchmark"] = _benchmark_over(root, collection, *benchmark, vocab, word_codes,
                                                vids, words, seed)
     return summary
+
+
+# ---------------------------------------------------------------------------
+# laff_tpu.data.synth's toy worlds
+# ---------------------------------------------------------------------------
+
+WORDS = [
+    "dog", "cat", "man", "woman", "car", "ball", "runs", "jumps", "sits",
+    "eats", "red", "blue", "big", "small", "park", "road", "water", "table",
+]
+
+
+def build_collection(root: str, collection: str, n_videos: int = 24, caps_per_video: int = 2,
+                     feat_dims=(("clip_ft", 16), ("x3d", 12)), latent_dim: int = 5,
+                     seed: int = 0, noise: float = 0.05):
+    """A toy collection: each video draws 4 of ``WORDS``, its features a
+    fixed projection of the words' summed codes plus noise, and each caption
+    is "the" and its video's words shuffled. Returns (collection dir, video
+    ids, caption lines)."""
+    rng = np.random.default_rng(seed)
+    cdir = os.path.join(root, collection)
+    vids = [f"video{i}" for i in range(n_videos)]
+    word_codes = np.random.default_rng(99).standard_normal(
+        (len(WORDS), latent_dim)).astype(np.float32)
+    video_words = [sorted(rng.choice(len(WORDS), size=4, replace=False)) for _ in vids]
+    latent = np.stack([word_codes[w].sum(0) for w in video_words])
+    for feat, dim in feat_dims:
+        proj = np.random.default_rng(zlib.crc32(feat.encode()) % 2**31).standard_normal(
+            (latent_dim, dim)).astype(np.float32)
+        mat = latent @ proj + noise * rng.standard_normal((n_videos, dim)).astype(np.float32)
+        write_bigfile(os.path.join(cdir, "FeatureData", feat), vids, mat)
+    cap_lines = []
+    for i, vid in enumerate(vids):
+        base_words = [WORDS[j] for j in video_words[i]]
+        for c in range(caps_per_video):
+            order = rng.permutation(len(base_words))
+            cap_lines.append(f"{vid}#{c} the {' '.join(base_words[j] for j in order)}")
+    for sub in ("TextData", "VideoSets"):
+        os.makedirs(os.path.join(cdir, sub), exist_ok=True)
+    _write_lines(os.path.join(cdir, "TextData", f"{collection}.caption.txt"), cap_lines)
+    _write_lines(os.path.join(cdir, "VideoSets", f"{collection}.txt"), vids)
+    return cdir, vids, cap_lines
+
+
+def build_w2v(root: str, dim: int = 8, seed: int = 3) -> str:
+    """The toy 8-d ``word2vec/toy`` over ``WORDS``, "the" and "a"."""
+    rng = np.random.default_rng(seed)
+    d = os.path.join(root, "word2vec", "toy")
+    vocab = WORDS + ["the", "a"]
+    write_bigfile(d, vocab, rng.standard_normal((len(vocab), dim)).astype(np.float32))
+    return d

@@ -28,8 +28,24 @@ Validation embeds each active seed with its own model (the gate kernel on
 the card) and ranks it on the run's ``rank_path`` (the wide rank kernel
 with 'kernel').
 
-Raise, as in ``laff_tpu``: ``trainCollection2`` and ``resume``; and a
-``mesh`` (ROADMAP Queue 1 item 8).
+Over a mesh (``sweep_main(..., mesh=)``, called in every rank, as
+``trainer.main(mesh=)`` is), ``laff_tpu``'s two layouts:
+
+* a 1-D mesh (``parallel.data_parallel_mesh``): the seed axis over the
+  ranks. ``len(seeds)`` must divide by the ranks; rank r trains its
+  contiguous share of the seeds as a one-card sweep does (no collectives),
+  each seed in its own ``<prefix>_seed_<s>``;
+* a ('seed', 'dp') mesh (``parallel.seed_data_mesh``): the seeds over the
+  rows, and each seed's batch over its row (``TrainRun(mesh=row)``, the
+  data-parallel step of ``trainer``); ``batch_size`` must divide by
+  ``n_dp``. Nothing crosses rows.
+
+World rank 0 returns every seed's result in ``seeds``' order, each without
+its 'model' (the weights are in the checkpoints); the other ranks return
+an empty list. Without a mesh a sweep runs on one device (``laff_tpu``'s
+sweep never reads ``data_parallel``).
+
+Raise, as in ``laff_tpu``: ``trainCollection2`` and ``resume``.
 """
 
 from __future__ import annotations
@@ -43,11 +59,11 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..data.sources import TextSource
+from ..parallel.mesh import SeedDataMesh
 from ..utils import get_logger
 from .predictor import resolve_device
-from .prepare import (Options, Prepared, check_data_parallel, gru_init_we, model_dir_for,
-                      prepare)
-from .trainer import TrainRun, validation_feeds
+from .prepare import Options, Prepared, gru_init_we, model_dir_for
+from .trainer import TrainRun, prepare_ranks, validation_feeds
 
 logger = get_logger(__name__)
 
@@ -80,14 +96,30 @@ def seed_prepared(opt: Options, prepared: Prepared) -> Prepared:
     return dataclasses.replace(prepared, train_feed=feed, we=we, model_path=model_path)
 
 
+def _layout(mesh):
+    """(world, row, index, shares) of a sweep's mesh: this rank trains the
+    index-th of ``shares`` equal shares of the seeds; with ``row``, each as
+    one rank of a data-parallel run over it."""
+    if mesh is None:
+        return None, None, 0, 1
+    if isinstance(mesh, SeedDataMesh):
+        return mesh.world, mesh.row, mesh.seed_index, mesh.n_seed
+    return mesh, None, mesh.rank, mesh.size
+
+
 def sweep_main(opt: Options, seeds: List[int], prepared: Optional[Prepared] = None,
                mesh=None) -> List[Dict]:
-    """Train ``len(seeds)`` runs of ``opt``'s experiment in this process.
+    """Train ``len(seeds)`` runs of ``opt``'s experiment in this process, or
+    this rank's share of them over ``mesh`` (see the module docstring).
     Returns one ``trainer.main``-shaped result per seed, in ``seeds``'
-    order."""
-    if mesh is not None or check_data_parallel(opt.data_parallel, opt.device) > 1:
-        raise NotImplementedError("a seed sweep over a device mesh (seed_data_mesh, the "
-                                  "seed x dp layout) is not ported yet: ROADMAP Queue 1 item 8")
+    order (under a mesh on world rank 0 only)."""
+    world, row, index, shares = _layout(mesh)
+    if len(seeds) % shares:
+        raise ValueError(f"{len(seeds)} seeds must divide over the mesh's {shares} "
+                         f"{'rows' if row is not None else 'ranks'}")
+    if row is not None and opt.batch_size % row.size:
+        raise ValueError(f"batch_size {opt.batch_size} must divide the mesh 'dp' axis "
+                         f"({row.size})")
     if opt.trainCollection2 != "None":
         raise NotImplementedError("batched seed sweeps do not support trainCollection2 (run "
                                   "seeds as separate jobs for two-feed recipes)")
@@ -96,20 +128,38 @@ def sweep_main(opt: Options, seeds: List[int], prepared: Optional[Prepared] = No
                                   "sweep from scratch")
     if not seeds:
         raise ValueError("need at least one seed")
-    device = resolve_device(opt.device)
     opts = seed_options(dataclasses.replace(opt, rootpath=os.path.expanduser(opt.rootpath)),
                         seeds)
+    per = len(seeds) // shares
+    mine = opts[index * per:(index + 1) * per]
     t_prepare = time.time()
     if prepared is None:
-        prepared = prepare(opts[0])
-    prepare_seconds = time.time() - t_prepare
+        prepared = prepare_ranks(mine[0], world)
+    device = resolve_device(opt.device) if world is None else world.device
+    results = _train_seeds(opt, mine, prepared, device, time.time() - t_prepare, row=row)
+    if world is None:
+        return results
+    for r in results:
+        r["model"] = None
+    gathered = world.gather_object(results)
+    if gathered is None:
+        return []
+    if row is not None:  # each row's first rank speaks for its seeds
+        gathered = gathered[::row.size]
+    return [r for share in gathered for r in share]
+
+
+def _train_seeds(opt: Options, opts: List[Options], prepared: Prepared, device,
+                 prepare_seconds: float, row=None) -> List[Dict]:
+    """The seeds of ``opts`` trained in this process, their dispatches in
+    turn; with ``row``, each as one rank of a data-parallel run over it."""
     val_feeds = validation_feeds(opt, prepared)
     runs: List[TrainRun] = []
     try:
         for o in opts:
             runs.append(TrainRun(o, seed_prepared(o, prepared), device, prepare_seconds,
                                  shared=runs[0].dispatch if runs else None,
-                                 val_feeds=val_feeds))
+                                 val_feeds=val_feeds, mesh=row))
         for epoch in range(opt.num_epochs):
             active = [r for r in runs if not r.stopped]
             if not active:

@@ -76,7 +76,11 @@ warm-up steps run them on every rank, after an eager broadcast has made
 the communicator. Validation embeds each batch's rows on their ranks and
 gathers them; rank 0 alone ranks, and the metric that drives the LR
 controller, early stop and the best checkpoint is rank 0's, broadcast.
-Only rank 0 writes files.
+Only rank 0 writes files. The mesh may be one row of a seed x dp layout
+(``parallel.seed_data_mesh``): "rank 0" is then the row's first rank, and
+every collective runs over the row's group. ``--resume`` under a mesh
+raises on every rank when only some ranks see ``model_resume.pth.tar``
+(``check_shared_resume``).
 """
 
 from __future__ import annotations
@@ -864,6 +868,21 @@ def warm_start(model: torch.nn.Module, path: str) -> Dict:
     return ckpt
 
 
+def check_shared_resume(mesh: Mesh, resume_path: str, exists: bool) -> None:
+    """``--resume`` under a mesh is decided for every rank together: only
+    rank 0 writes ``model_resume.pth.tar``, so on a filesystem the ranks do
+    not share, rank 0 would resume at epoch N while the others start at 0
+    and their collectives diverge. Raises on every rank unless all of them
+    see the file, or none does (``laff_tpu``'s guard)."""
+    flags = mesh.all_gather(torch.tensor([int(exists)], dtype=torch.int32, device=mesh.device))
+    seen = int(flags.sum())
+    if seen not in (0, mesh.size):
+        raise RuntimeError(
+            f"--resume with {mesh.size} processes: {resume_path} is visible to only "
+            f"{seen}/{mesh.size} processes. Multi-process resume requires model_path on a "
+            "shared filesystem (process 0 owns the checkpoint writes).")
+
+
 class TrainRun:
     """One run of ``main``'s epoch loop, an epoch at a time: the seeded model
     (its GRU embedding from ``prepared.we``), the warm start, the optimizer,
@@ -924,7 +943,10 @@ class TrainRun:
         self.best_perf, self.no_impr, self.mean_last = 0.0, 0, []
         self.start_epoch = self.global_step = 0
         self.resume_path = os.path.join(self.model_path, "model_resume.pth.tar")
-        if opt.resume and os.path.exists(self.resume_path):
+        resume_exists = os.path.exists(self.resume_path)
+        if opt.resume and self.mesh is not None:
+            check_shared_resume(self.mesh, self.resume_path, resume_exists)
+        if opt.resume and resume_exists:
             rk = load_checkpoint(self.resume_path)
             model.load_state_dict(rk["state_dict"])
             self.optimizer.load_state_dict(rk["optimizer"])

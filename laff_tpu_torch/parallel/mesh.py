@@ -12,8 +12,13 @@ seeded feeds and keeps its rows of each global batch
 ``all_reduce(SUM)`` and its ``all_gather`` is ``all_gather``; only rank 0
 touches the filesystem.
 
-* ``Mesh``: this rank, the world size, this rank's device and the axis
-  name 'dp'; its collectives run over the default process group.
+* ``Mesh``: this rank's place in a process group (``rank`` and ``size``
+  within ``group``, the default group when None), this rank's device and
+  the axis name 'dp'; every collective of the port runs through it, over
+  its group.
+* ``seed_data_mesh(n_seed, n_dp)``: the seed x dp layout of a sweep over
+  a mesh. The world's ranks form ``n_seed`` rows of ``n_dp``; a rank's
+  'dp' mesh is its row (a group of its own), and nothing crosses rows.
 * ``launch(n, target, *args)``: ``n`` ranks of a module-level ``target``
   (called as ``target(mesh, *args)``), each on its card
   (``torch.cuda.set_device`` before anything allocates), joined through a
@@ -35,8 +40,10 @@ touches the filesystem.
   N-card run draws what a one-card run draws; BatchNorm and the
   zero-feature test read the mesh from it to reduce over the group.
 
-``seed_data_mesh`` (the seed x dp layout of a sweep over a mesh) is not
-ported yet (ROADMAP Queue 1 item 8).
+A subgroup's collectives name their source and destination by global
+rank (``dist.get_global_rank``), and its NCCL communicator exists only
+after its first eager collective: a CUDA graph that captures one must come
+after it (``trainer.TrainRun`` replicates the model first).
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ import pickle
 import sys
 import tempfile
 import traceback
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -60,21 +67,27 @@ _all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather
 
 @dataclasses.dataclass
 class Mesh:
-    """The default process group as a data-parallel mesh: ``size`` ranks
-    along ``axis``, this process being ``rank``, its tensors on ``device``."""
+    """A process group as a data-parallel mesh: ``size`` ranks along
+    ``axis``, this process being ``rank`` of them, its tensors on
+    ``device``; ``group`` is the process group (None: the default one)."""
 
     rank: int
     size: int
     device: torch.device
     axis: str = "dp"
+    group: Optional[Any] = None
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
 
+    def global_rank(self, rank: int) -> int:
+        """The world rank of this group's ``rank``."""
+        return rank if self.group is None else dist.get_global_rank(self.group, rank)
+
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """In-place sum over the group."""
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=self.group)
         return t
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
@@ -83,25 +96,52 @@ class Mesh:
         t = t.contiguous()
         out = torch.empty((self.size * t.shape[0], *t.shape[1:]), dtype=t.dtype,
                           device=t.device)
-        _all_gather_single(out, t)
+        _all_gather_single(out, t, group=self.group)
         return out
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        dist.broadcast(t, src)
+        dist.broadcast(t, self.global_rank(src), group=self.group)
         return t
 
     def broadcast_object(self, obj: Any = None, src: int = 0) -> Any:
         """``src``'s picklable ``obj`` on every rank."""
         box = [obj]
-        dist.broadcast_object_list(box, src,
+        dist.broadcast_object_list(box, self.global_rank(src), group=self.group,
                                    device=self.device if self.device.type == "cuda" else None)
         return box[0]
 
+    def gather_object(self, obj: Any) -> Optional[List[Any]]:
+        """Every rank's picklable ``obj`` in rank order on rank 0, None on
+        the others."""
+        out = [None] * self.size if self.is_main else None
+        dist.gather_object(obj, out, dst=self.global_rank(0), group=self.group)
+        return out
+
     def barrier(self) -> None:
         if self.device.type == "cuda":
-            dist.barrier(device_ids=[self.device.index])
+            dist.barrier(group=self.group, device_ids=[self.device.index])
         else:
-            dist.barrier()
+            dist.barrier(group=self.group)
+
+
+@dataclasses.dataclass
+class SeedDataMesh:
+    """The ('seed', 'dp') layout of ``seed_data_mesh``: ``row`` is this
+    rank's 'dp' mesh (its row's group), ``world`` the mesh of every rank."""
+
+    n_seed: int
+    n_dp: int
+    row: Mesh
+    world: Mesh
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"seed": self.n_seed, "dp": self.n_dp}
+
+    @property
+    def seed_index(self) -> int:
+        """This rank's row."""
+        return self.world.rank // self.n_dp
 
 
 def _device_for_backend() -> torch.device:
@@ -120,6 +160,20 @@ def data_parallel_mesh(n_devices: Optional[int] = None, axis: str = "dp") -> Mes
     if n_devices is not None and n_devices != size:
         raise ValueError(f"a mesh of {n_devices} devices over a group of {size} ranks")
     return Mesh(rank=dist.get_rank(), size=size, device=_device_for_backend(), axis=axis)
+
+
+def seed_data_mesh(n_seed: int, n_dp: int) -> SeedDataMesh:
+    """The seed x dp layout over the world's ``n_seed * n_dp`` ranks: row
+    ``i`` is ranks ``i * n_dp .. (i + 1) * n_dp - 1``, each row a process
+    group of its own (every rank creates every row's group, in order)."""
+    world = data_parallel_mesh()
+    n = n_seed * n_dp
+    if world.size != n:
+        raise ValueError(f"need {n} devices, have {world.size}")
+    groups = [dist.new_group(list(range(i * n_dp, (i + 1) * n_dp))) for i in range(n_seed)]
+    i = world.rank // n_dp
+    row = Mesh(rank=world.rank - i * n_dp, size=n_dp, device=world.device, group=groups[i])
+    return SeedDataMesh(n_seed=n_seed, n_dp=n_dp, row=row, world=world)
 
 
 def initialize_multihost(coordinator_address: Optional[str] = None,

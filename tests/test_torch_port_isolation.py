@@ -34,7 +34,8 @@ print(len(names), "modules;", "forbidden:", bad, covered)
 # int8 gallery, the host data CLIs, the live CLIP towers and End2EndClip,
 # the BERT tower, the retrieval server and its full-width BERT config, the
 # seed sweep, the orchestrator and its two CLIs, the mesh and the sharded
-# similarity engine
+# similarity engine, the reproduction, two-stage AVS and multi-process
+# entry points
 REQUIRED = ("laff_tpu_torch.native", "laff_tpu_torch.eval.rerank",
             "laff_tpu_torch.ops.quantized", "laff_tpu_torch.data.check",
             "laff_tpu_torch.cli.build_vocab", "laff_tpu_torch.cli.txt2bin",
@@ -57,7 +58,10 @@ REQUIRED = ("laff_tpu_torch.native", "laff_tpu_torch.eval.rerank",
             "laff_tpu_torch.configs.bert_rehearsal", "laff_tpu_torch.engine.sweep",
             "laff_tpu_torch.engine.orchestrate", "laff_tpu_torch.cli.retrieval_task",
             "laff_tpu_torch.cli.all_run", "laff_tpu_torch.parallel",
-            "laff_tpu_torch.parallel.mesh", "laff_tpu_torch.parallel.sim_engine")
+            "laff_tpu_torch.parallel.mesh", "laff_tpu_torch.parallel.sim_engine",
+            "laff_tpu_torch.cli.reproduce_mvtest3k",
+            "laff_tpu_torch.cli.do_pretrain_gcc_train_avs",
+            "laff_tpu_torch.cli.multihost_smoke")
 
 
 def _run(args, cwd):
@@ -72,7 +76,7 @@ def test_port_imports_no_jax_and_no_laff_tpu():
                 ROOT)
     assert proc.returncode == 0, proc.stderr
     count, _, rest = proc.stdout.strip().partition(" modules;")
-    assert int(count) >= 59  # every module was walked, the orchestrator's included
+    assert int(count) >= 89  # every module was walked, the three new CLIs' included
     assert rest.strip() == "forbidden: [] True", proc.stdout
 
 

@@ -13,7 +13,8 @@
   trains on, and its weights equal ``trainer.main``'s stopped at the same
   epoch (``laff_tpu``'s ``test_active_mask_freezes_stopped_seed``); each
   seed's learning rates follow its own LR controller;
-* what raises: ``trainCollection2``, ``resume``, a mesh, no seeds;
+* what raises: ``trainCollection2``, ``resume``, seeds that do not divide
+  over a mesh's ranks, no seeds;
 * a sweep checkpoint through the port's predictor;
 * ``ScalarLogger`` with ``LAFF_TPU_TENSORBOARD=1``: each seed's TensorBoard
   events, read back with ``EventAccumulator``, equal its ``scalars.tsv``
@@ -47,6 +48,7 @@ from laff_tpu_torch.engine.checkpoint import checkpoint_payload, load_checkpoint
 from laff_tpu_torch.engine.optim import LRController
 from laff_tpu_torch.engine.predictor import PredictOptions, main as predict_main
 from laff_tpu_torch.engine.weights import from_jax_variables
+from laff_tpu_torch.parallel import Mesh
 
 from helpers import build_collection, build_w2v
 
@@ -218,18 +220,20 @@ def test_stopped_seed_is_frozen_and_lrs_are_per_seed(world, monkeypatch):
 @pytest.mark.parametrize("change,error", [
     ({"trainCollection2": "toyval"}, NotImplementedError),
     ({"resume": 1}, NotImplementedError),
-    ("mesh", NotImplementedError),
+    # the id a mesh had when it raised NotImplementedError: seeds that do not
+    # divide over its ranks raise ValueError now
+    pytest.param("mesh", ValueError, id="mesh-NotImplementedError"),
     ("no_seeds", ValueError),
 ])
 def test_sweep_options_that_raise(world, change, error):
     opt, seeds, mesh = _opt(world, "raise"), SEEDS, None
-    if change == "mesh":
-        mesh = object()
+    if change == "mesh":  # 3 seeds over 2 ranks, refused before any collective
+        mesh, seeds = Mesh(rank=0, size=2, device=torch.device("cpu")), [1, 2, 3]
     elif change == "no_seeds":
         seeds = []
     else:
         opt = dataclasses.replace(opt, **change)
-    with pytest.raises(error, match="item 5|trainCollection2|resume|seed"):
+    with pytest.raises(error, match="divide|trainCollection2|resume|seed"):
         port_sweep.sweep_main(opt, seeds, mesh=mesh)
 
 
