@@ -18,16 +18,21 @@ Phases, each asserting; any failure exits non-zero before the last line:
    layout) and again with ground truths scattered over the gallery,
    sim_rank_tiled at a gallery above the wide budget (8,192 x 16,384),
    gate_attention at (B, 4, 8, 512) for B 128, 1,024 and 8,192, with
-   with_ave off / on and mul on at the eval batch 1,024, and at FrameLAFF's
-   video-tower shape (1,024, 5, 8, 512). Times are
+   with_ave off / on and mul on at the eval batch 1,024, and the same at
+   FrameLAFF's video-tower shape (B, 5, 8, 512), each launch on the ring
+   kernel's layout for its L (packed rows at L 4, whole rows at L 5). The
+   build log's registers and spills are printed for every kernel, and a
+   gate instantiation of those two routes may not spill. Times are
    CUDA-event medians of one call, and for the gate also the profiler's
    device time and the time per call of 62 calls back to back (one rtest
    pass). Then the rank kernels' edge cases on both branches (the tiled
    one forced by a lowered WIDE_BUDGET): one text row against a gallery
    narrower than a tile, ragged T and V, HD 512 and 2048, a gallery of
    duplicated rows with exact ties, and ground truths outside the gallery
-   (rank 0); and the gate's: L, H, dh and B away from the headline, x off
-   16-byte alignment, shapes that take the simple gate kernel, logits
+   (rank 0); and the gate's: L, H, dh and B away from the headline (L 6
+   and 7 in whole rows and L 8 split by heads at H 8, dh 512; 16 and 31
+   heads at L 5, split), x off 16-byte alignment, shapes that take the simple
+   gate kernel, each on the layout ``K.gate_layout`` names, logits
    scaled by 100, an all-zero row, g = 0, and a tensor g with no host sync.
    The rank times are taken on the main path's flat f32 embeddings, the
    bf16 cast included, and again on operands already cast.
@@ -339,7 +344,9 @@ from the pretrain's checkpoint, infAP at least 5x a random run's, a second
 call skips stage 1).
 ``--gate-timing`` runs only the gate: each DIR (a checkout, e.g. the parent
 commit unpacked under build/) in its own process, with its own wrapper and
-kernel sources, held against its plain version and timed as in phase 2.
+kernel sources, its build's registers and spills printed, held against its
+plain version and timed as in phase 2 at L 4 and 5, B 128, 1,024 and 8,192,
+and at (B 1,024, L 16, H 1, dh 1024), which runs the multi-pass kernel.
 """
 
 import contextlib
@@ -614,16 +621,20 @@ def gate_phase(torch, K, gen, l=4, batches=GATE_BATCHES):
     option set, then timed at each of ``batches``. g is a tensor on the
     card, as the towers pass it."""
     g = torch.tensor(0.8, device="cuda")
+    layout = K.gate_layout(l, 8, 512)
     out = {}
     for b in batches:
         x, k, bias = gate_inputs(torch, gen, b, l)
         for with_ave, mul in GATE_OPTIONS if b == 1024 else GATE_OPTIONS[:1]:
             before = K.LAUNCHES["gate_attention"]
+            before_layout = K.GATE_LAUNCHES.get((layout, l), 0)
             got = K.fused_gate_attention(x, k, bias, g, with_ave=with_ave, mul=mul)
             ref = K.fused_gate_attention_plain(x, k, bias, g, with_ave=with_ave, mul=mul)
             torch.cuda.synchronize()
-            check(K.LAUNCHES["gate_attention"] == before + 1,
-                  "gate: the headline shape did not take the ring kernel")
+            check(K.LAUNCHES["gate_attention"] == before + 1
+                  and K.GATE_LAUNCHES.get((layout, l), 0) == before_layout + 1,
+                  f"gate: (B={b}, L={l}, H=8, dh=512) did not take the ring kernel's "
+                  f"{layout} layout: {K.GATE_LAUNCHES}")
             err = float((got - ref).abs().max())
             check(err <= GATE_TOL, f"gate B={b} with_ave={with_ave} mul={mul}: max err {err}")
             row = gate_times(torch, K, x, k, bias, g, with_ave, mul)
@@ -635,8 +646,8 @@ def gate_phase(torch, K, gen, l=4, batches=GATE_BATCHES):
             row.update(max_abs_err=err, library_ms=None)
             share = ("" if row["device_ms"] is None
                      else f" ({row['bound_ms'] / row['device_ms']:.0%} of the bound)")
-            log(f"gate_attention (B={b}, L={l}, H=8, dh=512) with_ave={with_ave} mul={mul}: "
-                f"max abs err {err:.3g}; device {fmt_ms(row['device_ms'])} ms{share}, "
+            log(f"gate_attention (B={b}, L={l}, H=8, dh=512; {layout}) with_ave={with_ave} "
+                f"mul={mul}: max abs err {err:.3g}; device {fmt_ms(row['device_ms'])} ms{share}, "
                 f"call {row['ms']:.4f} ms, {GATE_RUN} calls back to back "
                 f"{row['run_ms']:.4f} ms per call, plain {row['plain_ms']:.4f} ms, "
                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -650,26 +661,33 @@ def gate_phase(torch, K, gen, l=4, batches=GATE_BATCHES):
 
 def gate_edge_phase(torch, K, gen):
     """The gate away from the headline, each case against the plain version
-    to GATE_TOL, and on the kernel the C entry point should choose: the ring
-    kernel when dh % 4 == 0, x is 16-byte aligned and one head's L slices fit
-    a stage, else the simple kernel."""
+    to GATE_TOL, and on the kernel and layout that the C entry point should
+    choose (``K.gate_layout``, its mirror): the ring kernel when dh % 4 == 0,
+    x is 16-byte aligned and one head's L slices fit a stage, in packed
+    rows, whole rows or a head split by the bytes of a row; else the simple
+    kernel."""
     def run(x, k, bias, g, with_ave, mul, what):
         aligned = x.data_ptr() % 16 == 0
-        l, dh = x.shape[1], x.shape[3]
-        ring = dh % 4 == 0 and aligned and l * dh * 4 <= K.GATE_STAGE_BYTES
-        name = "gate_attention" if ring else "gate_attention_simple"
+        l, h, dh = x.shape[1:]
+        layout = K.gate_layout(l, h, dh, aligned)
+        name = "gate_attention_simple" if layout == "simple" else "gate_attention"
         before = dict(K.LAUNCHES)
+        before_layout = dict(K.GATE_LAUNCHES)
         got = K.fused_gate_attention(x, k, bias, g, with_ave=with_ave, mul=mul)
         ref = K.fused_gate_attention_plain(x, k, bias, g, with_ave=with_ave, mul=mul)
         torch.cuda.synchronize()
         check(K.LAUNCHES[name] == before[name] + 1 and sum(K.LAUNCHES.values())
               == sum(before.values()) + 1, f"gate {what}: did not take {name}")
+        check(K.GATE_LAUNCHES.get((layout, l), 0) == before_layout.get((layout, l), 0) + 1,
+              f"gate {what}: the C entry point did not choose the {layout} layout")
+        layouts[layout] = layouts.get(layout, 0) + 1
         check(bool(torch.isfinite(got).all()), f"gate {what}: non-finite output")
         err = float((got - ref).abs().max())
         check(err <= GATE_TOL, f"gate {what} with_ave={with_ave} mul={mul}: max err {err}")
         return got
 
     counts = dict(K.LAUNCHES)
+    layouts = {}
     i = 0
     for l in (1, 2, 5, 16):
         for h in (1, 4, 16):
@@ -679,6 +697,16 @@ def gate_edge_phase(torch, K, gen):
                 x, k, bias = gate_inputs(torch, gen, b, l, h, dh)
                 run(x, k, bias, 0.8, with_ave, mul, f"(B={b}, L={l}, H={h}, dh={dh})")
                 i += 1
+    # L 6 and 7 in whole rows, L 8 split by heads, at H 8, dh 512
+    # (registers); 16 and 31 heads at L 5, split by heads
+    for l in (6, 7, 8):
+        for b in (3, 1024):
+            x, k, bias = gate_inputs(torch, gen, b, l)
+            for with_ave, mul in GATE_OPTIONS if b == 1024 else GATE_OPTIONS[:1]:
+                run(x, k, bias, 0.8, with_ave, mul, f"(B={b}, L={l}, H=8, dh=512)")
+    for b, h, dh in ((1024, 16, 512), (257, 31, 256)):
+        x, k, bias = gate_inputs(torch, gen, b, 5, h, dh)
+        run(x, k, bias, 0.8, True, True, f"(B={b}, L=5, H={h}, dh={dh})")
     # one head's slices above a stage (128 KB): the simple kernel
     x, k, bias = gate_inputs(torch, gen, 3, 16, 2, 2048)
     run(x, k, bias, 0.8, True, True, "(B=3, L=16, H=2, dh=2048)")
@@ -726,16 +754,23 @@ def gate_edge_phase(torch, K, gen):
     ring = K.LAUNCHES["gate_attention"] - counts["gate_attention"]
     simple = K.LAUNCHES["gate_attention_simple"] - counts["gate_attention_simple"]
     log(f"gate edge cases (L 1/2/5/16 x H 1/4/16 x dh 8/130/1024 over B 1/3/4099 and the "
-        f"three option sets, dh 2048 at L 16, x off 16-byte alignment, logits x100, an "
+        f"three option sets, L 6/7/8 at H 8 and dh 512 over B 3/1024, L 5 at H 16 and 31, "
+        f"dh 2048 at L 16, x off 16-byte alignment, logits x100, an "
         f"all-zero row, g = 0, a tensor g to the wrapper and to a with_ave module under sync "
         f"debug mode 'error'): held against the "
         f"plain version to {GATE_TOL}; {ring} ring and {simple} simple kernel launches, each "
-        f"on the kernel its shape calls for")
+        f"on the kernel and layout its shape calls for (by layout: {layouts})")
 
 
 # ---------------------------------------------------------------------------
 # phase 3: the prediction slice
 # ---------------------------------------------------------------------------
+
+def gate_split(K):
+    """The gate's launches by L and layout since the last reset_launches."""
+    return {f"L{l} {layout}": n for (layout, l), n in sorted(K.GATE_LAUNCHES.items(),
+                                                             key=lambda kv: kv[0][::-1])}
+
 
 def run_predictor(torch, K, P, root, coll, ckpt, rank_path):
     opt = P.PredictOptions(
@@ -748,9 +783,10 @@ def run_predictor(torch, K, P, root, coll, ckpt, rank_path):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
+    res["gate_split"] = gate_split(K)
     secs = ", ".join(f"{k} {v:.2f}" for k, v in res["seconds"].items())
     log(f"predictor {coll} rank_path={rank_path}: {wall:.1f} s wall ({secs}); "
-        f"launches {launches}")
+        f"launches {launches}; the gate's by L and layout {res['gate_split']}")
     log(f"  t2v r1 {res['t2v'][0]:.3f} r5 {res['t2v'][1]:.3f} r10 {res['t2v'][2]:.3f} "
         f"medr {res['t2v'][3]:.0f} meanr {res['t2v'][4]:.2f} mir {res['t2v'][5]:.5f}; "
         f"v2t r1 {res['v2t'][0]:.3f} r5 {res['v2t'][1]:.3f} r10 {res['v2t'][2]:.3f} "
@@ -1473,6 +1509,7 @@ def run_main(torch, K, T, opt, prepared, smi, what, gate_calls=VAL_GATE_CALLS,
         prepared.val_txt_batcher, prepared.val_vis_batcher = txt_batcher, vis_batcher
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
+    res["gate_split"] = gate_split(K)
     check(torch.equal(torch.cuda.get_rng_state(), default_rng),
           f"[{what}] trainer.main moved the process's default CUDA generator")
     hist, chose = res["history"], res["dispatch"]
@@ -1483,7 +1520,8 @@ def run_main(torch, K, T, opt, prepared, smi, what, gate_calls=VAL_GATE_CALLS,
             f"{e['val_seconds']:.2f} s, wall {e['wall_seconds']:.2f} s; r1 {e['r1']:.3f} "
             f"r5 {e['r5']:.3f} r10 {e['r10']:.3f} medr {e['medr']:.0f} mir {e['mir']:.5f} [{smi}]")
     log(f"[{what}] trainer.main: {len(hist)} epochs in {wall:.1f} s (prepare in the call "
-        f"{res['prepare_seconds']} s); launches {launches} [{smi}]")
+        f"{res['prepare_seconds']} s); launches {launches}, the gate's by L and layout "
+        f"{res['gate_split']} [{smi}]")
     check(dispatch_ok(chose), f"[{what}] the dispatch is not the expected one "
           f"({dispatch_ok.__doc__.strip()}): {chose}")
     check(len(hist) == epochs, f"[{what}] trainer ran {len(hist)} epochs, not {epochs}")
@@ -1621,11 +1659,17 @@ def frame_phase(torch, K, P, root, smi):
     cache_and_graph_checks(torch, K, T, opt, prepared, smi, "frames")
     res, launches, _ = run_main(torch, K, T, opt, prepared, smi, "frames",
                                 gate_calls=RVAL_GATE_CALLS, val_batches=RVAL_GATE_CALLS)
+    split = {"frames_train": res["gate_split"]}
     del res["model"]
     ck = load_checkpoint(os.path.join(res["model_path"], "model_best.pth.tar"))
     card_vs_cpu_step(torch, T, prepared, ck["state_dict"], "frames")
     ckpt_path, out, launches_p = trained_checkpoint_prediction(
         torch, K, P, root, res, ("kernel",), "frames", gate_run=RVAL_GATE_CALLS, coll=RVAL[0])
+    split["frames_trained_predict"] = out["kernel"]["gate_split"]
+    l5 = f"L5 {K.gate_layout(5, 8, 512)}"
+    for path, by_l in split.items():
+        check(by_l.get(l5, 0) > 0 and not any(k.startswith("L5") and k != l5 for k in by_l),
+              f"[frames] {path}: the video tower's L 5 gate did not all take {l5}: {by_l}")
     secs = out["kernel"]["seconds"]
     log("[frames] frame_timing " + json.dumps({
         "epochs": [{k: e[k] for k in ("train_seconds", "val_seconds", "wall_seconds", "loss",
@@ -1634,7 +1678,7 @@ def frame_phase(torch, K, P, root, smi):
         "vis_cache_bytes": res["dispatch"]["vis_cache_bytes"],
         "vis_cache_s": res["dispatch"]["vis_cache_seconds"],
         "predict_seconds": secs, "predict_total_s": sum(secs.values()), "smi": smi}))
-    return launches, launches_p, {"ckpt": ckpt_path, "seconds": secs}
+    return launches, launches_p, {"ckpt": ckpt_path, "seconds": secs, "gate_by_l": split}
 
 
 # ---------------------------------------------------------------------------
@@ -5226,36 +5270,78 @@ def multihost_phase(smi):
           f"[multi g] multihost_smoke failed (rc {proc.returncode})")
 
 
+def ptxas_table(text):
+    """{function: (registers, spill store bytes, spill load bytes)} from a
+    ``-Xptxas -v`` build log; gate ring kernels named by their template
+    arguments, gate_ring_kernel<LMAX, CPL, MUL, AVE>."""
+    import re
+
+    table, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )(\S+?)'?(?: |$)",
+                      line)
+        if m:
+            fn = m.group(1)
+            ring = re.search(r"gate_ring_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E", fn)
+            if ring:
+                fn = "gate_ring_kernel<{}, {}, {}, {}>".format(*ring.groups())
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if fn and spill:
+            table[fn] = (table.get(fn, (0,))[0], int(spill.group(1)), int(spill.group(2)))
+        elif fn and regs:
+            table[fn] = (int(regs.group(1)), *table.get(fn, (0, 0, 0))[1:])
+    return table
+
+
+def log_build(logs):
+    """Each kernel's registers and spills a thread from the build logs; fails
+    if a gate ring kernel that the L 4 or L 5 route launches (CPL 4: LMAX 4
+    or 8) spills."""
+    for name, text in logs.items():
+        for fn, (regs, stores, loads) in ptxas_table(text).items():
+            log(f"  {name}: {fn}: {regs} registers, spill stores {stores} B, loads {loads} B")
+            check(not (fn.startswith(("gate_ring_kernel<4, 4,", "gate_ring_kernel<8, 4,"))
+                       and stores + loads),
+                  f"{fn} spills {stores} + {loads} bytes on the gate's main path")
+
+
 def gate_worker(torch, root):
     """Times the gate of the checkout at ``root`` (its own wrapper, sources
-    and build) at the headline's (L 4, H 8, dh 512) for each of GATE_BATCHES
-    and GATE_OPTIONS, after holding it against its plain version."""
+    and build) at (L, H 8, dh 512) for L 4 (the LAFF-ml towers) and 5
+    (FrameLAFF's video tower), each of GATE_BATCHES and GATE_OPTIONS, and at
+    (B 1,024, L 16, H 1, dh 1024), an edge shape on the multi-pass
+    instantiation, after holding it against its plain version."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     from laff_tpu_torch.ops import kernels as K
 
     check(os.path.abspath(K.__file__).startswith(root + os.sep),
           f"imported {K.__file__}, not the package under {root}")
-    for name, text in K.build_kernels().items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    log_build(K.build_kernels())
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     g = torch.tensor(0.8, device="cuda")
     rows = []
-    for b in GATE_BATCHES:
-        x, k, bias = gate_inputs(torch, gen, b)
+    shapes = [(b, l, 8, 512) for l in (4, 5) for b in GATE_BATCHES] + [(1024, 16, 1, 1024)]
+    for b, l, h, dh in shapes:
+        x, k, bias = gate_inputs(torch, gen, b, l, h, dh)
+        n_bytes = (x.numel() + k.numel() + bias.numel() + b * h * dh) * 4
+        what = f"gate (B={b}, L={l}, H={h}, dh={dh})"
         for with_ave, mul in GATE_OPTIONS:
             got = K.fused_gate_attention(x, k, bias, g, with_ave, mul)
             err = float((got - K.fused_gate_attention_plain(x, k, bias, g, with_ave, mul))
                         .abs().max())
-            check(err <= GATE_TOL, f"{root}: gate B={b} with_ave={with_ave} mul={mul}: "
+            check(err <= GATE_TOL, f"{root}: {what} with_ave={with_ave} mul={mul}: "
                   f"max err {err}")
-            row = {"b": b, "with_ave": with_ave, "mul": mul, "max_abs_err": err,
+            row = {"b": b, "l": l, "h": h, "dh": dh, "with_ave": with_ave, "mul": mul,
+                   "max_abs_err": err, "bound_ms": n_bytes / PEAK_BYTES_S * 1e3,
                    **gate_times(torch, K, x, k, bias, g, with_ave, mul)}
-            log(f"{root}: gate B={b} with_ave={with_ave} mul={mul}: device "
-                f"{fmt_ms(row['device_ms'])} ms, call {row['ms']:.4f} ms, {GATE_RUN} back to "
-                f"back {row['run_ms']:.4f} ms per call, max abs err {err:.3g}")
+            share = ("" if row["device_ms"] is None
+                     else f" ({row['bound_ms'] / row['device_ms']:.0%} of the bound)")
+            log(f"{root}: {what} with_ave={with_ave} mul={mul}: device "
+                f"{fmt_ms(row['device_ms'])} ms{share}, call {row['ms']:.4f} ms, {GATE_RUN} "
+                f"back to back {row['run_ms']:.4f} ms per call, max abs err {err:.3g}")
             rows.append(row)
     log("gate_timing " + json.dumps({"root": root, "rows": rows}))
 
@@ -5289,6 +5375,9 @@ def gate_timing(roots):
     """Each checkout's gate in its own process, in the order given: to hold
     two trees against each other on one card, unpack the other under build/
     and pass it, this tree, this tree, it."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    log(smi.stdout.strip() or f"nvidia-smi gave nothing: {smi.stderr.strip()}")
     for root in roots:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--gate-worker", root],
                               capture_output=True, text=True, timeout=900)
@@ -5363,10 +5452,7 @@ def main(argv):
         t0 = time.perf_counter()
         logs = K.build_kernels()
         log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'cached'}")
-        for name, text in logs.items():
-            for line in text.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  {name}: {line.strip()}")
+        log_build(logs)
 
         if only_bert_serve:
             bert_serve_only(torch, K, P, smi_line)
@@ -5388,7 +5474,7 @@ def main(argv):
             "gate_attention": gate_phase(torch, K, gen),
         }
         # FrameLAFF's video tower fuses 5 locals: the gate at L 5
-        gate_l5 = gate_phase(torch, K, gen, l=5, batches=(1024,))
+        gate_l5 = gate_phase(torch, K, gen, l=5)
         # the gt pass's cost with ground truths on every gallery tile
         sim_rank_phase(torch, K, "sim_rank_wide", 59_800, 2_990, 0, gen)
         sim_rank_edge_phase(torch, K, gen)
@@ -5500,6 +5586,7 @@ def main(argv):
                    "avs_task_predict": launches_sa,
                    **{f"mesh_sweep_{k}": v for k, v in launches_ms.items()}}
         rows["gate_attention"]["at_l5"] = gate_l5
+        rows["gate_attention"]["launches_by_l_frames"] = frames_ckpt["gate_by_l"]
         rows["sim_rank_tiled"]["at_ibench"] = tiled_ibench
         tiled_paths = {"rbig_predict": launches_b, "ibench_kernel_stream":
                        by_path_large["ibench_kernel_stream"]}

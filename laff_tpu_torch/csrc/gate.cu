@@ -15,35 +15,53 @@
 // a weighted sum and a norm per element), far below the card's ridge point,
 // so the gate is bound by bytes and has no use for tensor cores. At the eval
 // batch of the LAFF-ml headline (B 1,024, L 4, H 8, dh 512) it reads 67 MB
-// and writes 17 MB: 25 us at 3.35 TB/s. x is read from device memory once.
+// and writes 17 MB: 25 us at 3.35 TB/s; at FrameLAFF's video tower (L 5) it
+// reads 84 MB: 30 us. x is read from device memory once.
 //
 // The ring kernel (gate_ring_kernel) keeps that read in flight:
 // * A persistent grid (as many CTAs as fit on the SMs, at most one per unit)
-//   walks work units: one batch row with all its heads (64 KB at the
-//   headline); several consecutive rows when rows are small and the batch
-//   leaves each CTA enough units; a group of one row's heads when the row
-//   exceeds a stage.
-// * One producer thread fills a ring of STAGES shared-memory stages with 1-D
-//   bulk asynchronous copies (cp.async.bulk ... complete_tx; no tensor map),
-//   signalled by full/empty mbarriers (mbarrier.cuh). Three stages keep up
-//   to 216 KB per SM in flight (192 KB at the headline), far above the
-//   ~25 KB per SM that Little's law asks for at 3.35 TB/s and ~1 us.
+//   walks work units. One producer thread fills a ring of shared-memory
+//   stages with 1-D bulk asynchronous copies (cp.async.bulk ... complete_tx;
+//   no tensor map), signalled by full/empty mbarriers (mbarrier.cuh).
+// * How a unit is cut depends on the bytes of one batch row (L x H x dh
+//   floats), in three layouts (ring_geometry; *route reports which):
+//   - packed rows, rows of at most STAGE_BYTES (72 KB; the headline's L 4
+//     row is 64 KB): 3 stages, each one row or, when rows are small and the
+//     batch leaves each CTA enough units, several consecutive rows, with all
+//     their heads. 192 KB per SM in flight at the headline.
+//   - whole rows, rows up to half of RING_BYTES (224 KB: L 5 to 7 at H 8,
+//     dh 512, FrameLAFF's video tower at L 5): 2 stages sized to one row
+//     each (80 KB at L 5), the row arriving in one contiguous copy, so each
+//     of the 8 consumer warps takes one head of H 8 and none idles. At
+//     3.35 TB/s and ~1 us Little's law asks for ~25 KB per SM in flight; one
+//     row loads while the other is read.
+//   - head split, larger rows (L 8 at H 8, dh 512; no configuration of the
+//     repo runs one): as in the packed rows' ring, 3 stages of 72 KB, a unit
+//     one row's next STAGE_BYTES / (L x dh x 4) heads, one copy a position.
+//   Whole rows were chosen over even head groups (two groups of consumer
+//   warps, each on half-rows of stages of its own): they need one copy a
+//   row instead of L, and one walk of the stages shared by all consumer
+//   warps, as in the packed rows' ring, with no split of the warps into
+//   groups. At (B 1,024, L 5, H 8, dh 512) they read at 72 % of the bound
+//   (0.042 ms on an H100 80GB HBM3 at 700 W).
 // * Each consumer warp takes one (row, head) of a unit at a time. Its lanes
 //   read float4s of the head's L slices from the stage (conflict-free) and
 //   form the mean, the L logits, the softmax, the weighted sum and the norm
 //   in registers, reducing with __shfl_xor_sync only: no __syncthreads and
-//   no shared scratch. Where 16 float4s a lane hold the head (L 4 x dh 512
-//   at the headline, L 8 x dh 256, L 16 x dh 128), each lane reads the stage
-//   once and keeps its part of the head in registers (gate_head_regs);
-//   otherwise it reads the stage three times, for the logits, the norm and
-//   the output, recomputing what each pass needs (gate_head). The stage is
-//   never written. Results leave as 128-bit streaming stores.
+//   no shared scratch. Where L <= 8 and dh <= 512 (both LAFF-ml's L 4 and
+//   FrameLAFF's L 5 at dh 512: up to 32 float4s a lane) or L <= 16 and
+//   dh <= 128, each lane reads the stage once and keeps its part of the
+//   head in registers (gate_head_regs, one order of operations for every
+//   instantiation); otherwise (dh above 512, or L above 8 with dh above 128)
+//   it reads the stage three times, for the logits, the norm and the output,
+//   recomputing what each pass needs (gate_head). The stage is never
+//   written. Results leave as 128-bit streaming stores.
 // * The consumers' arithmetic is on the critical path: with eight warps per
 //   SM, a row's 64 KB arrives about every 2.6 us at the card's rate, and a
 //   warp has that long for its head. Templates on the position bound and the
 //   options keep branches and dead sums out of the inner loops.
 // Shapes outside the ring's conditions (dh % 4 != 0, x, the gate kernel or
-// out not 16-byte aligned, or one head's L slices above a stage) take
+// out not 16-byte aligned, or one head's L slices above STAGE_BYTES) take
 // gate_simple_kernel: one warp per (row, head), scalar loads straight from
 // device memory, the same passes and the same arithmetic.
 
@@ -58,14 +76,18 @@ namespace {
 constexpr int MAX_L = 16;                               // positions; the wrapper checks L
 constexpr int CONSUMER_WARPS = 8;
 constexpr int RING_THREADS = (CONSUMER_WARPS + 1) * 32;  // + one producer warp
-constexpr int STAGES = 3;
-constexpr int STAGE_BYTES = 72 * 1024;                  // the most one stage holds
-constexpr int UNITS_PER_CTA = 4;                        // small rows pack down to this
-constexpr int BARRIER_BYTES = 16 * STAGES;              // full + empty mbarriers
+constexpr int STAGES = 3;                               // stages of packed rows or a head split
+constexpr int STAGE_BYTES = 72 * 1024;  // a stage of packed rows or of a head split at most
+constexpr int RING_BYTES = 224 * 1024;  // all stages of a ring together at most
+constexpr int UNITS_PER_CTA = 4;        // small rows pack down to this
 constexpr int SIMPLE_WARPS = 8;
 
-static_assert(STAGES * STAGE_BYTES + BARRIER_BYTES <= 232448,
-              "the ring exceeds the shared memory of an SM");
+// *route of laff_gate_attention: the ring kernel in one of its layouts, or
+// the simple kernel
+enum Route { ROUTE_PACKED_ROWS = 0, ROUTE_SIMPLE = 1, ROUTE_WHOLE_ROWS = 2, ROUTE_HEAD_SPLIT = 3 };
+
+static_assert(STAGES * STAGE_BYTES <= RING_BYTES, "packed rows exceed the ring");
+static_assert(RING_BYTES + 16 * STAGES <= 232448, "the ring exceeds the shared memory of an SM");
 
 // How the ring kernel cuts the batch into units.
 struct Geometry {
@@ -75,6 +97,8 @@ struct Geometry {
     int head_groups;   // units per group of rows: ceil(heads / unit_heads)
     int units;
     int stage_floats;  // rows * l * unit_heads * dh
+    int stages;        // 2 (whole rows) or STAGES
+    int route;         // the layout, a Route
 };
 
 template <int N>
@@ -244,17 +268,36 @@ __device__ __forceinline__ void gate_head(const float* xs, int ls, int L, int dh
     }
 }
 
+// The mean over the L positions of chunk c of a lane's registers.
+template <int LMAX, int CPL>
+__device__ __forceinline__ Vec<4> regs_mean(const Vec<4> (&xv)[LMAX][CPL], int c, int L,
+                                            float inv_l) {
+    Vec<4> m;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) m.v[i] = 0.0f;
+#pragma unroll
+    for (int l = 0; l < LMAX; ++l)
+        if (l < L)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) m.v[i] += xv[l][c].v[i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) m.v[i] *= inv_l;
+    return m;
+}
+
 // gate_head for a head that fits the lanes' registers: L <= LMAX and
 // dh <= 128 * CPL. Each lane loads its CPL float4 chunks of every position
 // from the stage once, and every step runs on those registers, in the same
-// order of operations as gate_head.
+// order of operations as gate_head. The mean is formed where it is used (the
+// logits with MUL, the residual with AVE), the same sum each time, so that
+// no more than the head and one chunk's sums are live at once: with 9 warps
+// a CTA, a thread has 168 registers, and LMAX 8 x CPL 4 holds 128 floats.
 template <int LMAX, int CPL, bool MUL, bool AVE>
 __device__ __forceinline__ void gate_head_regs(const float* xs, int ls, int L, int dh,
                                                const float* __restrict__ k, float bias_h, float g,
                                                float* __restrict__ dst, int lane) {
     const float inv_l = 1.0f / (float)L;
     Vec<4> xv[LMAX][CPL];
-    Vec<4> m[CPL];
     float w[LMAX];
 #pragma unroll
     for (int l = 0; l < LMAX; ++l) w[l] = 0.0f;
@@ -270,48 +313,38 @@ __device__ __forceinline__ void gate_head_regs(const float* xs, int ls, int L, i
                 for (int i = 0; i < 4; ++i) xv[l][c].v[i] = 0.0f;
             }
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) m[c].v[i] = 0.0f;
-        if (MUL || AVE) {
-#pragma unroll
-            for (int l = 0; l < LMAX; ++l)
-                if (l < L)
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) m[c].v[i] += xv[l][c].v[i];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) m[c].v[i] *= inv_l;
-        }
         if (d < dh) {
             const Vec<4> kv = load_ro<4>(k + d);
+            Vec<4> m;
+            if (MUL) m = regs_mean<LMAX, CPL>(xv, c, L, inv_l);
 #pragma unroll
             for (int l = 0; l < LMAX; ++l)
                 if (l < L)
 #pragma unroll
                     for (int i = 0; i < 4; ++i)
-                        w[l] = fmaf(MUL ? xv[l][c].v[i] * m[c].v[i] : xv[l][c].v[i], kv.v[i],
-                                    w[l]);
+                        w[l] = fmaf(MUL ? xv[l][c].v[i] * m.v[i] : xv[l][c].v[i], kv.v[i], w[l]);
         }
     }
     softmax_weights<LMAX>(w, L, bias_h);
 
+    Vec<4> o[CPL];
     float sq = 0.0f;
 #pragma unroll
     for (int c = 0; c < CPL; ++c) {
-        Vec<4> o;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) o.v[i] = 0.0f;
+        for (int i = 0; i < 4; ++i) o[c].v[i] = 0.0f;
 #pragma unroll
         for (int l = 0; l < LMAX; ++l)
             if (l < L)
 #pragma unroll
-                for (int i = 0; i < 4; ++i) o.v[i] = fmaf(w[l], xv[l][c].v[i], o.v[i]);
+                for (int i = 0; i < 4; ++i) o[c].v[i] = fmaf(w[l], xv[l][c].v[i], o[c].v[i]);
         if (AVE) {
+            const Vec<4> m = regs_mean<LMAX, CPL>(xv, c, L, inv_l);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) o.v[i] += g * m[c].v[i] * (float)L;
+            for (int i = 0; i < 4; ++i) o[c].v[i] += g * m.v[i] * (float)L;
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) sq = fmaf(o.v[i], o.v[i], sq);
-        m[c] = o;  // the mean is spent; keep the output
+        for (int i = 0; i < 4; ++i) sq = fmaf(o[c].v[i], o[c].v[i], sq);
     }
     const float inv_norm = 1.0f / (sqrtf(warp_sum(sq)) + 1e-14f);
 #pragma unroll
@@ -319,8 +352,8 @@ __device__ __forceinline__ void gate_head_regs(const float* xs, int ls, int L, i
         const int d = 4 * lane + 128 * c;
         if (d < dh) {
 #pragma unroll
-            for (int i = 0; i < 4; ++i) m[c].v[i] *= inv_norm;
-            store_streaming<4>(dst + d, m[c]);
+            for (int i = 0; i < 4; ++i) o[c].v[i] *= inv_norm;
+            store_streaming<4>(dst + d, o[c]);
         }
     }
 }
@@ -342,33 +375,38 @@ __global__ void __launch_bounds__(RING_THREADS, 1)
 gate_ring_kernel(const float* __restrict__ x, const float* __restrict__ kernel,
                  const float* __restrict__ bias, const float* __restrict__ g_ptr,
                  const Geometry geo, float* __restrict__ out) {
-    // STAGES stages of stage_floats, then the barriers. A stage holds a unit
-    // as (rows, l, hn, dh): whole rows as they lie in x, or one row's head
-    // group, one copy per position.
+    // geo.stages stages of stage_floats, then the barriers. A stage holds a
+    // unit as (rows, l, hn, dh): whole rows as they lie in x, or one row's
+    // head split, one copy per position.
     extern __shared__ __align__(16) float ring[];
     const uint32_t stage_bytes = (uint32_t)geo.stage_floats * 4u;
-    const uint32_t full = smem_u32(ring) + STAGES * stage_bytes;  // stage loaded
-    const uint32_t empty = full + 8 * STAGES;                      // stage consumed
+    const uint32_t full = smem_u32(ring) + geo.stages * stage_bytes;  // stage loaded
+    const uint32_t empty = full + 8 * geo.stages;                      // stage consumed
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
 
     if (threadIdx.x == 0) {
+#pragma unroll
         for (int s = 0; s < STAGES; ++s) {
-            mbar_init(full + 8 * s, 1);
-            mbar_init(empty + 8 * s, CONSUMER_WARPS);  // one arrival per consumer warp
+            if (s < geo.stages) {
+                mbar_init(full + 8 * s, 1);
+                mbar_init(empty + 8 * s, CONSUMER_WARPS);  // one arrival per consumer warp
+            }
         }
         mbar_init_fence();
     }
     __syncthreads();
 
+    // The CTA's r-th unit uses stage r % geo.stages in phase (r / geo.stages)
+    // & 1, both counted rather than divided.
     int b0, rows, h0, hn;
     if (warp == CONSUMER_WARPS) {
         // producer: one thread keeps the ring full
         if (lane == 0) {
-            int r = 0;
-            for (int u = blockIdx.x; u < geo.units; u += gridDim.x, ++r) {
-                const int stage = r % STAGES;
-                mbar_wait(empty + 8 * stage, ((r / STAGES) & 1) ^ 1);
+            int stage = 0;
+            uint32_t phase = 0;
+            for (int u = blockIdx.x; u < geo.units; u += gridDim.x) {
+                mbar_wait(empty + 8 * stage, phase ^ 1);
                 unit_span(geo, u, b0, rows, h0, hn);
                 const uint32_t bar = full + 8 * stage;
                 const uint32_t dst = smem_u32(ring) + stage * stage_bytes;
@@ -383,6 +421,10 @@ gate_ring_kernel(const float* __restrict__ x, const float* __restrict__ kernel,
                     for (int l = 0; l < geo.l; ++l)
                         bulk_load(dst + l * slice, src + (size_t)l * geo.heads * geo.dh, slice, bar);
                 }
+                if (++stage == geo.stages) {
+                    stage = 0;
+                    phase ^= 1;
+                }
             }
         }
         return;
@@ -390,10 +432,10 @@ gate_ring_kernel(const float* __restrict__ x, const float* __restrict__ kernel,
 
     // consumers: one warp per (row, head) of the unit
     const float g = AVE ? __ldg(g_ptr) : 0.0f;
-    int r = 0;
-    for (int u = blockIdx.x; u < geo.units; u += gridDim.x, ++r) {
-        const int stage = r % STAGES;
-        mbar_wait(full + 8 * stage, (r / STAGES) & 1);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int u = blockIdx.x; u < geo.units; u += gridDim.x) {
+        mbar_wait(full + 8 * stage, phase);
         unit_span(geo, u, b0, rows, h0, hn);
         const float* tile = ring + (size_t)stage * geo.stage_floats;
         for (int task = warp; task < rows * hn; task += CONSUMER_WARPS) {
@@ -413,6 +455,10 @@ gate_ring_kernel(const float* __restrict__ x, const float* __restrict__ kernel,
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + 8 * stage);
+        if (++stage == geo.stages) {
+            stage = 0;
+            phase ^= 1;
+        }
     }
 }
 
@@ -440,17 +486,23 @@ Geometry ring_geometry(int b, int l, int heads, int dh, int sms) {
     geo.l = l;
     geo.heads = heads;
     geo.dh = dh;
+    geo.rows = 1;
+    geo.unit_heads = heads;
+    geo.stages = STAGES;
     const long long head_bytes = (long long)l * dh * 4;
     const long long row_bytes = head_bytes * heads;
-    if (row_bytes <= STAGE_BYTES) {
+    if (row_bytes <= STAGE_BYTES) {  // packed rows
         const long long fit = STAGE_BYTES / row_bytes;
         const long long per_unit = (long long)sms * UNITS_PER_CTA;
         const long long want = (b + per_unit - 1) / per_unit;
         geo.rows = (int)(want < fit ? want : fit);
-        geo.unit_heads = heads;
-    } else {
-        geo.rows = 1;
+        geo.route = ROUTE_PACKED_ROWS;
+    } else if (2 * row_bytes <= RING_BYTES) {  // whole rows, two stages of one row
+        geo.stages = 2;
+        geo.route = ROUTE_WHOLE_ROWS;
+    } else {  // head split; the wrapper keeps head_bytes <= STAGE_BYTES
         geo.unit_heads = (int)(STAGE_BYTES / head_bytes);
+        geo.route = ROUTE_HEAD_SPLIT;
     }
     geo.head_groups = (heads + geo.unit_heads - 1) / geo.unit_heads;
     geo.units = ((b + geo.rows - 1) / geo.rows) * geo.head_groups;
@@ -471,10 +523,13 @@ RingKernel ring_kernel(int mul, int ave) {
 }
 
 // Heads in registers where 16 float4s a lane hold them (L 4 x dh 512, L 8 x
-// dh 256, L 16 x dh 128), else read from the stage in passes.
+// dh 256, L 16 x dh 128) or 32 do (L 8 x dh 512: 128 floats a lane, within
+// the 168 registers a thread that ptxas allows a CTA of nine warps), else
+// read from the stage in passes.
 RingKernel pick_ring_kernel(int l, int dh, int mul, int ave) {
     if (l <= 4 && dh <= 512) return ring_kernel<4, 4>(mul, ave);
     if (l <= 8 && dh <= 256) return ring_kernel<8, 2>(mul, ave);
+    if (l <= 8 && dh <= 512) return ring_kernel<8, 4>(mul, ave);
     if (dh <= 128) return ring_kernel<MAX_L, 1>(mul, ave);
     return ring_kernel<MAX_L, 0>(mul, ave);
 }
@@ -489,8 +544,9 @@ SimpleKernel pick_simple_kernel(int mul, int ave) {
 // C interface (bound with ctypes). x (b, l, heads, dh), kernel (heads, dh),
 // bias (heads,), out (b, heads, dh): contiguous f32 device pointers, with
 // 1 <= l <= 16; g: one f32 on the device, read only when with_ave (may be
-// null otherwise). *route receives the kernel launched: 0 the ring kernel,
-// 1 the simple kernel. Returns the CUDA error code of the launch (0 = success).
+// null otherwise). *route receives the kernel launched: 1 the simple kernel;
+// 0, 2 or 3 the ring kernel with packed rows, whole rows or a head split (a
+// Route). Returns the CUDA error code of the launch (0 = success).
 extern "C" int laff_gate_attention(const float* x, const float* kernel, const float* bias,
                                    const float* g, int b, int l, int heads, int dh, int with_ave,
                                    int mul, float* out, int* route, void* stream) {
@@ -506,7 +562,7 @@ extern "C" int laff_gate_attention(const float* x, const float* kernel, const fl
                                 reinterpret_cast<uintptr_t>(out);
     if (dh % 4 == 0 && addresses % 16 == 0 && (long long)l * dh * 4 <= STAGE_BYTES) {
         const Geometry geo = ring_geometry(b, l, heads, dh, sms);
-        const int smem = STAGES * geo.stage_floats * 4 + BARRIER_BYTES;
+        const int smem = geo.stages * (geo.stage_floats * 4 + 16);  // stages and barriers
         const RingKernel fn = pick_ring_kernel(l, dh, mul, with_ave);
         // the last launch's settings, so a loop of equal calls asks once
         static RingKernel last_fn = nullptr;
@@ -526,14 +582,14 @@ extern "C" int laff_gate_attention(const float* x, const float* kernel, const fl
         const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
         const int grid = (int)(geo.units < slots ? geo.units : slots);
         fn<<<grid, RING_THREADS, smem, s>>>(x, kernel, bias, g, geo, out);
-        *route = 0;
+        *route = geo.route;
     } else {
         const SimpleKernel fn = pick_simple_kernel(mul, with_ave);
         const long long blocks = ((long long)b * heads + SIMPLE_WARPS - 1) / SIMPLE_WARPS;
         const long long most = (long long)sms * 16;
         fn<<<(int)(blocks < most ? blocks : most), SIMPLE_WARPS * 32, 0, s>>>(
             x, kernel, bias, g, b, l, heads, dh, out);
-        *route = 1;
+        *route = ROUTE_SIMPLE;
     }
     return (int)cudaGetLastError();
 }

@@ -9,9 +9,10 @@ Kernels (sources in ``laff_tpu_torch/csrc``):
   sim_rank_tiled  the same ranks for larger galleries, ground-truth scores
                   from a separate f32 reduction (csrc/sim_rank.cu)
   gate_attention  the fused LAFF multi-head gate (csrc/gate.cu): a
-                  persistent bulk-copy ring kernel, and a simple kernel
-                  (counted as gate_attention_simple) for shapes outside
-                  the ring's conditions
+                  persistent bulk-copy ring kernel (its launches also
+                  counted by layout and L in GATE_LAUNCHES), and a simple
+                  kernel (counted as gate_attention_simple) for shapes
+                  outside the ring's conditions
 
 Each wrapper serves a CPU tensor with its plain version and a CUDA tensor
 with its kernel; any other device raises. There is no fallback from the
@@ -32,7 +33,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -73,6 +74,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    GATE_LAUNCHES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -285,13 +287,36 @@ def fused_sim_rank(txt, vis, gt_cols, prenormalized: bool = False):
 # fused LAFF gate (replaces pallas_kernels.fused_gate_attention)
 # ---------------------------------------------------------------------------
 
-# the limits of csrc/gate.cu: at most GATE_MAX_L positions; the ring kernel
-# takes dh % 4 == 0, 16-byte-aligned x, gate kernel and output, and one
-# head's L slices within a stage of GATE_STAGE_BYTES; other shapes take the
-# simple kernel (the C entry point chooses and reports which)
+# the limits and the routing of csrc/gate.cu: at most GATE_MAX_L positions;
+# the ring kernel takes dh % 4 == 0, 16-byte-aligned x, gate kernel and
+# output, and one head's L slices within GATE_STAGE_BYTES; other shapes take
+# the simple kernel. The C entry point chooses, and reports its choice as a
+# route: an index into _GATE_ROUTES, the name LAUNCHES counts and the layout
 GATE_MAX_L = 16
 GATE_STAGE_BYTES = 72 * 1024
-_GATE_ROUTES = ("gate_attention", "gate_attention_simple")
+GATE_RING_BYTES = 224 * 1024
+_GATE_ROUTES = (("gate_attention", "packed_rows"), ("gate_attention_simple", "simple"),
+                ("gate_attention", "whole_rows"), ("gate_attention", "head_split"))
+
+# gate launches by (layout, L); reset_launches zeroes it with LAUNCHES
+GATE_LAUNCHES: Dict[Tuple[str, int], int] = {}
+
+
+def gate_layout(length: int, heads: int, dh: int, aligned: bool = True) -> str:
+    """The layout of _GATE_ROUTES that ``laff_gate_attention`` of
+    csrc/gate.cu reports for x (B, length, heads, dh): the simple kernel, or
+    the ring kernel with rows of at most GATE_STAGE_BYTES packed into its
+    stages, rows up to half of GATE_RING_BYTES whole in two stages, or
+    larger rows split by heads. ``aligned``: x, the gate kernel and the
+    output all lie on 16-byte boundaries."""
+    head_bytes = length * dh * 4
+    if dh % 4 or not aligned or head_bytes > GATE_STAGE_BYTES:
+        return "simple"
+    if head_bytes * heads <= GATE_STAGE_BYTES:
+        return "packed_rows"
+    if 2 * head_bytes * heads <= GATE_RING_BYTES:
+        return "whole_rows"
+    return "head_split"
 
 
 def fused_gate_attention_plain(x, gate_kernel, gate_bias, global_weight=1.0,
@@ -364,5 +389,7 @@ def fused_gate_attention(x, gate_kernel, gate_bias, global_weight=1.0,
         x.data_ptr(), gate_kernel.data_ptr(), gate_bias.data_ptr(),
         None if g is None else g.data_ptr(), b, length, heads, dh, int(with_ave), int(mul),
         out.data_ptr(), ctypes.byref(route), _stream(x.device))
-    _check_launch(err, _GATE_ROUTES[route.value])
+    name, layout = _GATE_ROUTES[route.value]
+    _check_launch(err, name)
+    GATE_LAUNCHES[(layout, length)] = GATE_LAUNCHES.get((layout, length), 0) + 1
     return out

@@ -95,13 +95,44 @@ def test_gate_cpu_call_launches_no_kernel(rng):
 
 
 def test_gate_constants_match_the_kernel_source():
-    """The wrapper's position limit and the ring's stage size are those of
-    csrc/gate.cu."""
+    """The wrapper's position limit and the constants of its mirror of the
+    ring's routing are those of csrc/gate.cu."""
     text = (K._CSRC / "gate.cu").read_text()
     assert f"constexpr int MAX_L = {K.GATE_MAX_L};" in text
-    assert K.GATE_STAGE_BYTES % 1024 == 0
-    assert f"constexpr int STAGE_BYTES = {K.GATE_STAGE_BYTES // 1024} * 1024;" in text
-    assert set(K._GATE_ROUTES) <= set(K.LAUNCHES)
+    for name, value in (("STAGE_BYTES", K.GATE_STAGE_BYTES), ("RING_BYTES", K.GATE_RING_BYTES)):
+        assert value % 1024 == 0
+        assert f"constexpr int {name} = {value // 1024} * 1024;" in text
+    routes = ("ROUTE_PACKED_ROWS = 0, ROUTE_SIMPLE = 1, ROUTE_WHOLE_ROWS = 2, "
+              "ROUTE_HEAD_SPLIT = 3")
+    assert routes in text
+    assert [layout for _, layout in K._GATE_ROUTES] == [
+        "packed_rows", "simple", "whole_rows", "head_split"]
+    assert {name for name, _ in K._GATE_ROUTES} <= set(K.LAUNCHES)
+
+
+@pytest.mark.parametrize("shape,aligned,want", [
+    # the LAFF-ml towers' L 4 (64 KB rows): packed rows
+    ((4, 8, 512), True, "packed_rows"),
+    ((2, 8, 256), True, "packed_rows"),
+    ((16, 1, 1024), True, "packed_rows"),
+    # FrameLAFF's video tower, L 5 (80 KB rows), and up to L 7 (112 KB):
+    # two stages of one whole row
+    ((5, 8, 512), True, "whole_rows"),
+    ((6, 8, 512), True, "whole_rows"),
+    ((7, 8, 512), True, "whole_rows"),
+    # larger rows: split by heads
+    ((8, 8, 512), True, "head_split"),
+    ((5, 16, 512), True, "head_split"),
+    ((16, 16, 128), True, "head_split"),
+    ((5, 31, 256), True, "head_split"),
+    # outside the ring's conditions: the simple kernel
+    ((16, 2, 2048), True, "simple"),
+    ((4, 8, 130), True, "simple"),
+    ((4, 8, 512), False, "simple"),
+])
+def test_gate_layout_mirrors_the_ring_geometry(shape, aligned, want):
+    """gate_layout gives the route csrc/gate.cu's entry point reports."""
+    assert K.gate_layout(*shape, aligned=aligned) == want
 
 
 def test_mbarrier_helpers_live_in_one_header():

@@ -134,9 +134,13 @@ def test_flatten_heads_equals_multihead_mean(rng):
                                rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("with_ave,mul", [(True, False), (False, False), (True, True)])
-def test_gate_plain_matches_jax_kernel_and_flax(rng, with_ave, mul):
-    b, l, h, dh = 12, 4, 4, 16
+# L 4 (LAFF-ml's towers), 5 (FrameLAFF's video tower) and 8 (the most the
+# ring kernel's register path holds at dh 512); the L 4 cases keep their ids
+@pytest.mark.parametrize("l,with_ave,mul", [
+    pytest.param(l, with_ave, mul, id=f"{with_ave}-{mul}" if l == 4 else f"L{l}-{with_ave}-{mul}")
+    for l in (4, 5, 8) for with_ave, mul in ((True, False), (False, False), (True, True))])
+def test_gate_plain_matches_jax_kernel_and_flax(rng, l, with_ave, mul):
+    b, h, dh = 12, 4, 16
     x = rng.standard_normal((b, l, h * dh)).astype(np.float32)
     mod = FlaxGate(heads=h, with_ave=with_ave, mul=mul, split_head=True)
     variables = mod.init(jax.random.key(0), jnp.asarray(x))
