@@ -75,6 +75,7 @@ from ..ops import (cosine_sim, flatten_heads, fused_sim_rank, hist_scores, int8_
                    multi_head_cosine_sim, quantize_rows)
 from ..parallel.mesh import Mesh, shard_batch
 from ..utils import get_logger
+from ..utils.trace import span
 
 logger = get_logger(__name__)
 
@@ -158,11 +159,14 @@ class Embedder:
     (``device_batches``): the same embeddings, but a slower pass on an
     H100 machine (``chip_smoke.py``'s ``eval_cast_timing``). With a
     ``mesh`` of several ranks each batch's rows are split over the ranks
-    and gathered back (the feed's batch size must divide by the world)."""
+    and gathered back (the feed's batch size must divide by the world).
+    ``passes`` counts the ``validate`` passes run with it, which name their
+    spans (``pass=<n>``)."""
 
     def __init__(self, model, device: torch.device, prefetch_depth: int = 2,
                  host_cast: bool = False, mesh: Optional[Mesh] = None):
         self.model = model
+        self.passes = 0
         self.device = torch.device(device)
         self.prefetch_depth = max(1, prefetch_depth)
         self.host_cast = host_cast
@@ -574,9 +578,10 @@ def t2v_ranks(txt_embs: torch.Tensor, vis_embs: torch.Tensor, txt_ids: List[str]
     path."""
     if measure not in ("cosine", "hist"):
         raise ValueError(f"measure {measure!r} is not 'cosine' or 'hist'")
-    vid_index = {v: i for i, v in enumerate(vis_ids)}
-    gt = torch.as_tensor([vid_index[t.split("#")[0]] for t in txt_ids],
-                         dtype=torch.int32, device=txt_embs.device)
+    with span("eval.gt_index"):
+        vid_index = {v: i for i, v in enumerate(vis_ids)}
+        gt = torch.as_tensor([vid_index[t.split("#")[0]] for t in txt_ids],
+                             dtype=torch.int32, device=txt_embs.device)
     n, v = txt_embs.shape[0], vis_embs.shape[0]
     heads = txt_embs.shape[1] if txt_embs.ndim == 3 else 1
     if measure == "hist":
@@ -593,12 +598,16 @@ def t2v_ranks(txt_embs: torch.Tensor, vis_embs: torch.Tensor, txt_ids: List[str]
     path = rank_path_for(min(block, n), v, txt_embs.dtype, txt_embs.device.type, rank_path,
                          measure)
     if path == "kernel":
-        return fused_sim_rank(tn, vn, gt, prenormalized=True).cpu().numpy()
+        ranks = fused_sim_rank(tn, vn, gt, prenormalized=True)
+        with span("eval.readback"):
+            return ranks.cpu().numpy()
     block = min(n, max(block, rows)) if path == "flat" else min(block, rows)
     ranks = np.empty((n,), dtype=np.int32)
     for start in range(0, n, block):
         stop = min(start + block, n)
-        ranks[start:stop] = ranks_from_scores(scores(start, stop), gt[start:stop]).cpu().numpy()
+        block_ranks = ranks_from_scores(scores(start, stop), gt[start:stop])
+        with span("eval.readback"):
+            ranks[start:stop] = block_ranks.cpu().numpy()
     return ranks
 
 
@@ -609,21 +618,34 @@ def validate(embedder: Embedder, txt_feed: EvalFeed, vis_feed: EvalFeed,
     ranks and ids. The model runs in eval mode under no_grad, so on the
     card the towers take the gate kernel, and ``rank_path`` picks the rank
     path as in the predictor. With a mesh, rank 0 alone ranks and every
-    rank returns its metrics ('ranks' None on the others)."""
+    rank returns its metrics ('ranks' None on the others).
+
+    Spans (``utils.trace``), each with the pass's id: ``eval.validate``
+    around the pass; inside it ``eval.embed_vis`` and ``eval.embed_txt``
+    around the towers' batch loops, ``eval.ranks`` around ``t2v_ranks``
+    (inside it ``eval.gt_index`` and ``eval.readback``) and
+    ``eval.metrics``."""
+    embedder.passes += 1
+    tag = f"pass={embedder.passes}"
     model = embedder.model
     was_training = model.training
     model.eval()
     ranks, metrics = None, None
-    try:
-        vis_embs, vis_ids = embedder.embed_vis(vis_feed)
-        txt_embs, txt_ids = embedder.embed_txt(txt_feed)
-        if embedder.is_main:
-            ranks = t2v_ranks(txt_embs, vis_embs, txt_ids, vis_ids, measure=measure,
-                              rank_path=rank_path)
-            names = ("r1", "r5", "r10", "medr", "meanr", "mir", "mAP")
-            metrics = {k: float(v) for k, v in zip(names, metrics_from_ranks(ranks))}
-    finally:
-        model.train(was_training)
-    if embedder.mesh is not None:
-        metrics = embedder.mesh.broadcast_object(metrics)
+    with span("eval.validate", tag):
+        try:
+            with span("eval.embed_vis", tag):
+                vis_embs, vis_ids = embedder.embed_vis(vis_feed)
+            with span("eval.embed_txt", tag):
+                txt_embs, txt_ids = embedder.embed_txt(txt_feed)
+            if embedder.is_main:
+                with span("eval.ranks", tag):
+                    ranks = t2v_ranks(txt_embs, vis_embs, txt_ids, vis_ids, measure=measure,
+                                      rank_path=rank_path)
+                names = ("r1", "r5", "r10", "medr", "meanr", "mir", "mAP")
+                with span("eval.metrics", tag):
+                    metrics = {k: float(v) for k, v in zip(names, metrics_from_ranks(ranks))}
+        finally:
+            model.train(was_training)
+        if embedder.mesh is not None:
+            metrics = embedder.mesh.broadcast_object(metrics)
     return {**metrics, "ranks": ranks, "txt_ids": txt_ids, "vis_ids": vis_ids}

@@ -58,7 +58,14 @@
   graph replayed K times.
 
 ``ScalarLogger`` writes ``scalars.tsv``, and TensorBoard events beside it
-with ``LAFF_TPU_TENSORBOARD=1``.
+with ``LAFF_TPU_TENSORBOARD=1``. With ``LAFF_TPU_PROFILE=<dir>`` ``main``
+runs epoch 1 (its steps and its validation) under ``torch.profiler`` and
+writes a Chrome trace into ``<dir>``, holding the port's ``laff.*`` spans
+(``utils.trace``): ``train.dispatch`` around each ``EpochStream.advance``,
+inside it ``train.feed_wait`` (the batches from the ``Prefetcher``),
+``train.enqueue`` (the fills and graph replays, or the eager step) and
+``train.loss_read``; ``train.begin_epoch`` and ``train.open_stream``; and
+the ``eval.*`` spans of ``evaluator.validate``.
 
 Data parallelism (``main(opt, mesh=...)``, or ``--data_parallel N`` over
 several cards, which launches min(N, cards) ranks through
@@ -85,6 +92,7 @@ raises on every rank when only some ranks see ``model_resume.pth.tar``
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import threading
@@ -111,6 +119,7 @@ from ..ops.losses import (
 from ..parallel.mesh import (Mesh, ShardedGenerator, gather_rows, launch, replicate,
                              shard_batch)
 from ..utils import AverageMeter, Progress, get_logger
+from ..utils.trace import span
 from .checkpoint import (average_states, checkpoint_payload, load_checkpoint, save_checkpoint,
                          save_checkpoint_dance)
 from .evaluator import Embedder, validate
@@ -127,6 +136,7 @@ CACHE_BUDGET_ENV = "LAFF_TPU_CACHE_BUDGET"
 CACHE_BUDGET_DEFAULT = 4 * 1024**3  # bytes of device memory for both train caches
 GRAPH_WARMUP = 3  # eager steps on a side stream before a capture (torch's advice)
 TENSORBOARD_ENV = "LAFF_TPU_TENSORBOARD"  # "1": TensorBoard events beside scalars.tsv
+PROFILE_ENV = "LAFF_TPU_PROFILE"  # a directory: a torch.profiler trace of epoch 1 there
 
 Batch = Union[torch.Tensor, Dict[str, torch.Tensor]]  # arrays, or cache row indices
 # task3 rides the text batch: the false caption's arrays under this prefix,
@@ -582,6 +592,7 @@ class EpochStream:
         self.k = multi_step.k if multi_step is not None else 1
         self.pending: List[torch.Tensor] = []
         self.n = self.n_pending = 0
+        self.epoch, self.dispatches = epoch, 0
         self.done = False
         pin = device.type == "cuda"
 
@@ -598,17 +609,18 @@ class EpochStream:
                                   depth=prefetch_depth)
 
     def _read(self, in_window: bool) -> None:
-        if in_window and self.debug:
-            torch.cuda.set_sync_debug_mode(0)
-        vals = torch.cat(self.pending).cpu().numpy()
-        if in_window and self.debug:
-            torch.cuda.set_sync_debug_mode("error")
-        for v in vals:
-            self.meter.update(float(v))
-        if self.scalar_log is not None:
-            self.scalar_log.add_scalar("train/Loss", float(vals[-1]), self.step0 + self.n)
-        self.pending.clear()
-        self.n_pending = 0
+        with span("train.loss_read"):
+            if in_window and self.debug:
+                torch.cuda.set_sync_debug_mode(0)
+            vals = torch.cat(self.pending).cpu().numpy()
+            if in_window and self.debug:
+                torch.cuda.set_sync_debug_mode("error")
+            for v in vals:
+                self.meter.update(float(v))
+            if self.scalar_log is not None:
+                self.scalar_log.add_scalar("train/Loss", float(vals[-1]), self.step0 + self.n)
+            self.pending.clear()
+            self.n_pending = 0
 
     def _dispatch(self, batches) -> None:
         if self.multi_step is not None:
@@ -627,18 +639,22 @@ class EpochStream:
         if self.debug:
             torch.cuda.set_sync_debug_mode("error")
         try:
-            for args in self.batches:
-                group.append(args)
-                self.progress.add(self.batch_size)
-                if len(group) == self.k:
-                    break
-            if group:
-                self._dispatch(group)
-                if self.n_pending >= self.log_every:
-                    self._read(True)
+            with span("train.dispatch", f"epoch={self.epoch} dispatch={self.dispatches}"):
+                with span("train.feed_wait"):
+                    for args in self.batches:
+                        group.append(args)
+                        self.progress.add(self.batch_size)
+                        if len(group) == self.k:
+                            break
+                if group:
+                    with span("train.enqueue"):
+                        self._dispatch(group)
+                    if self.n_pending >= self.log_every:
+                        self._read(True)
         finally:
             if self.debug:
                 torch.cuda.set_sync_debug_mode(0)
+        self.dispatches += 1
         self.done = len(group) < self.k  # the prefetcher is through: never read it again
         return bool(group)
 
@@ -984,24 +1000,26 @@ class TrainRun:
         return payload
 
     def begin_epoch(self, epoch: int) -> None:
-        self.t_epoch = time.time()
-        self.lr = self.lr_ctl.current()
-        self.optimizer.set_learning_rate(self.lr)
-        anneal_schedule(self.model, self.config.txt_attention_global_decay_rate)
-        self.base.set_epoch(epoch)
-        self.scalar_log.add_scalar("train/learning_rate", self.lr, epoch)
-        logger.info("Epoch %d/%d lr=%.6g", epoch, self.opt.num_epochs, self.lr)
+        with span("train.begin_epoch", f"epoch={epoch}"):
+            self.t_epoch = time.time()
+            self.lr = self.lr_ctl.current()
+            self.optimizer.set_learning_rate(self.lr)
+            anneal_schedule(self.model, self.config.txt_attention_global_decay_rate)
+            self.base.set_epoch(epoch)
+            self.scalar_log.add_scalar("train/learning_rate", self.lr, epoch)
+            logger.info("Epoch %d/%d lr=%.6g", epoch, self.opt.num_epochs, self.lr)
 
     def epoch_stream(self, epoch: int) -> EpochStream:
         """The epoch's main feed as an ``EpochStream`` of this run's dispatch."""
         d, opt = self.dispatch, self.opt
-        return EpochStream(
-            d["step"], self.prepared.train_feed, epoch, self.device,
-            generator=epoch_generator(self.device, opt.random_seed, epoch, self.generator),
-            scalar_log=self.scalar_log, prefetch_depth=d["prefetch_depth"],
-            step0=self.global_step, sync_debug=bool(opt.sync_debug),
-            multi_step=d["multi_step"], vis_cache=d["vis_cache"], txt_cache=d["txt_cache"],
-            cast_txt=self.cast_txt, cast_vis=self.cast_vis, mesh=self.mesh)
+        with span("train.open_stream", f"epoch={epoch}"):
+            return EpochStream(
+                d["step"], self.prepared.train_feed, epoch, self.device,
+                generator=epoch_generator(self.device, opt.random_seed, epoch, self.generator),
+                scalar_log=self.scalar_log, prefetch_depth=d["prefetch_depth"],
+                step0=self.global_step, sync_debug=bool(opt.sync_debug),
+                multi_step=d["multi_step"], vis_cache=d["vis_cache"], txt_cache=d["txt_cache"],
+                cast_txt=self.cast_txt, cast_vis=self.cast_vis, mesh=self.mesh)
 
     def finish_stream(self, stream: EpochStream):
         loss, steps = stream.finish()
@@ -1132,6 +1150,26 @@ def validation_feeds(opt: Options, prepared: Prepared):
     return val_txt_feed, val_vis_feed
 
 
+@contextlib.contextmanager
+def profiled(path: Optional[str], device: torch.device):
+    """The block under ``torch.profiler`` (the card's activity too on a
+    card, operator inputs recorded so the spans keep their ids), its Chrome
+    trace written to ``path``; with no ``path`` the block alone."""
+    if not path:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, record_shapes=True) as prof:
+        yield
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    prof.export_chrome_trace(path)
+    logger.info("profiler trace written to %s", path)
+
+
 def _main_rank(mesh: Mesh, opt: Options) -> Dict:
     """One rank of a launched data-parallel ``main``: its result without the
     model (rank 0's is returned to the launcher's caller)."""
@@ -1177,12 +1215,19 @@ def main(opt: Options, prepared: Optional[Prepared] = None, mesh: Optional[Mesh]
     if prepared is None:
         prepared = prepare_ranks(opt, mesh)
     run = TrainRun(opt, prepared, device, prepare_seconds=time.time() - t_prepare, mesh=mesh)
+    profile_dir = os.environ.get(PROFILE_ENV)
+    rank = mesh.rank if mesh is not None else 0
     try:
         for epoch in range(run.start_epoch, opt.num_epochs):
-            run.begin_epoch(epoch)
-            t0 = time.time()
-            train_loss, steps = run.train_epoch(epoch)
-            if run.end_epoch(epoch, train_loss, steps, time.time() - t0):
+            # epoch 1: the steady state, after epoch 0's first use of every path
+            trace = (os.path.join(profile_dir, f"epoch_1.rank_{rank}.json")
+                     if profile_dir and epoch == 1 else None)
+            with profiled(trace, device):
+                run.begin_epoch(epoch)
+                t0 = time.time()
+                train_loss, steps = run.train_epoch(epoch)
+                stopped = run.end_epoch(epoch, train_loss, steps, time.time() - t0)
+            if stopped:
                 break
         run.saver.join()
     except BaseException:
